@@ -1,0 +1,51 @@
+"""mxnet_tpu_torch — the PyTorch/CUDA port of ``mxnet_tpu``.
+
+The JAX package ``mxnet_tpu`` stays the reference; this package keeps
+its module names and public API (``import mxnet_tpu_torch as mx``) over
+torch tensors, and replaces each of its TPU (Pallas) kernels with a
+kernel written by hand for NVIDIA Hopper. It imports nothing of JAX and
+nothing of ``mxnet_tpu``.
+
+Entry points run on ``gpu(0)`` unless the caller asks for the host::
+
+    import mxnet_tpu_torch as mx
+    a = mx.nd.ones((2, 3))                  # on cuda:0
+    with mx.cpu():
+        b = mx.nd.ones((2, 3))              # on the host
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from .base import MXNetError
+from .context import Context, cpu, gpu, tpu, current_context, num_gpus
+from . import random
+from . import ndarray
+from . import ndarray as nd
+from . import autograd
+from . import name
+from .ndarray import NDArray
+
+_LAZY = {
+    "gluon": ".gluon",
+    "initializer": ".initializer",
+    "init": ".initializer",
+    "serving": ".serving",
+    "cached_op": ".cached_op",
+}
+
+
+def __getattr__(attr):
+    target = _LAZY.get(attr)
+    if target is None:
+        raise AttributeError("module 'mxnet_tpu_torch' has no attribute %r"
+                             % attr)
+    import importlib
+
+    mod = importlib.import_module(target, __name__)
+    globals()[attr] = mod
+    return mod
+
+
+def waitall():
+    ndarray.waitall()

@@ -1,0 +1,63 @@
+"""Foundation types of the PyTorch port.
+
+Counterpart of ``mxnet_tpu/base.py``: the framework error type and the
+dtype vocabulary. MXNet names dtypes with numpy names; numpy has no
+bfloat16, so every dtype argument of the port goes through
+:func:`torch_dtype`, which accepts numpy dtypes, their names, the name
+``"bfloat16"`` and torch dtypes alike.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "mx_real_t", "torch_dtype", "dtype_name",
+           "numpy_dtype", "numeric_types", "string_types"]
+
+
+class MXNetError(RuntimeError):
+    """Framework error type (reference: python/mxnet/base.py:MXNetError)."""
+
+
+string_types = (str,)
+numeric_types = (float, int, np.generic)
+
+# Default real type (reference: mx_real_t = np.float32).
+mx_real_t = np.float32
+
+_BY_NAME = {
+    "float16": torch.float16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8,
+    "int8": torch.int8,
+    "int16": torch.int16,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "bool": torch.bool,
+}
+_NAME_OF = {v: k for k, v in _BY_NAME.items()}
+
+
+def torch_dtype(dtype):
+    """Map a dtype in any of the accepted spellings to a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    try:
+        return _BY_NAME[name]
+    except KeyError:
+        raise TypeError("unsupported dtype %r" % (dtype,)) from None
+
+
+def dtype_name(dtype):
+    """Canonical name (``"float32"``, ``"bfloat16"``, ...) of a dtype."""
+    return _NAME_OF[torch_dtype(dtype)]
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype an array of `dtype` converts to on the host:
+    bfloat16, which numpy lacks, widens to float32."""
+    name = dtype_name(dtype)
+    return np.dtype(np.float32 if name == "bfloat16" else name)

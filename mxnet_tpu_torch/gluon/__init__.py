@@ -1,0 +1,9 @@
+"""Gluon — the imperative-first user API (counterpart of
+``mxnet_tpu/gluon/``)."""
+from . import parameter
+from .parameter import Parameter, ParameterDict
+from . import block
+from .block import Block, HybridBlock
+from . import nn
+from . import utils
+from . import model_zoo

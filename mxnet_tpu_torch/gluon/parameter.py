@@ -1,0 +1,230 @@
+"""Gluon Parameter / ParameterDict.
+
+Counterpart of ``mxnet_tpu/gluon/parameter.py``: parameters with
+deferred shape inference, one NDArray per context, and ``override()``,
+the thread-local scope in which ``Parameter.data()`` returns a mapped
+array and ``set_data`` is captured instead of applied. The port's
+CachedOp passes parameters to the hybridized forward through it, as the
+JAX package does, and a served function uses it to run a net on other
+copies of its weights (bfloat16 casts, for example).
+
+Gradient buffers come with the training slice; ``grad_req`` is kept.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+
+from ..base import MXNetError, numpy_dtype
+from ..context import Context, current_context
+from .. import ndarray as nd
+from ..ndarray.ndarray import NDArray
+
+__all__ = ["Parameter", "ParameterDict",
+           "DeferredInitializationError", "override", "tracing_overrides"]
+
+_tls = threading.local()
+
+
+class DeferredInitializationError(MXNetError):
+    """Parameter used before its shape was known."""
+
+
+class _Override:
+    def __init__(self, mapping):
+        self.mapping = mapping
+        self.writes = {}
+
+    def __enter__(self):
+        if not hasattr(_tls, "stack"):
+            _tls.stack = []
+        _tls.stack.append(self)
+        return self
+
+    def __exit__(self, *a):
+        _tls.stack.pop()
+
+
+def override(mapping):
+    """Scope in which `Parameter.data()` returns `mapping[param]` and
+    `set_data` is captured in ``.writes`` instead of applied."""
+    return _Override(mapping)
+
+
+def tracing_overrides():
+    stack = getattr(_tls, "stack", None)
+    return stack[-1] if stack else None
+
+
+class Parameter:
+    """A weight (reference: gluon/parameter.py:Parameter)."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
+                 init=None, allow_deferred_init=False, differentiable=True):
+        self.name = name
+        self.grad_req = grad_req if differentiable else "null"
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self._data = None  # dict ctx -> NDArray
+        self._deferred_init = None
+
+    def _check_initialized(self):
+        if self._data is None:
+            if self._deferred_init is not None:
+                raise DeferredInitializationError(
+                    "Parameter '%s' has not been initialized yet because "
+                    "initialization was deferred. Call net(data) once to "
+                    "trigger shape inference, or set shape explicitly."
+                    % self.name)
+            raise RuntimeError("Parameter '%s' has not been initialized. "
+                               "Call initialize() first." % self.name)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Allocate and initialize on ctx(s); deferred while the shape
+        is unknown."""
+        from .. import initializer as _initializer
+
+        if self._data is not None and not force_reinit:
+            return
+        # A parameter-specific init (an explicit arg or self.init, such
+        # as Dense's bias_initializer) bypasses the name-suffix dispatch.
+        specific = init is not None or self.init is not None
+        if init is None:
+            init = self.init if self.init is not None else \
+                (default_init if default_init is not None else
+                 _initializer.Uniform())
+        init = _initializer.create(init)
+        if ctx is None:
+            ctx = [current_context()]
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self.shape is None or any(s <= 0 for s in self.shape):
+            if not self.allow_deferred_init:
+                raise ValueError("Cannot initialize parameter %s with "
+                                 "unknown shape %s" % (self.name, self.shape))
+            self._deferred_init = (init, list(ctx), specific)
+            return
+        self._finish_init(init, ctx, specific)
+
+    def _finish_init(self, init, ctx_list, specific=False):
+        from .. import initializer as _initializer
+
+        data = np.zeros(self.shape, dtype=numpy_dtype(self.dtype))
+        desc = _initializer.InitDesc(self.name,
+                                     {"__init__": init} if specific else None)
+        data = init(desc, data)
+        self._data = {c: nd.array(data, ctx=c, dtype=self.dtype)
+                      for c in ctx_list}
+        self._deferred_init = None
+
+    def _finish_deferred_init(self, shape):
+        if self._deferred_init is None:
+            return
+        if self.shape is None:
+            self.shape = tuple(shape)
+        else:
+            self.shape = tuple(s if s > 0 else n
+                               for s, n in zip(self.shape, shape))
+        init, ctx, specific = self._deferred_init
+        self._finish_init(init, ctx, specific)
+
+    # -- access ---------------------------------------------------------------
+
+    def data(self, ctx=None):
+        ov = tracing_overrides()
+        if ov is not None and self in ov.mapping:
+            return ov.mapping[self]
+        self._check_initialized()
+        if ctx is None:
+            return next(iter(self._data.values()))
+        ctx = Context(ctx)
+        if ctx not in self._data:
+            raise RuntimeError("Parameter '%s' was not initialized on "
+                               "context %s" % (self.name, ctx))
+        return self._data[ctx]
+
+    def set_data(self, data):
+        """Set the value on every context; inside `override` the write
+        is captured instead."""
+        ov = tracing_overrides()
+        if ov is not None and self in ov.mapping:
+            ov.writes[self] = data
+            return
+        if self._data is None:
+            if self._deferred_init is None:
+                raise RuntimeError("Parameter '%s' not initialized"
+                                   % self.name)
+            self.shape = tuple(data.shape)
+            init, ctx, specific = self._deferred_init
+            self._finish_init(init, ctx, specific)
+        for c, d in self._data.items():
+            src = data.as_in_context(c) if isinstance(data, NDArray) else \
+                nd.array(data, ctx=c)
+            d._set_data(src._data)
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
+                                                      self.dtype)
+
+
+class ParameterDict:
+    """Ordered name -> Parameter mapping with prefix scoping."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = {}
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __contains__(self, key):
+        return key in self._params
+
+    def __len__(self):
+        return len(self._params)
+
+    def get(self, name, **kwargs):
+        """Get or create the parameter named prefix + name."""
+        full = self._prefix + name
+        if self._shared is not None and full in self._shared:
+            param = self._shared[full]
+        elif full in self._params:
+            param = self._params[full]
+        else:
+            param = Parameter(full, **kwargs)
+        self._params[full] = param
+        return param
+
+    def update(self, other):
+        for k, v in other.items():
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        for p in self._params.values():
+            p.initialize(init=None, ctx=ctx, default_init=init,
+                         force_reinit=force_reinit)
+
+    def __repr__(self):
+        return "ParameterDict(%s)" % ", ".join(self._params)

@@ -1,0 +1,358 @@
+"""NDArray — the mutable n-dim array of the port.
+
+Counterpart of ``mxnet_tpu/ndarray/ndarray.py``. An NDArray wraps a
+``torch.Tensor`` on an explicit device. PyTorch dispatch is already
+asynchronous on the card; ``wait_to_read`` waits for the stream the
+array was produced on, so a caller that times a result (the serving
+worker does) measures the work and not its enqueue.
+
+A write installs a new tensor (or writes in place for ``__setitem__``)
+and bumps ``version``, the engine-variable version counter of the
+reference (ndarray.py:75-81 in the JAX package).
+"""
+from __future__ import annotations
+
+import numbers
+
+import numpy as np
+import torch
+
+from ..base import mx_real_t, numpy_dtype, torch_dtype, dtype_name
+from ..context import Context, current_context
+from ..ops import registry as _reg
+
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
+
+
+def _producer_stream(tensor):
+    return torch.cuda.current_stream(tensor.device) if tensor.is_cuda \
+        else None
+
+
+class NDArray:
+    """An n-dimensional array on a device (reference: mx.nd.NDArray)."""
+
+    __slots__ = ("_data", "_ctx", "_stream", "version", "__weakref__")
+
+    # Make numpy defer binary ops (np_array + ndarray) to NDArray.
+    __array_priority__ = 1000.0
+
+    def __init__(self, data, ctx=None):
+        self._data = data
+        self._ctx = ctx if ctx is not None else Context.of(data.device)
+        self._stream = _producer_stream(data)
+        self.version = 0
+
+    # -- engine-var semantics -------------------------------------------------
+
+    def _set_data(self, new_data):
+        """Install a new tensor: the write side of the versioned var."""
+        self._data = new_data
+        self._stream = _producer_stream(new_data)
+        self.version += 1
+        return self
+
+    @property
+    def data_(self):
+        return self._data
+
+    def wait_to_read(self):
+        """Block until the work that produced this array has finished."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
+    wait_to_write = wait_to_read
+
+    # -- basic properties -----------------------------------------------------
+
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self):
+        """numpy dtype; the name ``"bfloat16"`` for bfloat16 arrays,
+        which numpy cannot represent."""
+        name = dtype_name(self._data.dtype)
+        return name if name == "bfloat16" else np.dtype(name)
+
+    @property
+    def size(self):
+        return int(self._data.numel())
+
+    @property
+    def ndim(self):
+        return self._data.ndim
+
+    @property
+    def context(self):
+        return self._ctx
+
+    ctx = context
+
+    # -- host transfer --------------------------------------------------------
+
+    def asnumpy(self):
+        """Blocking device-to-host copy. bfloat16 widens to float32."""
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.cpu().numpy().copy()
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __bool__(self):
+        if self.size == 0:
+            return False
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("ambiguous truth value of multi-element NDArray")
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def __repr__(self):
+        return "\n%s\n<NDArray %s @%s>" % (
+            self.asnumpy(), "x".join(map(str, self.shape)), self._ctx)
+
+    # -- copies / context movement -------------------------------------------
+
+    def copyto(self, other):
+        """Copy to another NDArray (which keeps its device) or to a
+        Context (a new NDArray there)."""
+        if isinstance(other, NDArray):
+            other._set_data(self._data.to(other._data.device, copy=True))
+            return other
+        if isinstance(other, Context):
+            return NDArray(self._data.to(other.torch_device, copy=True),
+                           ctx=other)
+        raise TypeError("copyto expects NDArray or Context")
+
+    def as_in_context(self, ctx):
+        if ctx == self._ctx:
+            return self
+        return self.copyto(ctx)
+
+    def astype(self, dtype, copy=True):
+        if not copy and self._data.dtype == torch_dtype(dtype):
+            return self
+        return _invoke("cast", [self], dtype=dtype_name(dtype))
+
+    # -- shape ops ------------------------------------------------------------
+
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        if kwargs.get("shape"):
+            shape = tuple(kwargs["shape"])
+        return _invoke("reshape", [self], shape=tuple(shape))
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return _invoke("transpose", [self], axes=tuple(axes) if axes else None)
+
+    def flatten(self):
+        return _invoke("flatten", [self])
+
+    def relu(self):
+        return _invoke("relu", [self])
+
+    def softmax(self, axis=-1):
+        return _invoke("softmax", [self], axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return _invoke("log_softmax", [self], axis=axis)
+
+    def sum(self, axis=None, keepdims=False):
+        return _invoke("sum", [self], axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return _invoke("mean", [self], axis=axis, keepdims=keepdims)
+
+    def dot(self, other):
+        return _invoke("dot", [self, other])
+
+    # -- arithmetic -----------------------------------------------------------
+
+    def __add__(self, other):
+        return _binary("broadcast_add", "_plus_scalar", self, other)
+
+    __radd__ = __add__
+
+    def __iadd__(self, other):
+        return self._set_data(self.__add__(other)._data)
+
+    def __sub__(self, other):
+        return _binary("broadcast_sub", "_minus_scalar", self, other)
+
+    def __rsub__(self, other):
+        return _binary_r("broadcast_sub", "_rminus_scalar", self, other)
+
+    def __isub__(self, other):
+        return self._set_data(self.__sub__(other)._data)
+
+    def __mul__(self, other):
+        return _binary("broadcast_mul", "_mul_scalar", self, other)
+
+    __rmul__ = __mul__
+
+    def __imul__(self, other):
+        return self._set_data(self.__mul__(other)._data)
+
+    def __truediv__(self, other):
+        return _binary("broadcast_div", "_div_scalar", self, other)
+
+    def __rtruediv__(self, other):
+        return _binary_r("broadcast_div", "_rdiv_scalar", self, other)
+
+    def __itruediv__(self, other):
+        return self._set_data(self.__truediv__(other)._data)
+
+    def __neg__(self):
+        return _invoke("negative", [self])
+
+    def __hash__(self):
+        return id(self)
+
+    # -- indexing -------------------------------------------------------------
+
+    @staticmethod
+    def _convert_index(key):
+        if isinstance(key, NDArray):
+            return key._data
+        if isinstance(key, tuple):
+            return tuple(NDArray._convert_index(k) for k in key)
+        if isinstance(key, list):
+            return torch.as_tensor(np.array(key))
+        return key
+
+    def __getitem__(self, key):
+        return NDArray(self._data[self._convert_index(key)], ctx=self._ctx)
+
+    def __setitem__(self, key, value):
+        """In-place write into this array's tensor (bumps ``version``)."""
+        if isinstance(value, NDArray):
+            value = value._data.to(self._data.device)
+        elif isinstance(value, (list, tuple, np.ndarray)):
+            value = torch.as_tensor(np.asarray(value),
+                                    device=self._data.device)
+        self._data[self._convert_index(key)] = value
+        self._stream = _producer_stream(self._data)
+        self.version += 1
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _wrap_outputs(raw, ctx, out=None):
+    multi = isinstance(raw, (tuple, list))
+    outs = list(raw) if multi else [raw]
+    if out is not None:
+        targets = out if isinstance(out, (tuple, list)) else [out]
+        for t, r in zip(targets, outs):
+            t._set_data(r)
+        return out
+    wrapped = [NDArray(r, ctx=ctx) for r in outs]
+    return tuple(wrapped) if multi else wrapped[0]
+
+
+def _invoke(name, inputs, out=None, _named=None, **attrs):
+    """The imperative dispatch path: unwrap, run the registered torch
+    FCompute eagerly on the inputs' device, wrap."""
+    op = _reg.get(name)
+    if op.train_aware and "training" not in attrs:
+        from .. import autograd as _ag
+
+        attrs["training"] = _ag.is_training()
+    ctx = next((x._ctx for x in inputs if isinstance(x, NDArray)), None)
+    ctx = ctx or current_context()
+    tensors = []
+    for x in inputs:
+        if isinstance(x, NDArray):
+            tensors.append(x._data)
+        elif isinstance(x, np.ndarray):
+            tensors.append(array(x, ctx=ctx)._data)
+        else:
+            tensors.append(x)
+    raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()))
+    return _wrap_outputs(raw, ctx, out=out)
+
+
+def _binary(op_name, scalar_op_name, lhs, rhs):
+    if isinstance(rhs, NDArray):
+        return _invoke(op_name, [lhs, rhs])
+    if isinstance(rhs, numbers.Number):
+        return _invoke(scalar_op_name, [lhs], scalar=float(rhs))
+    if isinstance(rhs, np.ndarray):
+        return _invoke(op_name, [lhs, array(rhs, ctx=lhs.context)])
+    return NotImplemented
+
+
+def _binary_r(op_name, scalar_op_name, lhs, rhs):
+    if isinstance(rhs, numbers.Number):
+        return _invoke(scalar_op_name, [lhs], scalar=float(rhs))
+    if isinstance(rhs, np.ndarray):
+        return _invoke(op_name, [array(rhs, ctx=lhs.context), lhs])
+    return NotImplemented
+
+
+# ---------------------------------------------------------------------------
+# creation
+# ---------------------------------------------------------------------------
+
+def array(source_array, ctx=None, dtype=None):
+    """Create an NDArray from any array-like (reference: mx.nd.array).
+    Always copies: mutating the result never touches the source."""
+    ctx = ctx if ctx is not None else current_context()
+    if isinstance(source_array, NDArray):
+        out = source_array.copyto(ctx)
+        return out.astype(dtype) if dtype is not None else out
+    device = ctx.torch_device
+    npv = np.asarray(source_array)
+    if dtype is None:
+        dtype = mx_real_t if npv.dtype == np.float64 else npv.dtype
+    # The host-to-device transfer is itself a copy; only a host target
+    # needs one made here.
+    host = np.array(npv, dtype=numpy_dtype(dtype), order="C") \
+        if device.type == "cpu" else \
+        np.ascontiguousarray(npv, dtype=numpy_dtype(dtype))
+    t = torch.from_numpy(host).to(device=device, dtype=torch_dtype(dtype))
+    return NDArray(t, ctx=ctx)
+
+
+def full(shape, val, ctx=None, dtype=None):
+    ctx = ctx if ctx is not None else current_context()
+    if isinstance(shape, numbers.Number):
+        shape = (shape,)
+    t = torch.full(tuple(shape), val,
+                   dtype=torch_dtype(dtype if dtype is not None else mx_real_t),
+                   device=ctx.torch_device)
+    return NDArray(t, ctx=ctx)
+
+
+def zeros(shape, ctx=None, dtype=None, **kwargs):
+    return full(shape, 0, ctx=ctx, dtype=dtype)
+
+
+def ones(shape, ctx=None, dtype=None, **kwargs):
+    return full(shape, 1, ctx=ctx, dtype=dtype)
+
+
+def waitall():
+    """Reference: mx.nd.waitall — wait for all work on every card."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()

@@ -151,3 +151,9 @@ def fault_fs(monkeypatch):
     monkeypatch.setattr(ckpt_manager, "_open_for_write", faulty_open)
     monkeypatch.setattr(ckpt_manager, "_rename", faulty_rename)
     yield inj
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; the "
+        "test skips itself elsewhere")

@@ -1,0 +1,208 @@
+"""mxnet_tpu_torch operators against the JAX package's operators.
+
+Each case runs one registered op of the port (torch, on the host) and
+the JAX package's op of the same name (`mxnet_tpu.ops.registry.get(name)
+.fn`, on jnp arrays) on the same numpy inputs. fp32 throughout;
+tolerance rtol 1e-5 / atol 1e-5, which allows for the different
+summation orders of the two convolution and reduction implementations.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mxnet_tpu.ops import registry as jreg
+
+from mxnet_tpu_torch.ops import registry as treg
+
+torch.set_num_threads(2)
+
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _run_both(name, arrays, attrs):
+    want = jreg.get(name).fn(*[None if a is None else jnp.asarray(a)
+                               for a in arrays], **attrs)
+    got = treg.get(name).fn(*[None if a is None else torch.from_numpy(a)
+                              for a in arrays], **attrs)
+    return got, want
+
+
+def _close(got, want):
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _close(g, w)
+        return
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def _rand(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("stride,pad,dilate,groups,bias", [
+    ((1, 1), (0, 0), (1, 1), 1, True),
+    ((2, 2), (1, 1), (1, 1), 1, False),
+    ((1, 1), (2, 2), (2, 2), 1, True),
+    ((2, 1), (1, 0), (1, 1), 2, True),
+    ((1, 1), (1, 1), (1, 1), 4, False),
+    ((3, 3), (3, 3), (1, 1), 1, False),
+])
+def test_convolution(stride, pad, dilate, groups, bias):
+    rng = np.random.RandomState(0)
+    x = _rand(rng, 2, 4, 11, 9)
+    w = _rand(rng, 8, 4 // groups, 3, 3)
+    b = _rand(rng, 8) if bias else None
+    attrs = dict(kernel=(3, 3), stride=stride, dilate=dilate, pad=pad,
+                 num_filter=8, num_group=groups, no_bias=not bias)
+    _close(*_run_both("Convolution", [x, w, b], attrs))
+
+
+def test_convolution_7x7_stem():
+    rng = np.random.RandomState(1)
+    x = _rand(rng, 1, 3, 32, 32)
+    w = _rand(rng, 8, 3, 7, 7)
+    attrs = dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=8,
+                 no_bias=True)
+    _close(*_run_both("Convolution", [x, w, None], attrs))
+
+
+@pytest.mark.parametrize("pool_type", ["max", "avg", "sum"])
+@pytest.mark.parametrize("convention", ["valid", "full"])
+@pytest.mark.parametrize("count_include_pad", [True, False])
+@pytest.mark.parametrize("kernel,stride,pad", [
+    ((3, 3), (2, 2), (1, 1)),
+    ((2, 2), (2, 2), (0, 0)),
+    ((3, 2), (2, 3), (1, 0)),
+])
+def test_pooling(pool_type, convention, count_include_pad, kernel, stride,
+                 pad):
+    rng = np.random.RandomState(2)
+    x = _rand(rng, 2, 3, 10, 11)
+    attrs = dict(kernel=kernel, stride=stride, pad=pad, pool_type=pool_type,
+                 pooling_convention=convention,
+                 count_include_pad=count_include_pad)
+    _close(*_run_both("Pooling", [x], attrs))
+
+
+@pytest.mark.parametrize("pool_type", ["max", "avg"])
+def test_global_pooling(pool_type):
+    rng = np.random.RandomState(3)
+    x = _rand(rng, 2, 5, 7, 6)
+    _close(*_run_both("Pooling", [x], dict(kernel=(1, 1), global_pool=True,
+                                           pool_type=pool_type)))
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("fix_gamma", [True, False])
+@pytest.mark.parametrize("eps,momentum", [(1e-3, 0.9), (1e-5, 0.99)])
+def test_batch_norm(training, fix_gamma, eps, momentum):
+    """Eval mode normalises with the moving stats; train mode with the
+    batch stats, and returns moving stats folded with momentum and the
+    biased batch variance (compared too)."""
+    rng = np.random.RandomState(4)
+    x = _rand(rng, 4, 6, 5, 5) * 2 + 1
+    gamma = rng.uniform(0.5, 1.5, 6).astype(np.float32)
+    beta = _rand(rng, 6)
+    mean = _rand(rng, 6) * 0.1
+    var = rng.uniform(0.5, 2.0, 6).astype(np.float32)
+    attrs = dict(eps=eps, momentum=momentum, fix_gamma=fix_gamma,
+                 training=training)
+    _close(*_run_both("BatchNorm", [x, gamma, beta, mean, var], attrs))
+
+
+def test_batch_norm_use_global_stats_in_train_mode():
+    rng = np.random.RandomState(5)
+    arrays = [_rand(rng, 3, 4, 2, 2), _rand(rng, 4), _rand(rng, 4),
+              _rand(rng, 4), rng.uniform(0.5, 2, 4).astype(np.float32)]
+    _close(*_run_both("BatchNorm", arrays,
+                      dict(training=True, use_global_stats=True,
+                           fix_gamma=False)))
+
+
+@pytest.mark.parametrize("flatten,bias,ndim", [
+    (True, True, 2), (True, False, 4), (False, True, 3), (False, False, 2)])
+def test_fully_connected(flatten, bias, ndim):
+    rng = np.random.RandomState(6)
+    shape = {2: (3, 12), 3: (3, 5, 12), 4: (3, 3, 2, 2)}[ndim]
+    x = _rand(rng, *shape)
+    in_units = 12 if (flatten or ndim == 2) else shape[-1]
+    w = _rand(rng, 7, in_units)
+    b = _rand(rng, 7) if bias else None
+    _close(*_run_both("FullyConnected", [x, w, b],
+                      dict(num_hidden=7, no_bias=not bias, flatten=flatten)))
+
+
+@pytest.mark.parametrize("act_type", ["relu", "sigmoid", "tanh", "softrelu",
+                                      "softsign", "relu6"])
+def test_activation(act_type):
+    x = _rand(np.random.RandomState(7), 4, 9) * 4
+    _close(*_run_both("Activation", [x], dict(act_type=act_type)))
+
+
+@pytest.mark.parametrize("name", ["softmax", "log_softmax"])
+@pytest.mark.parametrize("axis", [-1, 1])
+def test_softmax_family(name, axis):
+    x = _rand(np.random.RandomState(8), 3, 5, 4) * 3
+    _close(*_run_both(name, [x], dict(axis=axis)))
+
+
+@pytest.mark.parametrize("name,attrs", [
+    ("flatten", {}), ("reshape", {"shape": (0, -1)}),
+    ("reshape", {"shape": (-3, -2)}), ("reshape", {"shape": (2, -4, 1, 3, -2)}),
+    ("mean", {"axis": (2, 3), "keepdims": True}), ("sum", {"axis": 1}),
+    ("relu", {}), ("negative", {}), ("_plus_scalar", {"scalar": 2.0}),
+    ("_rdiv_scalar", {"scalar": 2.0}), ("transpose", {}),
+    ("transpose", {"axes": (0, 2, 1, 3)}), ("cast", {"dtype": "float16"}),
+])
+def test_shape_and_elementwise(name, attrs):
+    x = _rand(np.random.RandomState(9), 2, 3, 4, 5) + 0.5
+    _close(*_run_both(name, [x], attrs))
+
+
+@pytest.mark.parametrize("name", ["broadcast_add", "elemwise_add",
+                                  "broadcast_mul", "broadcast_sub"])
+def test_binary(name):
+    rng = np.random.RandomState(10)
+    _close(*_run_both(name, [_rand(rng, 2, 3, 4), _rand(rng, 1, 3, 1)], {}))
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+def test_dot(transpose_b):
+    rng = np.random.RandomState(11)
+    b = _rand(rng, 3, 5) if transpose_b else _rand(rng, 5, 3)
+    _close(*_run_both("dot", [_rand(rng, 4, 5), b],
+                      {"transpose_b": transpose_b}))
+
+
+@pytest.mark.parametrize("spec,name,shape", [
+    (("uniform",), "dense0_weight", (4, 5)),
+    (("xavier",), "conv2d0_weight", (8, 4, 3, 3)),
+    (("xavier", "gaussian", "in", 2), "conv2d1_weight", (16, 8, 1, 1)),
+    (("uniform",), "dense0_bias", (4,)),
+    (("uniform",), "batchnorm0_gamma", (6,)),
+    (("uniform",), "batchnorm0_running_var", (6,)),
+    (("xavier",), "batchnorm0_running_mean", (6,)),
+])
+def test_initializer_matches_reference(spec, name, shape):
+    """Both packages draw host initial weights from the same (seed,
+    counter) stream, so the same seed gives the same weights; BatchNorm
+    parameters initialize by name suffix."""
+    import mxnet_tpu as jmx
+    from mxnet_tpu import initializer as jinit
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import initializer as tinit
+
+    cls, args = spec[0].capitalize(), spec[1:]
+    jmx.random.seed(7)
+    mx.random.seed(7)
+    want = getattr(jinit, cls)(*args)(jinit.InitDesc(name),
+                                      np.zeros(shape, np.float32))
+    got = getattr(tinit, cls)(*args)(tinit.InitDesc(name),
+                                     np.zeros(shape, np.float32))
+    np.testing.assert_array_equal(got, want)
