@@ -32,6 +32,7 @@ _LAZY = {
     "init": ".initializer",
     "serving": ".serving",
     "cached_op": ".cached_op",
+    "parallel": ".parallel",
 }
 
 

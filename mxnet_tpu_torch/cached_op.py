@@ -7,6 +7,11 @@ devices of the inputs, plus the train/eval mode). ``num_traces`` keeps
 that count: the serving warmup contract, one trace per bucket, is
 asserted against it. Capturing each signature as a CUDA graph is a
 later step.
+
+Under ``autograd.record()`` a call keeps the graph: the function runs in
+the current train/eval mode with recording on, and the gradients reach
+the parameters passed in, as the reference's one recorded tape node per
+call does (``mxnet_tpu/cached_op.py``). ``inference()`` builds no graph.
 """
 from __future__ import annotations
 
@@ -45,16 +50,16 @@ class CachedOp:
         if sig not in self._signatures:
             self._signatures.add(sig)
             self.num_traces += 1
-        with autograd.pause(train_mode=training):
-            return self._fn(*args)
+        return self._fn(*args)
 
     def __call__(self, *args):
-        """Forward in the current train/eval mode."""
+        """Forward in the current train/eval mode; recorded when the
+        caller records."""
         return self._run(args, autograd.is_training())
 
     def inference(self, *args):
         """Eval-mode forward that never enables train-mode ops (BatchNorm
         uses its running stats), whatever the ambient autograd scope, and
         builds no autograd graph: the serving hot path."""
-        with torch.no_grad():
+        with torch.no_grad(), autograd.pause(train_mode=False):
             return self._run(args, False)

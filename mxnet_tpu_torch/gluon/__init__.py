@@ -6,4 +6,5 @@ from . import block
 from .block import Block, HybridBlock
 from . import nn
 from . import utils
+from . import loss
 from . import model_zoo

@@ -28,6 +28,12 @@ class _SequentialMixin:
             x = block(x)
         return x
 
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, i):
+        return list(self._children.values())[i]
+
 
 class Sequential(_SequentialMixin, Block):
     """Stack of blocks."""

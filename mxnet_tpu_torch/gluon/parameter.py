@@ -8,13 +8,20 @@ CachedOp passes parameters to the hybridized forward through it, as the
 JAX package does, and a served function uses it to run a net on other
 copies of its weights (bfloat16 casts, for example).
 
-Gradient buffers come with the training slice; ``grad_req`` is kept.
+Gradient buffers follow ``mxnet_tpu/gluon/parameter.py``: a parameter
+whose ``grad_req`` is not ``"null"`` gets a zero buffer per context when
+its data is allocated, and its data arrays are marked as autograd
+variables, so ``autograd.backward`` writes (or, for ``"add"``,
+accumulates) into ``grad()``. Setting ``grad_req = "null"`` drops the
+buffer. BatchNorm's running statistics are ``"null"`` parameters, and
+their train-mode writes are detached values.
 """
 from __future__ import annotations
 
 import threading
 
 import numpy as np
+import torch
 
 from ..base import MXNetError, numpy_dtype
 from ..context import Context, current_context
@@ -63,13 +70,42 @@ class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
                  init=None, allow_deferred_init=False, differentiable=True):
         self.name = name
-        self.grad_req = grad_req if differentiable else "null"
+        self._grad_req = grad_req if differentiable else "null"
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._data = None  # dict ctx -> NDArray
+        self._grad = None  # dict ctx -> NDArray, or None for "null"
         self._deferred_init = None
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be 'write', 'add' or 'null', "
+                             "got %r" % (req,))
+        self._grad_req = req
+        if req == "null":
+            self._grad = None
+            if self._data is not None:
+                for d in self._data.values():
+                    d._grad, d._grad_req = None, "null"
+                    d._data = d._data.detach()
+        elif self._data is not None:
+            self._init_grad()
+
+    def _init_grad(self):
+        from .. import autograd
+
+        self._grad = {c: nd.zeros(self.shape, ctx=c, dtype=self.dtype)
+                      for c in self._data}
+        for c, d in self._data.items():
+            autograd.mark_variables([d], [self._grad[c]],
+                                    grad_reqs=self._grad_req)
 
     def _check_initialized(self):
         if self._data is None:
@@ -120,6 +156,8 @@ class Parameter:
         self._data = {c: nd.array(data, ctx=c, dtype=self.dtype)
                       for c in ctx_list}
         self._deferred_init = None
+        if self._grad_req != "null":
+            self._init_grad()
 
     def _finish_deferred_init(self, shape):
         if self._deferred_init is None:
@@ -146,6 +184,24 @@ class Parameter:
             raise RuntimeError("Parameter '%s' was not initialized on "
                                "context %s" % (self.name, ctx))
         return self._data[ctx]
+
+    def grad(self, ctx=None):
+        if self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for parameter '%s' because "
+                "grad_req='null'" % self.name)
+        if ctx is None:
+            return next(iter(self._grad.values()))
+        return self._grad[Context(ctx)]
+
+    def list_grad(self):
+        return list(self._grad.values()) if self._grad else []
+
+    def zero_grad(self):
+        if self._grad is None:
+            return
+        for g in self._grad.values():
+            g._set_data(torch.zeros_like(g._data))
 
     def set_data(self, data):
         """Set the value on every context; inside `override` the write
@@ -225,6 +281,10 @@ class ParameterDict:
         for p in self._params.values():
             p.initialize(init=None, ctx=ctx, default_init=init,
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
 
     def __repr__(self):
         return "ParameterDict(%s)" % ", ".join(self._params)

@@ -9,6 +9,13 @@ worker does) measures the work and not its enqueue.
 A write installs a new tensor (or writes in place for ``__setitem__``)
 and bumps ``version``, the engine-variable version counter of the
 reference (ndarray.py:75-81 in the JAX package).
+
+Gradients: ``attach_grad`` marks the array as a variable of
+:mod:`~mxnet_tpu_torch.autograd` (its tensor becomes a leaf of torch's
+graph), ``backward`` runs the tape from this array, ``.grad`` is the
+gradient buffer and ``detach`` cuts the array out of the graph. Ops
+dispatched outside ``autograd.record()`` build no graph (grad mode off),
+and ops registered ``differentiable=False`` never do.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ def _producer_stream(tensor):
 class NDArray:
     """An n-dimensional array on a device (reference: mx.nd.NDArray)."""
 
-    __slots__ = ("_data", "_ctx", "_stream", "version", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_stream", "version", "_grad", "_grad_req",
+                 "_ag_retired", "_recorded", "__weakref__")
 
     # Make numpy defer binary ops (np_array + ndarray) to NDArray.
     __array_priority__ = 1000.0
@@ -42,11 +50,23 @@ class NDArray:
         self._ctx = ctx if ctx is not None else Context.of(data.device)
         self._stream = _producer_stream(data)
         self.version = 0
+        self._grad = None
+        self._grad_req = "null"
+        self._ag_retired = []
+        self._recorded = False
 
     # -- engine-var semantics -------------------------------------------------
 
     def _set_data(self, new_data):
-        """Install a new tensor: the write side of the versioned var."""
+        """Install a new tensor: the write side of the versioned var. A
+        marked variable gets the value as a fresh leaf, its old leaf
+        kept for a pending backward."""
+        if self._grad is not None:
+            from .. import autograd
+
+            autograd._retire(self, self._data)
+            new_data = new_data.detach().requires_grad_(
+                new_data.is_floating_point())
         self._data = new_data
         self._stream = _producer_stream(new_data)
         self.version += 1
@@ -132,11 +152,12 @@ class NDArray:
     def copyto(self, other):
         """Copy to another NDArray (which keeps its device) or to a
         Context (a new NDArray there)."""
+        data = self._data.detach()
         if isinstance(other, NDArray):
-            other._set_data(self._data.to(other._data.device, copy=True))
+            other._set_data(data.to(other._data.device, copy=True))
             return other
         if isinstance(other, Context):
-            return NDArray(self._data.to(other.torch_device, copy=True),
+            return NDArray(data.to(other.torch_device, copy=True),
                            ctx=other)
         raise TypeError("copyto expects NDArray or Context")
 
@@ -144,6 +165,32 @@ class NDArray:
         if ctx == self._ctx:
             return self
         return self.copyto(ctx)
+
+    def detach(self):
+        """The same values, cut out of the autograd graph."""
+        return NDArray(self._data.detach(), ctx=self._ctx)
+
+    # -- autograd -------------------------------------------------------------
+
+    @property
+    def grad(self):
+        return self._grad
+
+    def attach_grad(self, grad_req="write", stype=None):
+        """Allocate a gradient buffer and mark this array as an autograd
+        variable (reference: attach_grad -> MXAutogradMarkVariables)."""
+        from .. import autograd
+
+        autograd.mark_variables([self], [zeros(self.shape, ctx=self._ctx,
+                                               dtype=self._data.dtype)],
+                                grad_reqs=grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph=retain_graph,
+                          train_mode=train_mode)
 
     def astype(self, dtype, copy=True):
         if not copy and self._data.dtype == torch_dtype(dtype):
@@ -240,16 +287,28 @@ class NDArray:
         return key
 
     def __getitem__(self, key):
-        return NDArray(self._data[self._convert_index(key)], ctx=self._ctx)
+        """A view, recorded (and differentiable) under ``record()`` as
+        the reference routes it through its ``_index`` op."""
+        from .. import autograd
+
+        graph = autograd.builds_graph()
+        if graph and autograd.is_recording():
+            autograd._make_leaf(self)
+        with torch.set_grad_enabled(graph):
+            out = NDArray(self._data[self._convert_index(key)], ctx=self._ctx)
+        out._recorded = graph
+        return out
 
     def __setitem__(self, key, value):
-        """In-place write into this array's tensor (bumps ``version``)."""
+        """In-place write into this array's tensor (bumps ``version``);
+        never recorded."""
         if isinstance(value, NDArray):
-            value = value._data.to(self._data.device)
+            value = value._data.detach().to(self._data.device)
         elif isinstance(value, (list, tuple, np.ndarray)):
             value = torch.as_tensor(np.asarray(value),
                                     device=self._data.device)
-        self._data[self._convert_index(key)] = value
+        with torch.no_grad():
+            self._data[self._convert_index(key)] = value
         self._stream = _producer_stream(self._data)
         self.version += 1
 
@@ -258,26 +317,35 @@ class NDArray:
 # dispatch
 # ---------------------------------------------------------------------------
 
-def _wrap_outputs(raw, ctx, out=None):
+def _wrap_outputs(raw, ctx, out=None, recorded=False):
     multi = isinstance(raw, (tuple, list))
     outs = list(raw) if multi else [raw]
     if out is not None:
         targets = out if isinstance(out, (tuple, list)) else [out]
         for t, r in zip(targets, outs):
             t._set_data(r)
+            t._recorded = recorded
         return out
     wrapped = [NDArray(r, ctx=ctx) for r in outs]
+    for w in wrapped:
+        w._recorded = recorded
     return tuple(wrapped) if multi else wrapped[0]
 
 
 def _invoke(name, inputs, out=None, _named=None, **attrs):
     """The imperative dispatch path: unwrap, run the registered torch
-    FCompute eagerly on the inputs' device, wrap."""
+    FCompute eagerly on the inputs' device, wrap. Grad mode is on only
+    for a differentiable op while the thread builds a graph."""
+    from .. import autograd as _ag
+
     op = _reg.get(name)
     if op.train_aware and "training" not in attrs:
-        from .. import autograd as _ag
-
         attrs["training"] = _ag.is_training()
+    graph = op.differentiable and _ag.builds_graph()
+    if graph and _ag.is_recording():
+        for x in inputs:
+            if isinstance(x, NDArray):
+                _ag._make_leaf(x)
     ctx = next((x._ctx for x in inputs if isinstance(x, NDArray)), None)
     ctx = ctx or current_context()
     tensors = []
@@ -288,8 +356,12 @@ def _invoke(name, inputs, out=None, _named=None, **attrs):
             tensors.append(array(x, ctx=ctx)._data)
         else:
             tensors.append(x)
-    raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()))
-    return _wrap_outputs(raw, ctx, out=out)
+    if graph == torch.is_grad_enabled():
+        raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()))
+    else:
+        with torch.set_grad_enabled(graph):
+            raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()))
+    return _wrap_outputs(raw, ctx, out=out, recorded=graph)
 
 
 def _binary(op_name, scalar_op_name, lhs, rhs):

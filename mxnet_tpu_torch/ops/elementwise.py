@@ -1,7 +1,7 @@
 """Elementwise binary, scalar and unary operators.
 
 Counterpart of the subset of ``mxnet_tpu/ops/elementwise.py`` that the
-served models use. Broadcast and elemwise variants share one
+served models and the losses use. Broadcast and elemwise variants share one
 implementation, as in the JAX package. Scalars keep the array's dtype
 (a Python number does not promote a torch tensor).
 """
@@ -36,6 +36,11 @@ _UNARY = {
     "identity": lambda a: a,
     "negative": torch.neg,
     "relu": torch.relu,
+    "abs": torch.abs,
+    "square": lambda a: a * a,
+    "sqrt": torch.sqrt,
+    "exp": torch.exp,
+    "log": torch.log,
 }
 for _name, _fn in _UNARY.items():
     register(_name)(_fn)

@@ -1,7 +1,7 @@
-"""Shape-manipulation operators and ``dot``.
+"""Shape-manipulation operators, ``dot`` and ``pick``.
 
 Counterpart of the subset of ``mxnet_tpu/ops/matrix.py`` that the
-served models use, with MXNet's reshape special codes.
+served models and the losses use, with MXNet's reshape special codes.
 """
 from __future__ import annotations
 
@@ -81,3 +81,13 @@ def _dot(a, b, transpose_a=False, transpose_b=False):
     if transpose_b:
         b = b.t()
     return torch.matmul(a, b)
+
+
+@register("pick")
+def _pick(a, index, axis=-1, keepdims=False, mode="clip"):
+    """a's entries at `index` along `axis`; indices are clipped into
+    range (the reference's default ``mode="clip"``)."""
+    axis = axis % a.ndim
+    idx = torch.clamp(index.to(torch.int64), 0, a.shape[axis] - 1)
+    out = torch.take_along_dim(a, idx.unsqueeze(axis), dim=axis)
+    return out if keepdims else out.squeeze(axis)

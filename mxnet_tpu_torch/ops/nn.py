@@ -119,8 +119,11 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         red = tuple(i for i in range(data.ndim) if i != axis)
         mean = torch.mean(data, dim=red)
         var = torch.var(data, dim=red, unbiased=False)
-        new_mm = moving_mean * momentum + mean.detach() * (1 - momentum)
-        new_mv = moving_var * momentum + var.detach() * (1 - momentum)
+        # The moving stats are aux state: never part of a graph.
+        new_mm = moving_mean.detach() * momentum \
+            + mean.detach() * (1 - momentum)
+        new_mv = moving_var.detach() * momentum \
+            + var.detach() * (1 - momentum)
     else:
         mean, var = moving_mean, moving_var
         new_mm, new_mv = moving_mean, moving_var

@@ -1,12 +1,13 @@
 """mxnet_tpu_torch flash attention against the JAX package's Pallas op.
 
-On the host the port runs its plain PyTorch version; the JAX side runs
-the Pallas kernel in interpret mode, as tests/test_pallas_attention.py
-runs it. Same numpy inputs, fp32, the JAX test's tolerance (rtol 2e-4,
-atol 2e-5). The kernel itself is compared with the plain version on the
-card by the `cuda`-marked tests, which skip here. This module imports
-JAX only inside the tests that compare with it, so that the card tests
-also run where JAX is not installed (see README.md).
+On the host the port runs its plain PyTorch versions; the JAX side runs
+the Pallas kernels in interpret mode, as tests/test_pallas_attention.py
+runs them. Same numpy inputs, fp32, the JAX test's tolerance (rtol 2e-4,
+atol 2e-5), for the forward and for the gradients (dq, dk, dv against
+`jax.vjp` of the op). The kernels themselves are compared with the
+plain versions on the card by the `cuda`-marked tests, which skip here.
+This module imports JAX only inside the tests that compare with it, so
+that the card tests also run where JAX is not installed (see README.md).
 """
 import numpy as np
 import pytest
@@ -149,6 +150,19 @@ def test_packed_strided_slices_through_the_op():
                                atol=ATOL)
 
 
+def _card_tolerance(dtype, want):
+    """(rtol, atol) of a kernel against its plain version on the card.
+    fp32: the JAX test's. bf16/fp16: both compute in fp32 from the same
+    rounded inputs and each rounds its result once to the input dtype,
+    half an ulp at most, so two roundings: 2^-7 relative in bf16, 2^-10
+    in fp16; plus the fp32 summation order, held to 1e-3 of the tensor's
+    largest entry."""
+    if dtype == torch.float32:
+        return RTOL, ATOL
+    rtol = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[dtype]
+    return rtol, 1e-3 * float(want.float().abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,head_dim,causal", [
     ("float32", 64, True), ("float32", 32, False), ("bfloat16", 64, True),
@@ -167,13 +181,19 @@ def test_kernel_matches_plain_on_card(dtype, head_dim, causal):
     assert tfa.LAUNCHES == before + 1
     want, want_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
                                                    block_q=200, block_k=200)
-    tol = (RTOL, ATOL) if dt == torch.float32 else (1e-2, 1e-2)
-    torch.testing.assert_close(out.float(), want.float(), rtol=tol[0],
-                               atol=tol[1])
+    rtol, atol = _card_tolerance(dt, want)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tfa.flash_attention_forward(q.requires_grad_(), k, v,
-                                    block_q=200, block_k=200)
+    # A CUDA tensor under grad goes to the backward kernels, not to an
+    # error and not to the plain version.
+    dkv0, dq0 = tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ
+    qg = q.detach().requires_grad_()
+    tfa.flash_attention(qg, k, v, causal=causal, block_q=200,
+                        block_k=200).float().sum().backward()
+    torch.cuda.synchronize()
+    assert qg.grad is not None and qg.grad.dtype == dt
+    assert (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ) == (dkv0 + 1, dq0 + 1)
 
 
 @pytest.mark.cuda
@@ -189,3 +209,182 @@ def test_kernel_rejects_what_it_does_not_take():
     q = torch.zeros(1, 64, 2, 64, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_forward(q, q, q)
+
+
+# -- backward -----------------------------------------------------------------
+
+def _jax_vjp(q, k, v, g, **kw):
+    """(dq, dk, dv) of the JAX op in interpret mode."""
+    import jax
+
+    jnp, jfa = _jax()
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+BWD_CASES = {
+    "self": ((2, 2, 64, 16), (2, 2, 64, 16), dict(block_q=16, block_k=16)),
+    "cross": ((1, 2, 16, 8), (1, 2, 48, 8), dict(block_q=8, block_k=16)),
+    "scale": ((1, 2, 32, 8), (1, 2, 32, 8),
+              dict(block_q=16, block_k=8, scale=0.5)),
+}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_reference_matches_jax_vjp(case, causal):
+    """The plain backward (blockwise regeneration from the saved LSE)
+    against jax.vjp of the Pallas op: causal and not, Tq != Tk, an
+    explicit scale, blocks 8 and 16."""
+    shape_q, shape_k, kw = BWD_CASES[case]
+    q, k, v = _qkv(10, shape_q, shape_k)
+    g = np.random.RandomState(11).randn(*shape_q).astype(np.float32)
+    want = _jax_vjp(q, k, v, g, causal=causal, **kw)
+    tq_, tk_, tv_ = _torch(q, k, v)
+    out, lse = tfa.flash_attention_forward(tq_, tk_, tv_, causal=causal,
+                                           **kw)
+    got = tfa.flash_attention_backward_reference(
+        tq_, tk_, tv_, out, lse, torch.from_numpy(g), causal=causal, **kw)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL,
+                                   err_msg="d" + name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_autograd_function_matches_jax_vjp(case, causal):
+    """flash_attention() differentiated by torch.autograd on host
+    tensors (the autograd.Function around the launchers)."""
+    shape_q, shape_k, kw = BWD_CASES[case]
+    q, k, v = _qkv(12, shape_q, shape_k)
+    g = np.random.RandomState(13).randn(*shape_q).astype(np.float32)
+    want = _jax_vjp(q, k, v, g, causal=causal, **kw)
+    leaves = [t.requires_grad_() for t in _torch(q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal, **kw)
+    out.backward(torch.from_numpy(g))
+    for name, t, b in zip("qkv", leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), b, rtol=RTOL, atol=ATOL,
+                                   err_msg="d" + name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_record_backward_through_nd_contrib_matches_jax(causal):
+    """mx.autograd.record() + nd.contrib.flash_attention + backward()
+    in both packages, on packed (strided) q, k, v slices, with a head
+    gradient."""
+    import mxnet_tpu as jmx
+
+    rng = np.random.RandomState(14)
+    x = rng.randn(2, 3, 2, 32, 8).astype(np.float32)
+    w = rng.randn(2, 2, 32, 8).astype(np.float32)
+
+    def run(pkg, ctx):
+        packed = pkg.nd.array(x, ctx=ctx) if ctx else pkg.nd.array(x)
+        packed.attach_grad()
+        with pkg.autograd.record():
+            out = pkg.nd.contrib.flash_attention(
+                packed[:, 0], packed[:, 1], packed[:, 2], causal=causal,
+                block_q=16, block_k=16)
+            loss = (out * (pkg.nd.array(w, ctx=ctx) if ctx
+                           else pkg.nd.array(w))).sum()
+        loss.backward()
+        return out.asnumpy(), packed.grad.asnumpy()
+
+    want_out, want_grad = run(jmx, None)
+    got_out, got_grad = run(mx, mx.cpu())
+    np.testing.assert_allclose(got_out, want_out, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_grad, want_grad, rtol=RTOL, atol=ATOL)
+
+
+def test_plain_twins_of_k2_and_k3_give_the_full_backward():
+    """The plain versions of K2 (dk, dv) and K3 (dq), which chip_smoke.py
+    times beside each kernel, are the full plain backward's parts."""
+    q, k, v = _torch(*_qkv(15, (1, 2, 32, 8), (1, 2, 32, 8)))
+    g = torch.from_numpy(np.random.RandomState(16).randn(1, 2, 32, 8)
+                         .astype(np.float32))
+    out, lse = tfa.flash_attention_forward(q, k, v, causal=True)
+    full = tfa.flash_attention_backward_reference(q, k, v, out, lse, g,
+                                                  causal=True)
+    dk, dv = tfa.flash_attention_bwd_dkv_reference(q, k, v, out, lse, g,
+                                                   causal=True)
+    dq = tfa.flash_attention_bwd_dq_reference(q, k, v, out, lse, g,
+                                              causal=True)
+    for got, want in zip((dq, dk, dv), full):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape_q,shape_k,causal", [
+    ("float32", (1, 4, 512, 64), (1, 4, 512, 64), True),
+    ("float32", (1, 4, 512, 64), (1, 4, 512, 64), False),
+    ("float32", (1, 4, 256, 64), (1, 4, 512, 64), False),
+    ("float32", (1, 4, 256, 64), (1, 4, 512, 64), True),
+    ("float32", (2, 3, 200, 32), (2, 3, 200, 32), True),
+    ("float32", (1, 4, 384, 128), (1, 4, 384, 128), True),
+    ("float32", (1, 4, 128, 128), (1, 4, 384, 128), False),
+    ("bfloat16", (2, 4, 384, 64), (2, 4, 384, 64), True),
+    ("float16", (2, 4, 384, 128), (2, 4, 384, 128), True),
+])
+def test_backward_kernels_match_plain_on_card(dtype, shape_q, shape_k,
+                                              causal):
+    """K2 and K3, through the autograd.Function, against the plain
+    backward on the same CUDA inputs, fp32 at head dims 32, 64 and 128,
+    to the tolerance of _card_tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+               for s in (shape_q, shape_k, shape_k))
+    g = torch.randn(shape_q, generator=gen, device="cuda").to(dt)
+    bq, bk = shape_q[2], shape_k[2]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ)
+    out = tfa.flash_attention(*leaves, causal=causal, block_q=bq,
+                              block_k=bk)
+    out.backward(g.transpose(2, 3).contiguous().transpose(2, 3))
+    torch.cuda.synchronize()
+    assert (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ) == \
+        (before[0] + 1, before[1] + 1)
+    out2, lse = tfa.flash_attention_forward(q, k, v, causal=causal,
+                                            block_q=bq, block_k=bk)
+    want = tfa.flash_attention_backward_reference(
+        q, k, v, out2, lse, g, causal=causal, block_q=bq, block_k=bk)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == dt
+        rtol, atol = _card_tolerance(dt, w)
+        torch.testing.assert_close(t.grad.float(), w.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_record_backward_on_card_reaches_k2_and_k3():
+    """mx.autograd.record() + nd.contrib.flash_attention + backward() on
+    the card: one launch of each kernel, and the packed array's gradient
+    agrees with the plain backward (fp32, the JAX tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(17)
+    x = rng.randn(2, 3, 4, 256, 64).astype(np.float32)
+    w = rng.randn(2, 4, 256, 64).astype(np.float32)
+    packed = mx.nd.array(x, ctx=mx.gpu(0))
+    packed.attach_grad()
+    before = (tfa.LAUNCHES, tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ)
+    with mx.autograd.record():
+        out = mx.nd.contrib.flash_attention(packed[:, 0], packed[:, 1],
+                                            packed[:, 2], causal=True)
+        loss = (out * mx.nd.array(w, ctx=mx.gpu(0))).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (tfa.LAUNCHES, tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ) == \
+        tuple(n + 1 for n in before)
+    q, k, v = (torch.from_numpy(x[:, i]).cuda() for i in range(3))
+    o, lse = tfa.flash_attention_forward(q, k, v, causal=True)
+    want = tfa.flash_attention_backward_reference(
+        q, k, v, o, lse, torch.from_numpy(w).cuda(), causal=True)
+    got = packed.grad.data_
+    for i in range(3):
+        torch.testing.assert_close(got[:, i], want[i], rtol=RTOL, atol=ATOL)

@@ -66,7 +66,9 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.serving, mxnet_tpu_torch.initializer, "
         "mxnet_tpu_torch.cached_op, mxnet_tpu_torch._native, "
         "mxnet_tpu_torch.ops.flash_attention, "
-        "mxnet_tpu_torch.profile_serving\n"
+        "mxnet_tpu_torch.profile_serving, mxnet_tpu_torch.gluon.loss, "
+        "mxnet_tpu_torch.parallel, mxnet_tpu_torch.profile_training, "
+        "mxnet_tpu_torch.examples.train_imagenet\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
@@ -111,6 +113,17 @@ def test_kernel_path_never_runs_the_plain_version_off_host():
         flash_attention_forward(q, q, q)
 
 
+def test_backward_never_runs_the_plain_version_off_host():
+    """The gradient path sends a tensor that is not on the host to the
+    kernels or raises; it never takes the plain backward."""
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_backward
+
+    q = torch.empty((1, 1, 16, 8), device="meta")
+    lse = torch.empty((1, 1, 16), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_attention_backward(q, q, q, q, lse, q)
+
+
 def test_kernel_build_without_toolkit_raises():
     from mxnet_tpu_torch import _native
 
@@ -118,3 +131,5 @@ def test_kernel_build_without_toolkit_raises():
         pytest.skip("the CUDA toolkit is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         _native.build(["flash_attention_fwd"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _native.build(["flash_attention_bwd"])
