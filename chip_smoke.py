@@ -39,11 +39,35 @@ phase falls back to the host or to a plain version):
    card's fp32 update is as close to the float64 one, tensor by tensor,
    as the host's fp32 update is (PARITY_LIMITS).
 
-Each path (4, 6, 7) is driven with every launch count set to 0 just
-before it and read just after. Then one ``{"kernels": [...]}`` line and,
+8. rtc direct (K4): ``rtc.CudaModule`` compiles ``csrc/rtc/*.cu`` with
+   NVRTC for sm_90a (compile time and cache counts logged); scale_add
+   launched through the CudaKernel API on the JAX fixture's (1, 8) and
+   at 4096x4096, and relu as the rtc kernel of a partitioned dense-relu
+   MLP (b32, 1024 -> 4096 -> 1000), each exact against its plain version.
+9. rtc kernels: scale_add and relu timed beside their plain versions,
+   torch calls and bounds; fused BatchNorm(inference)+ReLU at each
+   distinct ResNet-50 v1 b32 shape against its plain version (rtol 1e-5
+   + 1e-6 max|want|), timed beside it, ``F.batch_norm`` + ``F.relu``
+   and its bytes bound; its two-output variant held at one shape; the
+   host cost of one ``CudaKernel.launch``. The rtc rows are timed with
+   the card kept ahead of the host (time_queued: device time), and the
+   kernels also as back-to-back calls (``ms_host_window``).
+10. ResNet-50 v1 served from a checkpoint: the gluon net (BatchNorm
+   statistics randomized) is exported and served through
+   ``InferenceServer.from_checkpoint`` (fp32, TF32 off, buckets
+   1/8/32), plain and with ``MXNET_SUBGRAPH_BACKEND=fused_bn_relu``;
+   requests of 1, 5 and 32 rows at once; ``compile_count`` is the
+   number of buckets; the fused kernel launches exactly 33 times per
+   forward (warmup included) under the partition and 0 times without;
+   both servers and the hybridized gluon net agree within 1e-5 of the
+   largest logit; img/s at b32 on a batch on the card and through
+   ``predict()``.
+
+Each path (4, 6, 7, 8, 10) is driven with every launch count set to 0
+just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. Kernel timings are CUDA-event medians of 20 runs
-after warmup.
+after warmup (the rtc rows: of 5 windows of 20 queued calls).
 """
 from __future__ import annotations
 
@@ -97,6 +121,69 @@ def time_ms(fn, iters=ITERS, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def time_each(fn, reps=10):
+    """Median CUDA-event time of one `fn` in milliseconds, from windows
+    of `reps` back-to-back calls: a short kernel's host launch cost then
+    overlaps the kernels queued before it, as on a served path."""
+    def window():
+        for _ in range(reps):
+            fn()
+
+    return time_ms(window) / reps
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms():
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    if not _SLEEP_CYCLES_PER_MS:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def time_queued(fn, reps=20, iters=5):
+    """Median device time of one `fn` in milliseconds, with the card
+    kept ahead of the host: a sleep kernel holds the stream while `reps`
+    calls are queued behind the start event, so the window times the
+    card running them back to back, not the host's launch cost (which
+    bounds time_each for kernels shorter than a launch). A window the
+    card reached before the host had queued it all is run again with a
+    longer sleep."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(_sleep_cycles_per_ms() * (2 * host_ms + 1))
+    times = []
+    while len(times) < iters:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card still sleeping: all queued
+        end.synchronize()
+        if ahead:
+            times.append(start.elapsed_time(end) / reps)
+        else:
+            check(cycles < 1e11, "time_queued: the host never got ahead")
+            cycles *= 2
     return float(np.median(times))
 
 
@@ -890,6 +977,412 @@ def _resnet_parity(seed):
     return reading
 
 
+
+# -- slice 3: K4, rtc.CudaModule over NVRTC ----------------------------------
+
+def _bytes_bound(card, nbytes):
+    """Least time (ms) to move `nbytes` once at the card's memory rate;
+    the elementwise rtc kernels do too little arithmetic for it to
+    bind."""
+    return nbytes / PEAKS["H200" if "H200" in card else "H100"]["bytes"] \
+        * 1e3
+
+
+def resnet50_bn_relu_shapes(batch=32):
+    """{(N, C, H, W): fragments} of the BatchNorm -> relu pairs of
+    ResNet-50 v1 at 224x224 (mxnet_tpu/gluon/model_zoo/vision/resnet.py:
+    58-75, the stride on the 3x3): the stem, then two per bottleneck."""
+    shapes = {(batch, 64, 112, 112): 1}
+    size = 56
+    for stage, (blocks, ch) in enumerate(((3, 256), (4, 512), (6, 1024),
+                                          (3, 2048))):
+        for b in range(blocks):
+            stride = 2 if stage > 0 and b == 0 else 1
+            mid = ch // 4
+            first = (batch, mid, size, size)
+            size //= stride
+            second = (batch, mid, size, size)
+            for s in (first, second):
+                shapes[s] = shapes.get(s, 0) + 1
+    return shapes
+
+
+def phase_rtc_direct():
+    """The direct rtc entry points as a user calls them: scale_add
+    through the CudaModule/CudaKernel API on the JAX fixture (1, 8) and
+    at 4096x4096, and relu as the kernel of a partitioned dense-relu
+    MLP (b32, 1024 -> 4096 -> 1000). Counts are reset just before and
+    read just after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _nvrtc, rtc, subgraph
+    from mxnet_tpu_torch.examples import rtc_kernels
+
+    class DenseReLU(subgraph.SubgraphProperty):
+        """The fixture of the JAX package's test_partition_pallas_backend:
+        relu over FullyConnected, the matmul in torch, the relu the rtc
+        kernel."""
+
+        def select(self, node):
+            return node._op == "Activation"
+
+        def select_input(self, node, inp):
+            return inp._op == "FullyConnected"
+
+        def create_fn(self, sub_sym, arg_names):
+            return lambda x, w, b: rtc_kernels.relu(
+                torch.matmul(x, w.t()) + b)
+
+    stats0 = dict(_nvrtc.STATS)
+    t0 = time.perf_counter()
+    rtc_kernels.module()
+    compile_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    a = torch.arange(8, dtype=torch.float32, device="cuda").reshape(1, 8)
+    b = torch.ones(1, 8, device="cuda")
+    x = torch.randn(4096, 4096, generator=gen, device="cuda")
+    y = torch.randn(4096, 4096, generator=gen, device="cuda")
+
+    data = mx.sym.var("data")
+    mlp = mx.sym.FullyConnected(data, num_hidden=4096, name="fc")
+    mlp = mx.sym.Activation(mlp, act_type="relu", name="act")
+    mlp = mx.sym.FullyConnected(mlp, num_hidden=1000, name="out")
+    part = subgraph.partition(mlp, DenseReLU())
+    rng = np.random.default_rng(SEED)
+    shapes, _, _ = mlp.infer_shape(data=(32, 1024))
+    args = {n: mx.nd.array(rng.standard_normal(s, dtype=np.float32)
+                           * (0.03 if n != "data" else 1.0), ctx=mx.gpu(0))
+            for n, s in zip(mlp.list_arguments(), shapes)}
+
+    rtc_kernels.LAUNCHES.update(scale_add=0, relu=0)
+    rtc.LAUNCHES = 0  # the main path starts here
+    got_fixture = rtc_kernels.scale_add(a, b)
+    got_big = rtc_kernels.scale_add(x, y)
+    got_mlp = part.bind(mx.gpu(0), args, grad_req="null").forward()[0]
+    torch.cuda.synchronize()
+    launches = dict(rtc_kernels.LAUNCHES, rtc=rtc.LAUNCHES)  # just after
+    check(launches == {"scale_add": 2, "relu": 1, "rtc": 3},
+          "rtc direct path launches %s" % launches)
+    want_mlp = mlp.bind(mx.gpu(0), args, grad_req="null").forward()[0]
+    check(bool(torch.equal(got_fixture,
+                           rtc_kernels.scale_add_reference(a, b))),
+          "scale_add disagrees with its plain version at (1, 8)")
+    check(bool(torch.equal(got_big, rtc_kernels.scale_add_reference(x, y))),
+          "scale_add disagrees with its plain version at 4096x4096")
+    # The fragment adds the bias after the product, FullyConnected inside
+    # cuBLAS's epilogue: one rounding apart.
+    mlp_err = _hold("the rtc relu MLP against the unpartitioned one",
+                    got_mlp.data_, want_mlp.data_, 1e-5, 1e-6)
+    pre = torch.matmul(args["data"].data_, args["fc_weight"].data_.t()) \
+        + args["fc_bias"].data_
+    check(bool(torch.equal(rtc_kernels.relu(pre),
+                           rtc_kernels.relu_reference(pre))),
+          "relu disagrees with its plain version")
+    log(json.dumps({"phase": "rtc_direct", "launches": launches,
+                    "mlp_max_abs_err_vs_unpartitioned": mlp_err,
+                    "nvrtc_compile_s": compile_s,
+                    "nvrtc_stats_delta": {k: _nvrtc.STATS[k] - stats0[k]
+                                          for k in stats0},
+                    "compile_log": rtc_kernels.module().compile_log}))
+    return launches, (x, y, pre)
+
+
+def _hold(name, got, want, rtol, atol_rel):
+    atol = atol_rel * float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(max_violation(got, want, rtol, atol) <= 0,
+          "%s disagrees with its plain version: %g (rtol %g, atol %g)"
+          % (name, err, rtol, atol))
+    return err
+
+
+def phase_rtc_kernels(card, tensors):
+    """Each rtc kernel against its plain version and timed beside it,
+    its bound and the library call: scale_add and relu exactly at the
+    direct path's shapes; fused BatchNorm(inference)+ReLU at every
+    distinct ResNet-50 v1 b32 shape within rtol 1e-5 + 1e-6 max|want|.
+    Also the host cost of one CudaKernel.launch."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.context import Context
+    from mxnet_tpu_torch.examples import fused_bn_relu as fb
+    from mxnet_tpu_torch.examples import rtc_kernels
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    x, y, pre = tensors
+    n0, r0, k0 = fb.LAUNCHES, dict(rtc_kernels.LAUNCHES), rtc.LAUNCHES
+    entries = {}
+    err = float((rtc_kernels.scale_add(x, y)
+                 - rtc_kernels.scale_add_reference(x, y)).abs().max())
+    check(err == 0, "scale_add not exact: %g" % err)
+    entries["scale_add"] = {
+        "name": "rtc_scale_add", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/rtc/elementwise.cu",
+        "replaces": "mxnet_tpu/rtc.py:87", "max_abs_err": err,
+        "ms": time_queued(lambda: rtc_kernels.scale_add(x, y)),
+        "ms_host_window": time_each(lambda: rtc_kernels.scale_add(x, y)),
+        "plain_ms": time_queued(
+            lambda: rtc_kernels.scale_add_reference(x, y)),
+        "bound_ms": _bytes_bound(card, 3 * 4 * x.numel()),
+        "bound_by": "bytes",
+        "library_ms": time_queued(lambda: torch.add(y, x, alpha=2.0)),
+        "library_call": "torch.add(y, x, alpha=2)",
+        "shape": list(x.shape), "dtype": "float32"}
+    err = float((rtc_kernels.relu(pre) - torch.relu(pre)).abs().max())
+    check(err == 0, "relu not exact: %g" % err)
+    entries["relu"] = {
+        "name": "rtc_relu", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/rtc/elementwise.cu",
+        "replaces": "mxnet_tpu/rtc.py:87", "max_abs_err": err,
+        "ms": time_queued(lambda: rtc_kernels.relu(pre)),
+        "ms_host_window": time_each(lambda: rtc_kernels.relu(pre)),
+        "plain_ms": time_queued(lambda: rtc_kernels.relu_reference(pre)),
+        "bound_ms": _bytes_bound(card, 2 * 4 * pre.numel()),
+        "bound_by": "bytes",
+        "library_ms": time_queued(lambda: F.relu(pre)),
+        "library_call": "torch.nn.functional.relu",
+        "shape": list(pre.shape), "dtype": "float32"}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    per_shape, bn_err, both_err = [], 0.0, None
+    totals = {"ms": 0.0, "ms_host_window": 0.0, "plain_ms": 0.0,
+              "bound_ms": 0.0, "library_ms": 0.0}
+    for shape, count in resnet50_bn_relu_shapes(32).items():
+        c = shape[1]
+        xb = torch.randn(shape, generator=gen, device="cuda")
+        g, be, m = (torch.rand(c, generator=gen, device="cuda") - 0.5
+                    for _ in range(3))
+        g, v = g + 1.0, torch.rand(c, generator=gen, device="cuda") + 0.5
+        args = (xb, g, be, m, v, 1e-5, False, 1)
+        got = fb.bn_relu(*args)
+        want = fb.bn_relu_reference(*args)
+        bn_err = max(bn_err, _hold("bn_relu %s" % (shape,), got, want, 1e-5,
+                                   1e-6))
+        row = {"shape": list(shape), "fragments": count,
+               "ms": time_queued(lambda: fb.bn_relu(*args)),
+               "ms_host_window": time_each(lambda: fb.bn_relu(*args)),
+               "plain_ms": time_queued(lambda: fb.bn_relu_reference(*args)),
+               "bound_ms": _bytes_bound(card, 2 * 4 * xb.numel()),
+               "library_ms": time_queued(lambda: F.relu(F.batch_norm(
+                   xb, m, v, g, be, training=False, eps=1e-5)))}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        per_shape.append(row)
+        for k in totals:
+            totals[k] += row[k] * count
+        if shape == (32, 256, 28, 28):
+            # The two-output variant, for a pair whose BatchNorm output
+            # is read elsewhere too (not on ResNet-50's path): held, not
+            # timed.
+            both = zip(("z", "y"), fb.bn_and_relu(*args),
+                       fb.bn_and_relu_reference(*args))
+            both_err = max(_hold("bn_and_relu %s %s" % (k, shape), got_k,
+                                 want_k, 1e-5, 1e-6)
+                           for k, got_k, want_k in both)
+            del both
+        del xb, got, want
+    stem = per_shape[0]
+    entries["bn_relu"] = {
+        "name": "rtc_bn_relu", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/rtc/fused_bn_relu.cu",
+        "replaces": "mxnet_tpu/rtc.py:87", "max_abs_err": bn_err,
+        "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+        "bound_ms": stem["bound_ms"], "bound_by": "bytes",
+        "library_ms": stem["library_ms"],
+        "library_call": "F.batch_norm(training=False) then F.relu",
+        "shape": stem["shape"], "dtype": "float32",
+        "per_shape": per_shape, "per_b32_forward": totals}
+
+    # K4 itself: the runtime kernel surface, measured on its main path:
+    # the 33 fused launches of one ResNet-50 b32 forward, summed; and the
+    # host cost of one launch through CudaKernel.launch.
+    kern = fb._get_kernel()
+    tiny = [NDArray(torch.zeros(1, device="cuda")) for _ in range(6)]
+    ctx = Context.of(tiny[0].data_.device)
+    wrapper_x = torch.zeros(1, 1, 1, 1, device="cuda")
+    one = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kern.launch(tiny + [1, 1, 1, 1e-5, 0], ctx, (1,), (32,))
+    launch_us = (time.perf_counter() - t0) / 200 * 1e6
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fb.bn_relu(wrapper_x, one, one, one, one, 1e-5, False, 1)
+    wrapper_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    entries["k4"] = {
+        "name": "rtc.CudaModule (K4)", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:87",
+        "max_abs_err": max(bn_err, entries["scale_add"]["max_abs_err"],
+                           entries["relu"]["max_abs_err"]),
+        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"], "bound_by": "bytes",
+        "library_ms": totals["library_ms"],
+        "ms_host_window": totals["ms_host_window"],
+        "what": "NVRTC-compiled kernels launched through CudaKernel.launch;"
+                " times: the 33 BN+ReLU launches of one ResNet-50 v1 b32 "
+                "forward, summed (device time, the card kept ahead of the "
+                "host; ms_host_window: back-to-back calls, host-bound at "
+                "the small shapes)",
+        "host_us_per_launch": launch_us,
+        "host_us_per_bn_relu_call": wrapper_us}
+    # the comparisons above are not a main path: restore the counts
+    fb.LAUNCHES, rtc.LAUNCHES = n0, k0
+    rtc_kernels.LAUNCHES.update(r0)
+    check(both_err is not None, "bn_and_relu was not held")
+    log(json.dumps({"phase": "rtc_kernels", "bn_relu_per_shape": per_shape,
+                    "bn_relu_per_b32_forward": totals,
+                    "bn_and_relu_max_abs_err": both_err,
+                    "host_us_per_launch": launch_us,
+                    "host_us_per_bn_relu_call": wrapper_us}))
+    return entries
+
+
+def _randomize_bn(net, seed):
+    """Non-trivial BatchNorm parameters and statistics, from numpy, so
+    the fused kernel's arithmetic is exercised."""
+    rng = np.random.default_rng(seed)
+    for name, p in net.collect_params().items():
+        if name.endswith(("running_var", "gamma")):
+            p.set_data(rng.uniform(0.8, 1.2, p.shape).astype(np.float32))
+        elif name.endswith(("running_mean", "beta")):
+            p.set_data(rng.uniform(-0.1, 0.1, p.shape).astype(np.float32))
+
+
+def phase_checkpoint_served():
+    """ResNet-50 v1 exported and served from its checkpoint through
+    InferenceServer.from_checkpoint, fp32 (TF32 off), buckets 1/8/32:
+    once plain and once with MXNET_SUBGRAPH_BACKEND=fused_bn_relu. The
+    fused kernel launches exactly 33 times per forward (warmup included)
+    under the partition and never without it; both servers and the
+    hybridized gluon net agree within 1e-5 of the largest logit; img/s
+    at b32 on a batch on the card and through predict()."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _nvrtc, autograd, nd, rtc, serving
+    from mxnet_tpu_torch.examples import fused_bn_relu as fb
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    item, buckets = (3, 224, 224), (1, 8, 32)
+    compiles0 = _nvrtc.STATS["compiles"]
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    net.hybridize()
+    rng = np.random.default_rng(SEED + 5)
+    probe = rng.random((5,) + item, dtype=np.float32)
+    with torch.no_grad(), autograd.pause():
+        net(nd.array(probe[:1], ctx=mx.gpu(0)))
+    _randomize_bn(net, SEED + 6)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mxnet_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=build)
+    result = {"phase": "resnet50_v1_checkpoint_served", "buckets": buckets}
+    servers = {}
+    try:
+        t0 = time.perf_counter()
+        prefix = os.path.join(tmp, "resnet50_v1")
+        net.export(prefix)
+        result["export_s"] = time.perf_counter() - t0
+        with torch.no_grad(), autograd.pause():
+            want = net(nd.array(probe, ctx=mx.gpu(0))).data_
+        rows = [1, 5, 32]
+        reqs = [probe[:1], probe, rng.random((32,) + item, dtype=np.float32)]
+        for tag in ("plain", "partitioned"):
+            if tag == "partitioned":
+                os.environ["MXNET_SUBGRAPH_BACKEND"] = fb.BACKEND
+            fb.LAUNCHES = rtc.LAUNCHES = 0  # the main path starts here
+            t0 = time.perf_counter()
+            try:
+                srv = serving.InferenceServer.from_checkpoint(
+                    prefix, 0, item_shape=item, buckets=buckets,
+                    max_delay_ms=5, ctx=mx.gpu(0))
+            finally:
+                os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+            servers[tag] = srv
+            warm_s = time.perf_counter() - t0
+            with ThreadPoolExecutor(len(reqs)) as pool:
+                futs = list(pool.map(srv.submit, reqs))
+            outs = [f.result(timeout=300) for f in futs]
+            launches = (fb.LAUNCHES, rtc.LAUNCHES)  # read just after
+            exs = srv._model._executors
+            forwards = sum(ex.num_forwards for ex in exs.values())
+            frags = {b[0]: sum(1 for n in ex._symbol._topo()
+                               if n._op == "_subgraph")
+                     for b, ex in exs.items()}
+            check(srv.compile_count == len(buckets),
+                  "%s: compile_count %d" % (tag, srv.compile_count))
+            for r, o in zip(rows, outs):
+                check(o.shape == (r, 1000), "served shape %s" % (o.shape,))
+                check(bool(torch.isfinite(o.data_).all()),
+                      "non-finite %s output" % tag)
+            per_fwd = 33 if tag == "partitioned" else 0
+            check(all(f == per_fwd for f in frags.values()),
+                  "%s: fragments per bucket %s" % (tag, frags))
+            check(launches == (per_fwd * forwards, per_fwd * forwards),
+                  "%s: bn_relu/rtc launches %s for %d forwards"
+                  % (tag, launches, forwards))
+            result[tag] = {"warmup_s": warm_s, "forwards": forwards,
+                           "batches": srv.metrics.total_batches,
+                           "fragments_per_bucket": frags,
+                           "bn_relu_launches": launches[0],
+                           "rtc_launches": launches[1],
+                           "probe": outs[1].data_}
+        scale = float(want.abs().max())
+        errs = {}
+        for tag in servers:
+            got = result[tag].pop("probe")
+            errs[tag + "_vs_gluon"] = float((got - want).abs().max())
+        errs["partitioned_vs_plain"] = float(
+            (servers["partitioned"].predict(probe).data_
+             - servers["plain"].predict(probe).data_).abs().max())
+        result["agreement"] = {"max_abs_logit": scale, "limit": 1e-5 * scale,
+                               **errs}
+        for k, e in errs.items():
+            check(e <= 1e-5 * scale, "%s: %g > 1e-5 x %g" % (k, e, scale))
+
+        batch = nd.array(rng.random((32,) + item, dtype=np.float32),
+                         ctx=mx.gpu(0))
+        host32 = rng.random((32,) + item, dtype=np.float32)
+
+        def gluon_forward():
+            with torch.no_grad(), autograd.pause():
+                net(batch).wait_to_read()
+
+        result["gluon_hybridized"] = {"forward_ms_b32":
+                                      time_ms(gluon_forward)}
+        for tag, srv in servers.items():
+            n0 = fb.LAUNCHES
+            ms = time_ms(lambda: srv._model(batch).wait_to_read())
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                srv.predict(host32).wait_to_read()
+            served = (time.perf_counter() - t0) / ITERS
+            result[tag].update({"forward_ms_b32": ms,
+                                "forward_img_s_b32": 32e3 / ms,
+                                "served_ms_b32": served * 1e3,
+                                "served_img_s_b32": 32 / served,
+                                "stats": srv.stats()})
+            fb.LAUNCHES = n0  # timing runs are not the main path
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 3 buckets x 33 fragments share one compiled program
+    result["nvrtc_stats"] = dict(_nvrtc.STATS)
+    compiled = _nvrtc.STATS["compiles"] - compiles0
+    check(compiled <= 1, "NVRTC compiled %d programs in the checkpoint "
+          "phase, not at most one" % compiled)
+    log(json.dumps(result))
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -901,6 +1394,23 @@ def main():
     phase_resnet_served()
     trained, attn_step_ms = phase_attention_trained()
     phase_resnet_trained()
+    direct, tensors = phase_rtc_direct()
+    rtc_entries = phase_rtc_kernels(card, tensors)
+    ckpt = phase_checkpoint_served()
+    rtc_entries["scale_add"]["launches"] = direct["scale_add"]
+    rtc_entries["relu"]["launches"] = direct["relu"]
+    rtc_entries["bn_relu"]["launches"] = \
+        ckpt["partitioned"]["bn_relu_launches"]
+    rtc_entries["bn_relu"]["launches_by_path"] = {
+        "checkpoint_served_partitioned":
+            ckpt["partitioned"]["bn_relu_launches"],
+        "checkpoint_served_plain": ckpt["plain"]["bn_relu_launches"]}
+    rtc_entries["k4"]["launches"] = direct["rtc"] + \
+        ckpt["partitioned"]["rtc_launches"] + ckpt["plain"]["rtc_launches"]
+    rtc_entries["k4"]["launches_by_path"] = {
+        "rtc_direct": direct["rtc"],
+        "checkpoint_served_partitioned": ckpt["partitioned"]["rtc_launches"],
+        "checkpoint_served_plain": ckpt["plain"]["rtc_launches"]}
     fwd["launches"] = served + trained[0]
     fwd["launches_by_path"] = {"attention_served": served,
                                "attention_trained": trained[0],
@@ -909,9 +1419,11 @@ def main():
         entry["launches"] = n
         entry["launches_by_path"] = {"attention_trained": n,
                                      "resnet50_trained": 0}
-    for entry in (fwd, dkv, dq):
+    rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
+                                         "relu")]
+    for entry in [fwd, dkv, dq] + rtc_list:
         entry["card"] = card_line
-    log(json.dumps({"kernels": [fwd, dkv, dq],
+    log(json.dumps({"kernels": [fwd, dkv, dq] + rtc_list,
                     "attention_train_step_ms": attn_step_ms}))
     log("total_seconds", round(time.perf_counter() - t_start, 3))
     print(json.dumps({"ok": True, "device": {

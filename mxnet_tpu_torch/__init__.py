@@ -33,6 +33,13 @@ _LAZY = {
     "serving": ".serving",
     "cached_op": ".cached_op",
     "parallel": ".parallel",
+    "symbol": ".symbol",
+    "sym": ".symbol",
+    "executor": ".executor",
+    "model": ".model",
+    "subgraph": ".subgraph",
+    "rtc": ".rtc",
+    "attribute": ".attribute",
 }
 
 

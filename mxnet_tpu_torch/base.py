@@ -8,15 +8,44 @@ bfloat16, so every dtype argument of the port goes through
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import tempfile
+
 import numpy as np
 import torch
 
 __all__ = ["MXNetError", "mx_real_t", "torch_dtype", "dtype_name",
-           "numpy_dtype", "numeric_types", "string_types"]
+           "numpy_dtype", "numeric_types", "string_types", "atomic_write"]
+
+# The process umask, read once (os.umask can only be read by setting it).
+_UMASK = os.umask(0)
+os.umask(_UMASK)
 
 
 class MXNetError(RuntimeError):
     """Framework error type (reference: python/mxnet/base.py:MXNetError)."""
+
+
+@contextlib.contextmanager
+def atomic_write(fname, mode="wb"):
+    """Crash-safe file write, as ``mxnet_tpu/base.py:atomic_write``:
+    yields a handle to a temp file in the same directory; on a clean
+    exit the content is fsynced and renamed over `fname` in one step, on
+    an error the temp file is removed. A crash leaves the old file or a
+    stray ``.tmp*``, never a truncated `fname`."""
+    d, base = os.path.split(os.path.abspath(fname))
+    fd, tmp = tempfile.mkstemp(prefix=base + ".tmp", dir=d)
+    os.fchmod(fd, 0o666 & ~_UMASK)
+    try:
+        with os.fdopen(fd, mode) as f:
+            yield f
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 string_types = (str,)

@@ -1,0 +1,113 @@
+"""Elementwise kernels compiled at runtime through ``rtc.CudaModule``.
+
+The counterparts of the JAX package's rtc fixtures, as wrappers over
+torch tensors: ``scale_add`` (``o = 2 x + y``, tests/test_contrib.py:
+201-211 there) and ``relu`` over the output of a matmul (the fused relu
+of tests/test_subgraph_nce.py:109-142), both fp32, from
+``csrc/rtc/elementwise.cu``. Each wrapper launches its kernel on a CUDA tensor and
+counts the launch in ``LAUNCHES``; a host tensor gets the plain PyTorch
+version beside it. A CUDA tensor never falls back: a failed compile or
+launch raises.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+import torch
+
+from .. import rtc
+
+__all__ = ["SOURCE", "LAUNCHES", "module", "launch_1d", "scale_add",
+           "scale_add_reference", "relu", "relu_reference"]
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "rtc", "elementwise.cu")
+
+# Kernel launches by the wrappers below since import.
+LAUNCHES = {"scale_add": 0, "relu": 0}
+
+_THREADS = 256
+_lock = threading.Lock()
+_module = []
+_sms = {}  # device -> multiprocessor count
+
+
+def module():
+    """The compiled CudaModule of elementwise.cu (compiled once)."""
+    if not _module:
+        with _lock:
+            if not _module:
+                with open(SOURCE) as f:
+                    _module.append(rtc.CudaModule(f.read()))
+    return _module[0]
+
+
+def launch_1d(kernel, tensors, scalars, n):
+    """Launch a grid-stride kernel over `n` elements of `tensors` (CUDA,
+    one device) followed by the scalar parameters: 256 threads a block,
+    at most 8 blocks per multiprocessor."""
+    device = tensors[0].device
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    blocks = max(1, min((n + _THREADS - 1) // _THREADS, 8 * sms))
+    kernel.launch_tensors(list(tensors) + list(scalars), (blocks,),
+                          (_THREADS,))
+
+
+_kernels = {}
+
+
+def _kernel(name, signature):
+    k = _kernels.get(name)
+    if k is None:
+        k = _kernels[name] = module().get_kernel(name, signature)
+    return k
+
+
+def _check(*tensors):
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError("the rtc elementwise kernels take float32, got "
+                            "%s" % t.dtype)
+
+
+def scale_add_reference(x, y):
+    return 2.0 * x + y
+
+
+def scale_add(x, y):
+    """``2 x + y``: the rtc kernel on CUDA tensors, the plain version on
+    host tensors. The kernel does not broadcast: x and y have one
+    shape."""
+    if x.shape != y.shape:
+        raise ValueError("scale_add: x %s and y %s differ in shape"
+                         % (tuple(x.shape), tuple(y.shape)))
+    if x.device.type == "cpu":
+        return scale_add_reference(x, y)
+    _check(x, y)
+    out = torch.empty_like(x)
+    launch_1d(_kernel("scale_add", "const float *x, const float *y, "
+                      "float *out, int64_t n"), [x, y, out], [x.numel()],
+              x.numel())
+    LAUNCHES["scale_add"] += 1
+    return out
+
+
+def relu_reference(x):
+    return torch.relu(x)
+
+
+def relu(x):
+    """``max(x, 0)``: the rtc kernel on CUDA tensors, the plain version on
+    host tensors."""
+    if x.device.type == "cpu":
+        return relu_reference(x)
+    _check(x)
+    y = torch.empty_like(x)
+    launch_1d(_kernel("relu", "const float *x, float *y, int64_t n"),
+              [x, y], [x.numel()], x.numel())
+    LAUNCHES["relu"] += 1
+    return y

@@ -3,7 +3,7 @@
 from . import parameter
 from .parameter import Parameter, ParameterDict
 from . import block
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from . import nn
 from . import utils
 from . import loss

@@ -13,17 +13,24 @@ train mode) are captured and committed after the call, exactly as in
 the JAX package. Deferred initialization: layers implement
 ``infer_shape(*args)``, which fills parameter shapes from the first
 input.
+
+Symbolic re-trace: called on a :class:`~mxnet_tpu_torch.symbol.Symbol`,
+a block's parameters become named variables and ``hybrid_forward`` runs
+with ``F = symbol``. ``export`` writes that graph and the weights in the
+reference's checkpoint format; :class:`SymbolBlock` (``imports``) runs
+such a checkpoint through the symbolic Executor.
 """
 from __future__ import annotations
 
 from .. import autograd
 from .. import ndarray as nd
+from .. import symbol as _sym
 from ..cached_op import CachedOp
 from ..ndarray.ndarray import NDArray
 from .parameter import (Parameter, ParameterDict, DeferredInitializationError,
                         override, tracing_overrides)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -154,6 +161,14 @@ class HybridBlock(Block):
             return {k: p.data(ctx) for k, p in self._reg_params.items()}
 
     def forward(self, x, *args):
+        if isinstance(x, _sym.Symbol):
+            # Symbolic re-trace (export): parameters become variables
+            # named like the parameters. Aux-ness (BatchNorm's moving
+            # stats) comes from the op composition, not from grad_req.
+            params = {k: _sym.Symbol(None, name=p.name)
+                      for k, p in self._reg_params.items()}
+            return self.hybrid_forward(_sym, x, *args, **params)
+        self._num_forward_inputs = 1 + len(args)
         params = self._ensure_init(x, *args)
         return self.hybrid_forward(nd, x, *args, **params)
 
@@ -187,6 +202,9 @@ class HybridBlock(Block):
         self._cached_op = CachedOp(fn, num_params=n, **self._flags)
 
     def _call_cached_op(self, *args):
+        # export() needs the call's arity; a hybridized block may never
+        # run the plain forward that records it.
+        self._num_forward_inputs = len(args)
         if self._cached_op is None:
             self._build_cache(*args)
         ctx = next((a.context for a in args if isinstance(a, NDArray)), None)
@@ -197,6 +215,174 @@ class HybridBlock(Block):
         return out
 
     def __call__(self, *args, **kwargs):
-        if self._active and tracing_overrides() is None and not kwargs:
+        if self._active and tracing_overrides() is None and not kwargs \
+                and not any(isinstance(a, _sym.Symbol) for a in args):
             return self._call_cached_op(*args)
         return super().__call__(*args, **kwargs)
+
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` and ``path-%04d.params`` (reference
+        block.py:export): the block is re-traced through the Symbol
+        frontend in inference mode, and the weights are saved under the
+        reference's ``arg:``/``aux:`` keys, so ``SymbolBlock.imports``,
+        ``InferenceServer.from_checkpoint``, the JAX package and the
+        reference load the pair. Call the block once first, so that its
+        parameters are initialized. Returns (symbol_file, params_file)."""
+        n_in = getattr(self, "_num_forward_inputs", 1)
+        names = ["data"] if n_in == 1 else \
+            ["data%d" % i for i in range(n_in)]
+        with autograd.pause(train_mode=False):
+            out = self(*[_sym.var(n) for n in names])
+        if isinstance(out, (list, tuple)):
+            out = _sym.Group(list(out))
+        sym_file = "%s-symbol.json" % path
+        out.save(sym_file)
+        arg_names = set(out.list_arguments())
+        aux_names = set(out.list_auxiliary_states())
+        save_dict = {}
+        for p in self.collect_params().values():
+            if p._data is None:
+                continue
+            if p.name in aux_names:
+                save_dict["aux:%s" % p.name] = p.data()
+            elif p.name in arg_names:
+                save_dict["arg:%s" % p.name] = p.data()
+        params_file = "%s-%04d.params" % (path, epoch)
+        nd.save(params_file, save_dict)
+        return sym_file, params_file
+
+    def export_stablehlo(self, path, *example_inputs):
+        """The JAX package serializes its jitted computation as StableHLO
+        through ``jax.export``; PyTorch on an NVIDIA card has no such
+        artifact here. Use :meth:`export` (symbol + params)."""
+        raise NotImplementedError(
+            "export_stablehlo has no counterpart on the PyTorch/CUDA port; "
+            "use HybridBlock.export (prefix-symbol.json + prefix-%04d.params)")
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a symbol graph (reference block.py:SymbolBlock).
+    The forward binds an eval Executor per input signature, with the
+    block's parameters as arguments and aux states (by reference, so
+    ``set_data`` is seen by later calls). Under ``autograd.record()`` it
+    walks the graph through the imperative ops instead, so an imported
+    model trains like any block."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = _sym.Group(list(outputs))
+        self._outputs = outputs
+        self._inputs = inputs if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        self._executors = {}
+        input_names = {i.name for i in self._inputs}
+        params = params or {}
+        aux_set = set(outputs.list_auxiliary_states())
+        for name in list(outputs.list_arguments()) + sorted(aux_set):
+            if name in input_names:
+                continue
+            p = params.get(name)
+            if isinstance(p, Parameter):
+                self._params._params[name] = p
+                continue
+            newp = self._params.get(
+                name, allow_deferred_init=True,
+                grad_req="null" if name in aux_set else "write")
+            if p is not None:  # an NDArray or numpy array
+                newp.shape = tuple(p.shape)
+                newp.initialize(init="zeros", ctx=p.context
+                                if isinstance(p, NDArray) else None)
+                newp.set_data(p)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """Reload an exported model (reference SymbolBlock.imports):
+        ``arg:``/``aux:``-prefixed or plain parameter names. The weights
+        land on `ctx` (default: the current context)."""
+        sym = _sym.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [_sym.var(n) for n in input_names]
+        params = {}
+        if param_file:
+            for k, v in nd.load(param_file, ctx=ctx).items():
+                name = k.split(":", 1)[1] if k.startswith(("arg:", "aux:")) \
+                    else k
+                params[name] = v
+            # A truncated checkpoint fails here, with the missing names.
+            missing = [n for n in (list(sym.list_arguments())
+                                   + list(sym.list_auxiliary_states()))
+                       if n not in input_names and n not in params]
+            if missing:
+                raise ValueError(
+                    "Parameter file %s is missing graph parameters %s"
+                    % (param_file, sorted(missing)))
+        return SymbolBlock(sym, inputs, params=params)
+
+    def _forward_imperative(self, data):
+        """Walk the DAG through the imperative ops, so autograd records
+        every node; BatchNorm's train-mode statistics go to the aux
+        parameters, as the Executor routes them."""
+        from ..ndarray.ndarray import _invoke
+        from ..ops import registry as _reg
+
+        cache = {}
+
+        def value_of(node, out_index):
+            key = (node._uid, out_index or 0)
+            if key in cache:
+                return cache[key]
+            if node._op is None:
+                v = data.get(node._name)
+                if v is None:
+                    v = self._params[node._name].data()
+                cache[key] = v
+                return v
+            op_name = node._attrs.get("_op_name", node._op)
+            in_vals = [value_of(i, i._out_index or 0) for i in node._inputs]
+            attrs = node._clean_attrs()
+            if _reg.get(op_name).train_aware:
+                # dispatch injects the current train mode
+                attrs.pop("training", None)
+            res = _invoke(op_name, in_vals, **attrs)
+            outs = res if isinstance(res, (tuple, list)) else (res,)
+            aux_inputs = [i for i in node._inputs
+                          if i._op is None and i._is_aux]
+            if aux_inputs and len(outs) == 1 + len(aux_inputs):
+                if autograd.is_training():
+                    for a, v in zip(aux_inputs, outs[1:]):
+                        if a._name in self._params:
+                            self._params[a._name].set_data(v.detach())
+                outs = outs[:1]
+            for i, o in enumerate(outs):
+                cache[(node._uid, i)] = o
+            return cache[(node._uid, out_index or 0)]
+
+        outs = [value_of(s, s._out_index or 0)
+                for s in self._outputs.outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def forward(self, *args):
+        data = {inp.name: val if isinstance(val, NDArray) else nd.array(val)
+                for inp, val in zip(self._inputs, args)}
+        if autograd.is_recording():
+            return self._forward_imperative(data)
+        sig = tuple(sorted((k, v.shape, str(v.dtype), str(v.context))
+                           for k, v in data.items()))
+        ex = self._executors.get(sig)
+        if ex is None:
+            # Data binds as copies (forward writes fed values into the
+            # bound arrays); parameters bind by reference.
+            args_map = {k: v.copy() for k, v in data.items()}
+            for n in self._outputs.list_arguments():
+                if n not in args_map:
+                    args_map[n] = self._params[n].data()
+            aux_map = {n: self._params[n].data()
+                       for n in self._outputs.list_auxiliary_states()}
+            ctx = next(iter(data.values())).context if data else None
+            ex = self._outputs.bind(ctx, args=args_map, aux_states=aux_map,
+                                    grad_req="null")
+            self._executors[sig] = ex
+        outs = ex.forward(is_train=autograd.is_training(), **data)
+        return outs[0] if len(outs) == 1 else list(outs)

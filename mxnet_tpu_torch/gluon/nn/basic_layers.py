@@ -120,12 +120,17 @@ class BatchNorm(HybridBlock):
         from ... import autograd
 
         training = autograd.is_training()
-        out, new_mean, new_var = F.BatchNorm(
+        res = F.BatchNorm(
             x, gamma, beta, running_mean, running_var,
             eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             training=training)
+        if not isinstance(res, tuple):
+            # Symbolic trace (export): one node; the Executor routes the
+            # running-stat updates to the aux states.
+            return res
+        out, new_mean, new_var = res
         if training and not self._use_global_stats:
             self.running_mean.set_data(new_mean)
             self.running_var.set_data(new_var)

@@ -11,9 +11,11 @@ import inspect
 from .. import ops as _ops  # noqa: F401  (registers every operator)
 from ..ops import registry as _registry
 from .ndarray import NDArray, array, zeros, ones, full, waitall, _invoke
+from .utils import save, load, save_dict, load_dict
 from . import contrib  # noqa: F401
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall", "save",
+           "load", "save_dict", "load_dict"]
 
 _FUNC_CACHE = {}
 

@@ -161,6 +161,10 @@ class NDArray:
                            ctx=other)
         raise TypeError("copyto expects NDArray or Context")
 
+    def copy(self):
+        """A copy on the same device."""
+        return NDArray(self._data.detach().clone(), ctx=self._ctx)
+
     def as_in_context(self, ctx):
         if ctx == self._ctx:
             return self

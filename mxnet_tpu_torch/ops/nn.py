@@ -2,8 +2,9 @@
 
 Counterpart of the subset of ``mxnet_tpu/ops/nn.py`` that ResNet and the
 served functions use: FullyConnected, Convolution, Pooling, BatchNorm,
-Activation, softmax and log_softmax. Convolution and the dense layer go
-to PyTorch's library calls, as the JAX package leaves them to XLA.
+Activation, softmax, log_softmax and the SoftmaxOutput loss head.
+Convolution and the dense layer go to PyTorch's library calls, as the
+JAX package leaves them to XLA.
 
 Two semantics differ from what PyTorch's functional ops do by default,
 and are written out here:
@@ -27,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..base import torch_dtype
 from .registry import register
 
 _CHANNEL_FIRST = (None, "NCW", "NCHW", "NCDHW")
@@ -50,15 +52,18 @@ def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
 @register("Convolution", aliases=("convolution",))
 def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                  pad=(), num_filter=0, num_group=1, no_bias=False,
-                 layout="NCHW"):
+                 layout="NCHW", preferred_element_type=None):
     if layout not in _CHANNEL_FIRST:
         raise ValueError("Convolution supports channel-first layouts only "
                          "(got %r)" % (layout,))
     ndim = len(kernel) if kernel else weight.ndim - 2
     conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[ndim]
-    return conv(data, weight, None if no_bias else bias,
-                stride=tuple(stride) or 1, padding=tuple(pad) or 0,
-                dilation=tuple(dilate) or 1, groups=num_group)
+    out = conv(data, weight, None if no_bias else bias,
+               stride=tuple(stride) or 1, padding=tuple(pad) or 0,
+               dilation=tuple(dilate) or 1, groups=num_group)
+    if preferred_element_type is not None:
+        out = out.to(torch_dtype(preferred_element_type))
+    return out
 
 
 _POOL = {"max": (F.max_pool1d, F.max_pool2d, F.max_pool3d),
@@ -173,3 +178,64 @@ def _softmax(data, axis=-1, temperature=None, length=None):
 def _log_softmax(data, axis=-1, temperature=None):
     x = data / temperature if temperature else data
     return torch.log_softmax(x, dim=axis)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward is the loss's own gradient, as in
+    ``mxnet_tpu/ops/nn.py:_softmax_output_impl`` (reference
+    softmax_output-inl.h): (softmax - onehot(label)), masked where the
+    label is ignored, normalized, scaled by ``grad_scale``. The incoming
+    head gradient is ignored; the label gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output,
+                use_ignore, normalization, smooth_alpha):
+        axis = 1 if multi_output else -1
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.opts = (axis, grad_scale, ignore_label, use_ignore,
+                    normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        axis, grad_scale, ignore_label, use_ignore, normalization, \
+            smooth_alpha = ctx.opts
+        axis = axis % out.ndim
+        depth = out.shape[axis]
+        lab = label.to(torch.int32)
+        classes = torch.arange(depth, device=out.device).view(
+            [depth if i == axis else 1 for i in range(out.ndim)])
+        # Out-of-range labels (an ignored -1) give an all-zero row, as
+        # jax.nn.one_hot does.
+        onehot = (lab.unsqueeze(axis) == classes).to(out.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1 - smooth_alpha) \
+                + smooth_alpha / (depth - 1) * (1 - onehot)
+        grad = out - onehot
+        keep = None
+        if use_ignore:
+            keep = (lab != int(ignore_label)).to(out.dtype)
+            grad = grad * keep.unsqueeze(axis)
+        if normalization == "valid":
+            count = keep.sum() if keep is not None else torch.tensor(
+                float(lab.numel()), dtype=out.dtype, device=out.device)
+            grad = grad / torch.clamp(count, min=1.0)
+        elif normalization == "batch":
+            grad = grad / float(lab.shape[0])
+        grad = grad * grad_scale
+        label_grad = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return (grad, label_grad) + (None,) * 6
+
+
+@register("SoftmaxOutput", aliases=("softmax_output", "Softmax"))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(multi_output),
+                                bool(use_ignore), str(normalization),
+                                float(smooth_alpha))

@@ -5,8 +5,11 @@ Run from the repository root on a machine with a CUDA card::
     python3 -m mxnet_tpu_torch.profile_serving
 
 For each served function of ``chip_smoke.py`` — ResNet-50 v1 at batch 32
-in fp32 (TF32 off) and bf16, and the flash-attention function at bucket
-8 — on a batch already on the card, it prints one JSON line:
+in fp32 (TF32 off) and bf16, the flash-attention function at bucket 8,
+and ResNet-50 v1 served from its exported checkpoint at batch 32 (the
+bucket Executor of ``InferenceServer.from_checkpoint``), plain and
+partitioned by the ``fused_bn_relu`` subgraph backend — on a batch
+already on the card, it prints one JSON line:
 
 - ``wall_ms``: host clock per call, the card synchronised at the end of
   the window;
@@ -109,7 +112,45 @@ def main():
                                        causal=True)
 
         _profile("flash_attention served fn b8", attention)
+
+    _profile_checkpoint(net, batch)
     return 0
+
+
+def _profile_checkpoint(net, batch):
+    """The checkpoint-served ResNet-50 at b32, plain and partitioned: the
+    bucket model of from_checkpoint, called as the server's worker calls
+    it."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.examples import fused_bn_relu
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=build)
+    try:
+        prefix = os.path.join(tmp, "resnet50_v1")
+        net.export(prefix)
+        for tag, backend in (("plain", None),
+                             ("partitioned", fused_bn_relu.BACKEND)):
+            if backend:
+                os.environ["MXNET_SUBGRAPH_BACKEND"] = backend
+            try:
+                srv = serving.InferenceServer.from_checkpoint(
+                    prefix, 0, item_shape=tuple(batch.shape[1:]),
+                    buckets=(batch.shape[0],), ctx=mx.gpu(0), start=False)
+            finally:
+                os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+            _profile("resnet50_v1 from_checkpoint %s b32" % tag,
+                     lambda: srv._model(batch))
+            srv.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,14 @@ assembles the padded batch on the host and uploads it once per device
 call. numpy has no bfloat16, so a bfloat16 model takes float32 requests
 and casts on the card inside the served function.
 
+``from_checkpoint`` serves a ``prefix-symbol.json`` +
+``prefix-%04d.params`` pair through one eval-mode Executor per bucket
+shape, the parameters shared by all of them; with
+``MXNET_SUBGRAPH_BACKEND`` naming a registered backend, each Executor
+partitions the graph at bind.
+
 Left for later slices: the telemetry hooks of the JAX package (trace
-spans, watchdog lane, readiness slot) and ``from_checkpoint``, which
-serves a symbolic checkpoint through the Executor.
+spans, watchdog lane, readiness slot).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from .. import ndarray as nd
 from ..cached_op import CachedOp
@@ -55,13 +61,65 @@ class _FnModel:
         return self._cached.num_traces
 
 
+class _CheckpointModel:
+    """A ``model.load_checkpoint`` artifact served through one eval-mode
+    Executor per bucket shape. The parameters are moved to `ctx` once and
+    bound by reference into every Executor; each gets its own data array
+    (and zero arrays for other unfed inputs, such as a loss head's
+    label)."""
+
+    def __init__(self, symbol, arg_params, aux_params, ctx,
+                 data_name="data"):
+        self._symbol = symbol
+        self._ctx = ctx
+        self._arg_params = {k: v.as_in_context(ctx)
+                            for k, v in arg_params.items()}
+        self._aux_params = {k: v.as_in_context(ctx)
+                            for k, v in (aux_params or {}).items()}
+        self._data_name = data_name
+        self._executors = {}  # batch shape -> Executor
+
+    def _executor_for(self, shape):
+        ex = self._executors.get(shape)
+        if ex is None:
+            sym = self._symbol
+            known = {n: v.shape for n, v in self._arg_params.items()}
+            known.update((n, v.shape) for n, v in self._aux_params.items())
+            known[self._data_name] = shape
+            arg_shapes, _, aux_shapes = sym.infer_shape(**known)
+            args = {n: self._arg_params[n] if n in self._arg_params
+                    else nd.zeros(s, ctx=self._ctx)
+                    for n, s in zip(sym.list_arguments(), arg_shapes)}
+            aux = {n: self._aux_params[n] if n in self._aux_params
+                   else nd.zeros(s, ctx=self._ctx)
+                   for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+            ex = sym.bind(self._ctx, args=args, aux_states=aux,
+                          grad_req="null")
+            self._executors[shape] = ex
+        return ex
+
+    def __call__(self, batch):
+        ex = self._executor_for(tuple(batch.shape))
+        with torch.no_grad():
+            outs = ex.forward(is_train=False, **{self._data_name: batch})
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    @property
+    def compile_count(self):
+        """Bucket executors that have run a forward (a snapshot: the
+        worker may be adding one)."""
+        return sum(1 for ex in list(self._executors.values())
+                   if ex.num_forwards)
+
+
 class InferenceServer:
     """Shape-bucketed batching inference server.
 
     Parameters
     ----------
-    fn : callable(*params, data)
-        Pure eval-time forward over NDArrays.
+    fn : callable(*params, data), optional
+        Pure eval-time forward over NDArrays. Exactly one of `fn` and
+        `model` (see :meth:`from_checkpoint`).
     params : sequence of NDArray/ndarray
         Leading arguments bound to `fn`.
     item_shape : tuple
@@ -79,14 +137,20 @@ class InferenceServer:
         context, ``gpu(0)`` unless the caller chose another).
     warmup : run every bucket once at construction (default True).
     start : start the worker thread at construction (default True).
+    model : callable(batch NDArray) with a ``compile_count``, optional
+        A prepared model, such as the checkpoint model of
+        :meth:`from_checkpoint`.
     """
 
-    def __init__(self, fn, params=(), *, item_shape, dtype="float32",
+    def __init__(self, fn=None, params=(), *, item_shape, dtype="float32",
                  max_batch=32, buckets=None, max_delay_ms=5.0,
                  max_queue=128, timeout_ms=None, ctx=None, warmup=True,
-                 start=True):
+                 start=True, model=None):
+        if (fn is None) == (model is None):
+            raise ValueError("pass exactly one of fn= or model=")
         self._ctx = ctx if ctx is not None else current_context()
-        self._model = _FnModel(fn, params, self._ctx)
+        self._model = model if model is not None else \
+            _FnModel(fn, params, self._ctx)
         self._item_shape = tuple(item_shape)
         self._dtype = np.dtype(dtype)
         self.policy = BucketPolicy(max_batch=max_batch, buckets=buckets)
@@ -104,6 +168,23 @@ class InferenceServer:
             self.warmup()
         if start:
             self._batcher.start()
+
+    @classmethod
+    def from_checkpoint(cls, prefix, epoch, *, item_shape, data_name="data",
+                        **kwargs):
+        """Serve a ``model.save_checkpoint`` / ``HybridBlock.export``
+        artifact (``prefix-symbol.json`` + ``prefix-%04d.params``) on
+        ``kwargs["ctx"]`` (default: the current context)."""
+        from .. import model as _model
+
+        ctx = kwargs.get("ctx")
+        ctx = ctx if ctx is not None else current_context()
+        symbol, arg_params, aux_params = _model.load_checkpoint(
+            prefix, epoch, ctx=ctx)
+        kwargs["ctx"] = ctx
+        return cls(model=_CheckpointModel(symbol, arg_params, aux_params,
+                                          ctx, data_name=data_name),
+                   item_shape=item_shape, **kwargs)
 
     # -- lifecycle ------------------------------------------------------------
 
