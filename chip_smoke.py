@@ -12,14 +12,17 @@ phase falls back to the host or to a plain version):
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile every CUDA source of the port, all at once (timed),
    with ptxas's register and spill report of each instantiation; a
-   spill at head_dim 64 or 128 fails.
+   missing instantiation of an attention kernel, or a spill in one at
+   head_dim 64 or 128, fails.
 3. kernels: each kernel against its plain PyTorch version on the same
-   CUDA inputs (fp32 at head dims 32, 64 and 128, bf16 and fp16; see
-   tolerance()), and at the shape the main path gives it, where it is
-   timed beside its plain version, the library call that computes the
-   same function, and its bound: the forward (K1) at the serving shape,
-   the backward (K2 dK/dV, K3 dQ) at the training shape, with the
-   backward's peak memory held below one fp32 score matrix.
+   CUDA inputs (fp32 at head dims 32, 64 and 128; bf16 and fp16, the
+   tensor-core K1/K2, at ragged and cross shapes, WGMMA_CASES; held to
+   ``ops.flash_attention.kernel_tolerance``), and at the shape the main
+   path gives it, where it is timed beside its plain version, the
+   library call that computes the same function, and its bound: the
+   forward (K1) at the serving shape, the backward (K2 dK/dV, K3 dQ) at
+   the training shape, with the backward's peak memory held below one
+   fp32 score matrix.
 4. attention served: ``InferenceServer`` over
    ``nd.contrib.flash_attention`` (16 heads x 64, T 2048, causal, bf16).
 5. ResNet-50 v1 served at full width (224x224, 1000 classes, buckets
@@ -66,12 +69,18 @@ phase falls back to the host or to a plain version):
 Each path (4, 6, 7, 8, 10) is driven with every launch count set to 0
 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
-random, from a seed. Kernel timings are CUDA-event medians of 20 runs
-after warmup (the rtc rows: of 5 windows of 20 queued calls).
+random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
+``library_ms`` are CUDA-event medians of 20 single calls after warmup
+(``time_ms``), the wrapper's host cost inside the window; their
+``device_ms`` and ``library_device_ms`` are device time, the median of 5
+windows of 20 calls queued behind a sleep kernel (``time_queued``). The
+rtc rows' ``ms`` is ``time_queued`` and their ``ms_host_window`` the
+median of back-to-back calls.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -227,22 +236,6 @@ def max_violation(got, want, rtol, atol):
     return float(((got - want).abs() - (atol + rtol * want.abs())).max())
 
 
-def tolerance(dtype, want):
-    """(rtol, atol) of a kernel's output against its plain version.
-
-    fp32: the JAX package's test tolerance (rtol 2e-4, atol 2e-5).
-    bf16/fp16: the kernel and the plain version compute in fp32 from the
-    same rounded inputs and each rounds its result once to the input
-    dtype, half a unit in the last place at most: two such roundings are
-    2^-7 relative in bf16 (8 significant bits) and 2^-10 in fp16 (11).
-    The fp32 summation-order difference is held to 1e-3 of the tensor's
-    largest entry."""
-    if dtype == torch.float32:
-        return 2e-4, 2e-5
-    rtol = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[dtype]
-    return rtol, 1e-3 * float(want.float().abs().max())
-
-
 def _relative(arrays, prefix):
     """{relative name: array}: parameter names without the net's prefix
     and with block counters renumbered, so two nets built in one process
@@ -283,13 +276,37 @@ def phase_device():
     return smi
 
 
+# Every attention kernel of the port, as ptxas names its instantiations
+# (mangled: the name, then the template arguments: the dtype, where the
+# kernel has one, and the head dim).
+ATTENTION_KERNELS = {
+    "flash_fwd_kernel": ("f",),
+    "flash_fwd_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
+    "flash_bwd_dkv_kernel": ("f",),
+    "flash_bwd_dkv_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
+    "flash_bwd_dq_kernel": ("f", "13__nv_bfloat16", "6__half"),
+}
+
+
+def _instantiation(entry):
+    """(kernel, dtype, head_dim) of a mangled attention entry, or None."""
+    m = re.search(r"\d+(flash_\w+?_kernel)I(f|13__nv_bfloat16|6__half)?"
+                  r"Li(\d+)E", entry or "")
+    if not m or m.group(1) not in ATTENTION_KERNELS:
+        return None
+    return m.group(1), m.group(2) or "f", int(m.group(3))
+
+
 def phase_build():
+    """Build every source; fail on a missing attention instantiation or
+    on a spill in any attention kernel at head dim 64 or 128 (the dims
+    the attention layers run)."""
     from mxnet_tpu_torch import _native
 
     t0 = time.perf_counter()
     _native.build()
     seconds = time.perf_counter() - t0
-    spills = []
+    spills, seen = [], set()
     for name in _native.SOURCES:
         lines = _native.build_log(name).splitlines()
         regs = [ln.strip() for ln in lines if "registers" in ln]
@@ -298,17 +315,54 @@ def phase_build():
         for ln in lines:
             if "Compiling entry function" in ln:
                 entry = ln.split("'")[1] if "'" in ln else ln
+                inst = _instantiation(entry)
+                if inst:
+                    seen.add(inst)
             elif "registers" in ln:
-                log("  ", ln.strip())
+                log("  ", _instantiation(entry) or entry, ln.strip())
             elif "spill" in ln and \
                     "0 bytes spill stores, 0 bytes spill loads" not in ln:
                 log("   spills in %s: %s" % (entry, ln.strip()))
-                # The head dims the attention layers run: 64 and 128.
-                if "Li64E" in entry or "Li128E" in entry:
-                    spills.append("%s: %s" % (entry, ln.strip()))
+                inst = _instantiation(entry)
+                if inst and inst[2] in (64, 128):
+                    spills.append("%s: %s" % (inst, ln.strip()))
+    want = {(k, t, d) for k, types in ATTENTION_KERNELS.items()
+            for t in types for d in (32, 64, 128)}
     log("build_seconds", round(seconds, 3))
+    check(want <= seen, "attention instantiations missing from the ptxas "
+          "report: %s" % sorted(want - seen))
     check(not spills, "ptxas reports register spills at head_dim 64/128:"
           "\n" + "\n".join(spills))
+
+
+# bf16/fp16 cases of the tensor-core kernels (K1, K2): the training
+# geometry at head dims 64 and 128, non-causal T 2048 (where P's rounding
+# to the dtype shows most), ragged T (200, 1000: no multiple of a 64- or
+# 128-row tile), Tq 256 against Tk 512, and head dim 32 (64-byte
+# swizzle), causal and not.
+WGMMA_CASES = [
+    ((2, 16, 2048, 64), (2, 16, 2048, 64), True),
+    ((2, 16, 2048, 128), (2, 16, 2048, 128), True),
+    ((1, 4, 2048, 64), (1, 4, 2048, 64), False),
+    ((2, 3, 200, 64), (2, 3, 200, 64), True),
+    ((1, 4, 1000, 128), (1, 4, 1000, 128), False),
+    ((1, 4, 1000, 64), (1, 4, 1000, 64), True),
+    ((1, 4, 256, 64), (1, 4, 512, 64), True),
+    ((1, 4, 256, 128), (1, 4, 512, 128), False),
+    ((2, 3, 200, 32), (2, 3, 200, 32), True),
+    ((1, 4, 1000, 32), (1, 4, 1000, 32), False),
+    ((1, 4, 256, 32), (1, 4, 512, 32), True),
+]
+
+# The kernel each dtype runs (the kernels line names it per entry).
+DESIGN = {
+    "flash_attention_fwd": {"bfloat16": "wgmma+tma", "float16": "wgmma+tma",
+                            "float32": "ffma"},
+    "flash_attention_bwd_dkv": {"bfloat16": "wgmma+tma",
+                                "float16": "wgmma+tma", "float32": "ffma"},
+    "flash_attention_bwd_dq": {"bfloat16": "ffma", "float16": "ffma",
+                               "float32": "ffma"},
+}
 
 
 def phase_kernels(card):
@@ -321,26 +375,30 @@ def phase_kernels(card):
         return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
                      for s in (shape_q, shape_k, shape_k))
 
-    # Tolerances: see tolerance(); LSE is fp32 in both versions.
+    # Tolerances: fa.kernel_tolerance; LSE is fp32 in both versions.
     cases = [
         ((1, 4, 512, 64), (1, 4, 512, 64), torch.float32, True),
         ((1, 4, 512, 64), (1, 4, 512, 64), torch.float32, False),
         ((1, 4, 256, 64), (1, 4, 512, 64), torch.float32, False),
         ((1, 4, 256, 64), (1, 4, 512, 64), torch.float32, True),
     ]
-    for d in (64, 128):
-        for dt in (torch.bfloat16, torch.float16):
-            cases.append(((2, 16, 2048, d), (2, 16, 2048, d), dt, True))
+    cases += [(sq, sk, dt, causal) for dt in (torch.bfloat16, torch.float16)
+              for sq, sk, causal in WGMMA_CASES]
     launches0 = fa.LAUNCHES
     calls = 0
+    by_dtype = {}
     for shape_q, shape_k, dt, causal in cases:
         q, k, v = inputs(shape_q, shape_k, dt)
-        out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+        blocks = dict(block_q=shape_q[2], block_k=shape_k[2])
+        out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                              **blocks)
         calls += 1
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v,
-                                                        causal=causal)
-        rtol, atol = tolerance(dt, ref_out)
+                                                        causal=causal,
+                                                        **blocks)
+        rtol, atol = fa.kernel_tolerance(dt, ref_out)
+        _fold_error(by_dtype, dt, out, ref_out, rtol, atol)
         lse_tol = (rtol, atol) if dt == torch.float32 else (1e-4, 1e-4)
         v_out = max_violation(out, ref_out, rtol, atol)
         v_lse = max_violation(lse, ref_lse, *lse_tol)
@@ -365,37 +423,72 @@ def phase_kernels(card):
     out, _ = fa.flash_attention_forward(q, k, v, causal=True)
     ref_out, _ = fa.flash_attention_reference(q, k, v, causal=True)
     err = float((out.float() - ref_out.float()).abs().max())
-    check(max_violation(out, ref_out, *tolerance(dt, ref_out)) <= 0,
+    check(max_violation(out, ref_out, *fa.kernel_tolerance(dt, ref_out))
+          <= 0,
           "flash_attention_fwd disagrees at the serving shape")
-    kernel_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v,
-                                                           causal=True))
+    # One call at a time (time_ms), the wrapper's host cost (checks,
+    # three tensor maps) inside the window; and device time
+    # (time_queued), which at a quarter of a millisecond differs.
+    def kernel():
+        return fa.flash_attention_forward(q, k, v, causal=True)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    kernel_ms, device_ms = time_ms(kernel), time_queued(kernel)
     plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v,
                                                             causal=True))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+    library_ms, library_device_ms = time_ms(library), time_queued(library)
     bound_ms, bound_by, flops, nbytes = attention_bound(
         card, b, h, t, t, d, True, dt)
+    # The fp32 (FFMA) kernel at the same shape: the design every dtype
+    # ran before the tensor-core kernel.
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    fp32_ms = time_ms(lambda: fa.flash_attention_forward(q32, k32, v32,
+                                                         causal=True))
+    del q32, k32, v32
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_attention.py:119",
         "launches": None, "max_abs_err": err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+        "design": DESIGN["flash_attention_fwd"],
+        "fp32_ms": fp32_ms,
+        "bound_share": bound_ms / kernel_ms,
+        "max_abs_err_by_dtype": by_dtype,
         "shape": [b, h, t, d], "dtype": "bfloat16", "causal": True,
         "flops": flops, "bytes": nbytes,
         "achieved_tflops": flops / kernel_ms / 1e9,
     }
 
 
+def _fold_error(by_dtype, dtype, got, want, rtol, atol):
+    """Folds one comparison into {dtype: {max_abs_err, max_share}}:
+    max_share is the largest |err| / (atol + rtol |want|) seen, the
+    fraction of the tolerance used."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    share = float((err / (atol + rtol * want.abs())).max())
+    cur = by_dtype.setdefault(str(dtype).split(".")[1],
+                              {"max_abs_err": 0.0, "max_share": 0.0})
+    cur["max_abs_err"] = max(cur["max_abs_err"], float(err.max()))
+    cur["max_share"] = max(cur["max_share"], share)
+
+
 def _hold_backward(names, got, want, errs, where):
-    """Log and hold each gradient against its plain version (see
-    tolerance()); folds the largest errors into `errs`. True if all are
-    within."""
+    """Log and hold each gradient against its plain version
+    (``kernel_tolerance``; dq from K3, which rounds nothing before a
+    product, without the tensor-core term); folds the largest errors
+    into `errs`. True if all are within."""
+    from mxnet_tpu_torch.ops.flash_attention import kernel_tolerance
+
     res = {}
     for name, g_, w in zip(names, got, want):
-        rtol, atol = tolerance(w.dtype, w)
+        rtol, atol = kernel_tolerance(w.dtype, w,
+                                      tensor_cores=name != "dq")
         res[name] = (float((g_.float() - w.float()).abs().max()),
                      max_violation(g_, w, rtol, atol), rtol, atol)
     errs["dq"] = max(errs["dq"], res["dq"][0])
@@ -420,7 +513,7 @@ def phase_backward_kernels(card):
         return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
                      for s in (shape_q, shape_k, shape_k, shape_q))
 
-    # Tolerances: see tolerance(). fp32 at every head dim the kernels
+    # Tolerances: fa.kernel_tolerance. fp32 at every head dim the kernels
     # take (each has its own lanes per row), bf16/fp16 at the training
     # geometry.
     cases = [
@@ -432,22 +525,30 @@ def phase_backward_kernels(card):
         ((1, 4, 256, 128), (1, 4, 512, 128), torch.float32, False),
         ((1, 4, 512, 32), (1, 4, 512, 32), torch.float32, True),
     ]
-    for d in (64, 128):
-        for dt in (torch.bfloat16, torch.float16):
-            cases.append(((2, 16, 2048, d), (2, 16, 2048, d), dt, True))
+    cases += [(sq, sk, dt, causal) for dt in (torch.bfloat16, torch.float16)
+              for sq, sk, causal in WGMMA_CASES]
     errs = {"dkv": 0.0, "dq": 0.0}
+    by_dtype = {"dkv": {}, "dq": {}}
     for shape_q, shape_k, dt, causal in cases:
         q, k, v, g = inputs(shape_q, shape_k, dt)
+        blocks = dict(block_q=shape_q[2], block_k=shape_k[2])
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         before = (fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ)
-        fa.flash_attention(*leaves, causal=causal).backward(g)
+        fa.flash_attention(*leaves, causal=causal, **blocks).backward(g)
         torch.cuda.synchronize()
         check((fa.LAUNCHES_BWD_DKV - before[0], fa.LAUNCHES_BWD_DQ
                - before[1]) == (1, 1), "backward did not launch K2 and K3 "
               "once each")
-        out, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+        out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                              **blocks)
         want = fa.flash_attention_backward_reference(q, k, v, out, lse, g,
-                                                     causal=causal)
+                                                     causal=causal, **blocks)
+        for which, got_w, want_w in (("dq", leaves[0].grad, want[0]),
+                                     ("dkv", leaves[1].grad, want[1]),
+                                     ("dkv", leaves[2].grad, want[2])):
+            _fold_error(by_dtype[which], dt, got_w, want_w,
+                        *fa.kernel_tolerance(dt, want_w,
+                                             tensor_cores=which == "dkv"))
         within = _hold_backward(("dq", "dk", "dv"),
                                 [t.grad for t in leaves], want, errs,
                                 dict(q=shape_q, k=shape_k, causal=causal))
@@ -489,10 +590,15 @@ def phase_backward_kernels(card):
           "training shape")
     del got_dk, got_dv, got_dq, want_dk, want_dv, want_dq
 
-    dkv_ms = time_ms(lambda: fa.launch_bwd_dkv(q, k, v, g, lse, delta,
-                                               True, d ** -0.5))
-    dq_ms = time_ms(lambda: fa.launch_bwd_dq(q, k, v, g, lse, delta, True,
-                                             d ** -0.5))
+    # One call at a time and device time, as for K1.
+    def dkv():
+        return fa.launch_bwd_dkv(q, k, v, g, lse, delta, True, d ** -0.5)
+
+    def dq():
+        return fa.launch_bwd_dq(q, k, v, g, lse, delta, True, d ** -0.5)
+
+    dkv_ms, dq_ms = time_ms(dkv), time_ms(dq)
+    device_ms = {"dkv": time_queued(dkv), "dq": time_queued(dq)}
     plain_dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
         q, k, v, out, lse, g, causal=True), iters=5)
     plain_dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq_reference(
@@ -501,8 +607,17 @@ def phase_backward_kernels(card):
     # fused attention (dq, dk and dv in one call) on a retained graph.
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        lib_out, (lq, lk, lv), g, retain_graph=True))
+    def library():
+        return torch.autograd.grad(lib_out, (lq, lk, lv), g,
+                                   retain_graph=True)
+
+    library_ms, library_device_ms = time_ms(library), time_queued(library)
+    # K2's fp32 (FFMA) kernel at the same shape, as for K1.
+    q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
+    dkv_fp32_ms = time_ms(lambda: fa.launch_bwd_dkv(
+        q32, k32, v32, g32, lse, delta, True, d ** -0.5))
+    del q32, k32, v32, g32
+    fp32_ms = {"dkv": dkv_fp32_ms, "dq": None}
     entries = []
     for name, which, ms, plain_ms, replaces in (
             ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_dkv_ms,
@@ -516,10 +631,15 @@ def phase_backward_kernels(card):
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[which], "ms": ms, "kernel_ms": ms,
+            "device_ms": device_ms[which],
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "library_call": "backward of F.scaled_dot_product_attention "
                             "(dq, dk and dv together)",
+            "design": DESIGN[name], "fp32_ms": fp32_ms[which],
+            "bound_share": bound_ms / ms,
+            "max_abs_err_by_dtype": by_dtype[which],
             "shape": [b, h, t, d], "dtype": "bfloat16", "causal": True,
             "flops": flops, "bytes": nbytes,
             "achieved_tflops": flops / ms / 1e9,
@@ -571,7 +691,8 @@ def phase_attention_served():
         x[:, 0].contiguous(), x[:, 1].contiguous(), x[:, 2].contiguous(),
         causal=True)
     err = float((outs[2].data_.float() - ref.float()).abs().max())
-    check(max_violation(outs[2].data_, ref, *tolerance(ref.dtype, ref)) <= 0,
+    check(max_violation(outs[2].data_, ref,
+                        *fa.kernel_tolerance(ref.dtype, ref)) <= 0,
           "served attention disagrees with the plain version (%g)" % err)
     log(json.dumps({"phase": "attention_served", "requests": len(rows),
                     "rows": sum(rows), "batches": batches,

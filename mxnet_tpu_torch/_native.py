@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with the
 installed toolkit's ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` (listed in ``.gitignore``), keyed by a hash of the source
-and the flags, and loaded with ``ctypes``. The build happens at first
+``_build/`` (listed in ``.gitignore``), keyed by a hash of the source,
+the headers it may include (``csrc/*.cuh``) and the flags, and loaded
+with ``ctypes``. The build happens at first
 use, never at import: the CPU tests import every module on a machine
 without ``nvcc``.
 """
@@ -41,8 +42,13 @@ def _nvcc():
 
 
 def _target(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Library path of `name`, keyed by its source, every header under
+    csrc/ (the kernels share them) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            digest.update(path.encode() + b"\0" + f.read())
     return os.path.join(BUILD, "%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 

@@ -24,36 +24,49 @@
 // 6*B*H*T*T*D/2 = 103 GFLOP against about 170 MB and 130 MB of
 // inputs/outputs: far above the H100's ridge point, so arithmetic sets
 // the least time (0.139 ms and 0.104 ms at the 989 TFLOP/s bf16
-// tensor-core peak). Like the forward, this first version does its
-// arithmetic as IEEE fp32 FFMA on the CUDA cores (67 TFLOP/s) for every
-// input dtype, because fp32 inputs must match the JAX package to rtol
-// 2e-4 / atol 2e-5, which TF32 cannot; its own floor is thus about 2 ms
-// (K2) and 1.5 ms (K3). mma.sync/wgmma for bf16/fp16, TMA and warp
-// specialisation are the later steps.
+// tensor-core peak).
 //
-// What the design does about it:
-// - No atomics, so dQ is deterministic: two passes, as on the TPU. K2
-//   owns a tile of keys, K3 a tile of queries; the loop over the other
-//   side runs inside the block (the TPU's sequential grid axis).
-// - K3 has the forward's shape: one block per (batch*head, query tile),
-//   L = D/16 lanes per query row, each holding a quarter-to-eighth of q,
-//   dO and the fp32 dQ accumulator (16 floats each) in registers. Keys
-//   and values stream through shared memory in 32-row tiles, widened to
-//   fp32 once on load; L-lane butterfly shuffles complete q.k and dO.v.
-// - K2 is its transpose: one block per (batch*head, key tile), L lanes
-//   per key row holding k, v and the dK/dV accumulators (64 floats per
-//   lane at every D, so D 128 does not spill). Queries, dO, lse and delta
-//   stream through shared memory in 16-row tiles.
-// - 256 threads per block at every D: 128/64/32 rows for D 32/64/128.
-// - Causal skips are loop bounds: K3 stops at the key tile of its last
-//   query, K2 starts at the first query tile that reaches its first key.
-//   K3 blocks launch longest-first; K2's longest block is key tile 0,
-//   which is launched first already.
-// - Ragged edges (T not a multiple of a tile) are masked here; the op's
-//   block_q/block_k keep only their divisibility contract.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+// No atomics, so every gradient is deterministic: two passes, as on the
+// TPU. K2 owns a tile of keys, K3 a tile of queries; the loop over the
+// other side runs inside the block (the TPU's sequential grid axis).
+// Causal skips are loop bounds: K3 stops at the key tile of its last
+// query, K2 starts at the first query tile that reaches its first key.
+// Ragged edges (T not a multiple of a tile) are masked here; the op's
+// block_q/block_k keep only their divisibility contract.
+//
+// K2 for bf16/fp16: `flash_bwd_dkv_wgmma_kernel`, on the tensor cores.
+// - One block of three warpgroups owns 128 keys; warpgroups 0 and 1
+//   each own 64 of them, warpgroup 2 is the producer (setmaxnreg 24 /
+//   240). K and V are loaded once by TMA and stay in shared memory; Q
+//   and dO tiles of 64 queries stream through a two-stage ring (full and
+//   empty mbarriers), with the fp32 lse and delta slices staged beside
+//   them by the producer warp's lanes.
+// - Each product is computed transposed, keys along M, so no fragment
+//   is ever transposed in registers: S^T = K Q^T and dP^T = V dO^T by
+//   wgmma m64n64k16 from shared memory (K-major, as the TMA's 128-byte
+//   swizzle, 64-byte at D 32, wrote them); P^T = exp(scale S^T - lse)
+//   and dS^T = P^T (dP^T - delta) scale in fp32 registers, then rounded
+//   to the input dtype as the register A fragments of dV += P^T dO and
+//   dK += dS^T Q, with dO and Q read MN-major from the same tiles.
+// - dK and dV accumulate in fp32 registers and are written once.
+// P and dS in the input dtype are the roundings the fp32 plain version
+// does not make; ops/flash_attention.py's kernel_tolerance() accounts
+// for them.
+//
+// K2 for float32 and K3 for every dtype: IEEE fp32 FFMA on the CUDA
+// cores (67 TFLOP/s), because fp32 inputs must match the JAX package to
+// rtol 2e-4 / atol 2e-5, which TF32 cannot. K3 has the forward's FFMA
+// shape: one block per (batch*head, query tile), L = D/16 lanes per
+// query row, each holding 16 floats of q, dO and the dQ accumulator in
+// registers; keys and values stream through shared memory in 32-row
+// tiles, widened to fp32 once on load; L-lane butterfly shuffles
+// complete q.k and dO.v. The fp32 K2 is its transpose: L lanes per key
+// row holding k, v and the dK/dV accumulators, queries, dO, lse and
+// delta streaming through shared memory in 16-row tiles. 256 threads
+// per block at every D. K3 blocks launch longest-first.
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -226,14 +239,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < C; ++i) store4(dqrow + 4 * (lane + L * i), acc[i]);
 }
 
-// K2: dK and dV for one (batch*head, key tile).
-template <typename T, int D>
+// K2 for float32: dK and dV for one (batch*head, key tile) on FFMA.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int tq, int tk, int causal,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int tq, int tk, int causal,
                      float scale) {
   using G = Geo<D>;
   constexpr int L = G::kLanes;
@@ -250,8 +264,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_pos = ktile * G::kRows + row;
   const bool row_valid = k_pos < tk;
 
-  const T* qb = q + bh * tq * D;
-  const T* dob = dout + bh * tq * D;
+  const float* qb = q + bh * tq * D;
+  const float* dob = dout + bh * tq * D;
 
   float4 kr[C], vr[C], dk_acc[C], dv_acc[C];
 #pragma unroll
@@ -332,6 +346,246 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- K2 for bf16/fp16: wgmma + TMA ----------------------------------------------
+
+constexpr int kTcKeys = 128;     // keys per block (64 per consumer)
+constexpr int kTcQueries = 64;   // queries per streamed tile
+constexpr int kTcStages = 2;     // Q/dO ring depth
+constexpr int kTcConsumers = 2;  // warpgroups of 64 keys each
+constexpr int kTcThreads = 128 * (kTcConsumers + 1);
+
+template <int D>
+struct DkvGeo : hopper::Panels<D> {
+  using P = hopper::Panels<D>;
+  static constexpr int kKPanel = kTcKeys * P::kSW;     // one panel of K or V
+  static constexpr int kKTile = kTcKeys * D * 2;
+  static constexpr int kQPanel = kTcQueries * P::kSW;  // one panel of Q or dO
+  static constexpr int kQTile = kTcQueries * D * 2;
+  static constexpr int kStatOffset = 2 * kKTile + 2 * kTcStages * kQTile;
+  static constexpr int kBarOffset = kStatOffset + kTcStages * 2 * kTcQueries * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kTcStages + 1);
+};
+
+// One block owns 128 keys of one (batch*head); each consumer warpgroup
+// computes the transposed products for its 64 keys, so every product's
+// M is keys: S^T = K Q^T and dP^T = V dO^T (both operands K-major in
+// shared memory), then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// rounded to T as register A fragments and dO, Q as MN-major B.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int tq,
+                           int tk, int causal, float scale) {
+  using G = DkvGeo<D>;
+  using hopper::Wgmma;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + G::kKTile;
+  uint8_t* qdo_s = smem + 2 * G::kKTile;  // stage s: Q at 2s, dO at 2s + 1
+  // stage s: lse * log2(e) at 2s, delta at 2s + 1 (kTcQueries floats each)
+  float* stat_s = reinterpret_cast<float*>(smem + G::kStatOffset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBarOffset);
+  uint64_t* empty = full + kTcStages;
+  uint64_t* kv_bar = empty + kTcStages;
+
+  const int ktile = blockIdx.x;  // tile 0 sees the most queries: first
+  const int bh = blockIdx.y;
+  const int n_qtiles = (tq + kTcQueries - 1) / kTcQueries;
+  // Causal: the first query tile whose last query reaches this block's
+  // first key; every earlier one is wholly above the diagonal.
+  const int qt0 = causal ? min(ktile * kTcKeys / kTcQueries, n_qtiles) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], 128 * kTcConsumers);
+    }
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kTcConsumers) {
+    // Producer: one warp. Its lanes stage lse and delta; lane 0 issues
+    // the TMA loads.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x / 32 == 4 * kTcConsumers) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(kv_bar, 2 * G::kKTile);
+        for (int p = 0; p < G::kPanels; ++p) {
+          hopper::tma_load_3d(k_s + p * G::kKPanel, &kmap, kv_bar,
+                              p * G::kPanelElems, ktile * kTcKeys, bh);
+          hopper::tma_load_3d(v_s + p * G::kKPanel, &vmap, kv_bar,
+                              p * G::kPanelElems, ktile * kTcKeys, bh);
+        }
+      }
+      for (int qt = qt0; qt < n_qtiles; ++qt) {
+        const int it = qt - qt0;
+        const int s = it % kTcStages;
+        hopper::mbar_wait(&empty[s], ((it / kTcStages) & 1) ^ 1);
+        float* stat = stat_s + 2 * s * kTcQueries;
+        for (int r = lane; r < kTcQueries; r += 32) {
+          const int q = qt * kTcQueries + r;
+          const size_t at = static_cast<size_t>(bh) * tq + q;
+          stat[r] = q < tq ? lse[at] * hopper::kLog2e : 0.f;
+          stat[kTcQueries + r] = q < tq ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_tx(&full[s], 2 * G::kQTile);
+          uint8_t* dst = qdo_s + 2 * s * G::kQTile;
+          for (int p = 0; p < G::kPanels; ++p) {
+            hopper::tma_load_3d(dst + p * G::kQPanel, &qmap, &full[s],
+                                p * G::kPanelElems, qt * kTcQueries, bh);
+            hopper::tma_load_3d(dst + G::kQTile + p * G::kQPanel, &domap,
+                                &full[s], p * G::kPanelElems,
+                                qt * kTcQueries, bh);
+          }
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    hopper::regs_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int first_key = ktile * kTcKeys + wg * 64;
+    const int key0 = first_key + 16 * warp + lane / 4;  // and key0 + 8
+    const int col0 = 2 * (lane % 4);
+    const uint32_t k_base = hopper::smem_u32(k_s) + wg * 64 * G::kSW;
+    const uint32_t v_base = hopper::smem_u32(v_s) + wg * 64 * G::kSW;
+    const float scale_log2 = scale * hopper::kLog2e;
+
+    float dk_acc[G::kPanels][G::kPanelElems / 2];
+    float dv_acc[G::kPanels][G::kPanelElems / 2];
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int i = 0; i < G::kPanelElems / 2; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+    }
+
+    hopper::mbar_wait(kv_bar, 0);
+    for (int qt = qt0; qt < n_qtiles; ++qt) {
+      const int it = qt - qt0;
+      const int st = it % kTcStages;
+      const int q_first = qt * kTcQueries;
+      hopper::mbar_wait(&full[st], (it / kTcStages) & 1);
+      if (causal && q_first + kTcQueries - 1 < first_key) {
+        hopper::mbar_arrive(&empty[st]);  // above this warpgroup's diagonal
+        continue;
+      }
+      const uint32_t q_base = hopper::smem_u32(qdo_s + 2 * st * G::kQTile);
+      const uint32_t do_base = q_base + G::kQTile;
+
+      float s[kTcQueries / 2];
+      float dp[kTcQueries / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int p = k / G::kStepsPerPanel;
+        const int off = (k % G::kStepsPerPanel) * 32;
+        Wgmma<T, kTcQueries>::ss(
+            s, hopper::smem_desc(k_base + p * G::kKPanel + off, G::kSW),
+            hopper::smem_desc(q_base + p * G::kQPanel + off, G::kSW), k > 0);
+      }
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int p = k / G::kStepsPerPanel;
+        const int off = (k % G::kStepsPerPanel) * 32;
+        Wgmma<T, kTcQueries>::ss(
+            dp, hopper::smem_desc(v_base + p * G::kKPanel + off, G::kSW),
+            hopper::smem_desc(do_base + p * G::kQPanel + off, G::kSW), k > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P^T = exp(scale s - lse[query]) and dS^T = P^T (dP^T - delta)
+      // scale, each rounded to T as the A fragments of the updates.
+      const float* lse_l2 = stat_s + 2 * st * kTcQueries;
+      const float* dl = lse_l2 + kTcQueries;
+      const bool masked = q_first + kTcQueries > tq ||
+                          (causal && q_first < first_key + 63);
+      uint32_t pa[kTcQueries / 16][4];
+      uint32_t dsa[kTcQueries / 16][4];
+#pragma unroll
+      for (int j = 0; j < kTcQueries / 16; ++j) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * j + 2 * h + e;
+            const int c = hopper::acc_col(i) + col0;
+            float pr = exp2f(fmaf(s[i], scale_log2, -lse_l2[c]));
+            if (masked) {
+              const int q = q_first + c;
+              const int key = key0 + hopper::acc_row(i);
+              if (q >= tq || (causal && key > q)) pr = 0.f;
+            }
+            pv[e] = pr;
+            dsv[e] = pr * (dp[i] - dl[c]) * scale;
+          }
+          pa[j][h] = hopper::pack2(pv[0], pv[1], T());
+          dsa[j][h] = hopper::pack2(dsv[0], dsv[1], T());
+        }
+      }
+
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) {
+        hopper::fence_regs(dk_acc[p]);
+        hopper::fence_regs(dv_acc[p]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTcQueries / 16; ++j) {
+#pragma unroll
+        for (int p = 0; p < G::kPanels; ++p) {
+          const int off = p * G::kQPanel + j * 16 * G::kSW;
+          Wgmma<T, G::kPanelElems>::rs_mn(dv_acc[p], pa[j],
+                                 hopper::smem_desc(do_base + off, G::kSW));
+          Wgmma<T, G::kPanelElems>::rs_mn(dk_acc[p], dsa[j],
+                                 hopper::smem_desc(q_base + off, G::kSW));
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) {
+        hopper::fence_regs(dk_acc[p]);
+        hopper::fence_regs(dv_acc[p]);
+      }
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int i = 0; i < G::kPanelElems / 2; i += 2) {
+        const int key = key0 + hopper::acc_row(i);
+        if (key < tk) {
+          const size_t at = (static_cast<size_t>(bh) * tk + key) * D +
+                            p * G::kPanelElems + hopper::acc_col(i) + col0;
+          *reinterpret_cast<uint32_t*>(dk + at) =
+              hopper::pack2(dk_acc[p][i], dk_acc[p][i + 1], T());
+          *reinterpret_cast<uint32_t*>(dv + at) =
+              hopper::pack2(dv_acc[p][i], dv_acc[p][i + 1], T());
+        }
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -354,15 +608,46 @@ int launch_dq(const Args& a, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dkv_ffma(const Args& a, void* dk, void* dv) {
+  const int n_ktiles = (a.tk + Geo<D>::kRows - 1) / Geo<D>::kRows;
+  flash_bwd_dkv_kernel<D><<<dim3(n_ktiles, a.bh), kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.tq,
+      a.tk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  using G = DkvGeo<D>;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!hopper::make_panel_map<T>(&qmap, a.q, a.bh, a.tq, D, kTcQueries, G::kSW) ||
+      !hopper::make_panel_map<T>(&domap, a.dout, a.bh, a.tq, D, kTcQueries, G::kSW) ||
+      !hopper::make_panel_map<T>(&kmap, a.k, a.bh, a.tk, D, kTcKeys, G::kSW) ||
+      !hopper::make_panel_map<T>(&vmap, a.v, a.bh, a.tk, D, kTcKeys, G::kSW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_bwd_dkv_wgmma_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_ktiles = (a.tk + kTcKeys - 1) / kTcKeys;
+  kernel<<<dim3(n_ktiles, a.bh), kTcThreads, G::kSmem, a.stream>>>(
+      qmap, kmap, vmap, domap, a.lse, a.delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), a.tq, a.tk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 by dtype: fp32 on FFMA, bf16/fp16 on the tensor cores.
 template <typename T, int D>
 int launch_dkv(const Args& a, void* dk, void* dv) {
-  const int n_ktiles = (a.tk + Geo<D>::kRows - 1) / Geo<D>::kRows;
-  flash_bwd_dkv_kernel<T, D><<<dim3(n_ktiles, a.bh), kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.tq, a.tk,
-      a.causal, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_dkv_ffma<D>(a, dk, dv);
+  } else {
+    return launch_dkv_wgmma<T, D>(a, dk, dv);
+  }
 }
 
 // Calls fn.template operator()<T, D>() for the runtime dtype and head_dim.

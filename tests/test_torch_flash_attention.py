@@ -150,17 +150,122 @@ def test_packed_strided_slices_through_the_op():
                                atol=ATOL)
 
 
-def _card_tolerance(dtype, want):
-    """(rtol, atol) of a kernel against its plain version on the card.
-    fp32: the JAX test's. bf16/fp16: both compute in fp32 from the same
-    rounded inputs and each rounds its result once to the input dtype,
-    half an ulp at most, so two roundings: 2^-7 relative in bf16, 2^-10
-    in fp16; plus the fp32 summation order, held to 1e-3 of the tensor's
-    largest entry."""
-    if dtype == torch.float32:
-        return RTOL, ATOL
-    rtol = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[dtype]
-    return rtol, 1e-3 * float(want.float().abs().max())
+# -- the tensor-core kernels' rounding, emulated on the host -------------------
+
+def _inputs16(seed, shape_q, shape_k, dtype):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dtype)
+                 for s in (shape_q, shape_k, shape_k, shape_q))
+
+
+def _rounded(x, dtype):
+    """x rounded to `dtype` and widened back: what the tensor cores see
+    of an fp32 value packed as a 16-bit operand."""
+    return x.to(dtype).to(torch.float32)
+
+
+def _mask(tq, tk, k0, width):
+    """(tq, width) live mask of keys k0..k0+width-1, causal top-left."""
+    return torch.arange(tq)[:, None] >= (k0 + torch.arange(width))[None, :]
+
+
+def _emulate_wgmma_forward(q, k, v, causal, tile=128):
+    """The bf16/fp16 forward kernel's arithmetic on the host: fp32 online
+    softmax over 128-key tiles, P rounded to the input dtype before
+    O += P V, the row sum l from the unrounded P."""
+    dt = q.dtype
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    tq, tk = q.shape[2], k.shape[2]
+    m = torch.full(q.shape[:3], -1e30)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, tk, tile):
+        s = torch.matmul(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
+        if causal:
+            s = s.masked_fill(~_mask(tq, tk, k0, s.shape[-1]), -float("inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(_rounded(p, dt),
+                                                   vf[:, :, k0:k0 + tile])
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(dt)
+
+
+def _emulate_wgmma_bwd_dkv(q, k, v, out, lse, dout, causal):
+    """The bf16/fp16 dK/dV kernel's arithmetic on the host: P^T and dS^T
+    in fp32, each rounded to the input dtype before dV += P^T dO and
+    dK += dS^T Q."""
+    dt = q.dtype
+    qf, kf, vf, dof = (t.to(torch.float32) for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    delta = (dof * out.to(torch.float32)).sum(-1)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    if causal:
+        p = p * _mask(q.shape[2], k.shape[2], 0, k.shape[2])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None]) \
+        * scale
+    dv = torch.matmul(_rounded(p, dt).transpose(-1, -2), dof)
+    dk = torch.matmul(_rounded(ds, dt).transpose(-1, -2), qf)
+    return dk.to(dt), dv.to(dt)
+
+
+EMULATED = [(dt, d, causal) for dt in ("bfloat16", "float16")
+            for d in (64, 128) for causal in (False, True)]
+
+
+@pytest.mark.parametrize("dtype,head_dim,causal", EMULATED)
+def test_kernel_tolerance_covers_rounded_p_forward(dtype, head_dim, causal):
+    """The forward kernel rounds P to bf16/fp16 for the tensor cores; its
+    emulation stays within kernel_tolerance of the fp32 plain version
+    at T 2048 (non-causal bf16 misses the rule without the P term)."""
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _inputs16(20, (1, 2, 2048, head_dim), (1, 2, 2048, head_dim),
+                           dt)
+    want, _ = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                            block_q=512, block_k=512)
+    got = _emulate_wgmma_forward(q, k, v, causal)
+    rtol, atol = tfa.kernel_tolerance(dt, want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype,head_dim,causal", EMULATED)
+def test_kernel_tolerance_covers_rounded_p_and_ds_backward(dtype, head_dim,
+                                                          causal):
+    """The dK/dV kernel rounds P^T and dS^T to bf16/fp16; its emulation
+    stays within kernel_tolerance of the fp32 plain K2."""
+    dt = getattr(torch, dtype)
+    shape = (1, 2, 1024, head_dim)
+    q, k, v, g = _inputs16(21, shape, shape, dt)
+    out, lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                             block_q=512, block_k=512)
+    want = tfa.flash_attention_bwd_dkv_reference(
+        q, k, v, out, lse, g, causal=causal, block_q=512, block_k=512)
+    got = _emulate_wgmma_bwd_dkv(q, k, v, out, lse, g, causal)
+    for name, a, b in zip(("dk", "dv"), got, want):
+        rtol, atol = tfa.kernel_tolerance(dt, b)
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: "%s: %s" % (name, m))
+
+
+def test_kernel_tolerance_fp32_is_the_jax_tolerance():
+    assert tfa.kernel_tolerance(torch.float32, torch.ones(3)) == (RTOL, ATOL)
+    rtol, atol = tfa.kernel_tolerance(torch.bfloat16, torch.full((3,), 2.0))
+    assert rtol == 2.0 ** -7 and atol == pytest.approx(2 * (1e-3 + 2 ** -8))
+
+
+def test_kernel_tolerance_without_tensor_cores_is_two_roundings():
+    """K3 (FFMA for every dtype) is held to two output roundings and
+    1e-3 of the largest entry, with no term for P or dS rounding."""
+    want = torch.full((3,), 2.0)
+    assert tfa.kernel_tolerance(torch.float16, want, tensor_cores=False) \
+        == (2.0 ** -10, pytest.approx(2e-3))
+    assert tfa.kernel_tolerance(torch.float32, want, tensor_cores=False) \
+        == (RTOL, ATOL)
 
 
 @pytest.mark.cuda
@@ -181,7 +286,7 @@ def test_kernel_matches_plain_on_card(dtype, head_dim, causal):
     assert tfa.LAUNCHES == before + 1
     want, want_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
                                                    block_q=200, block_k=200)
-    rtol, atol = _card_tolerance(dt, want)
+    rtol, atol = tfa.kernel_tolerance(dt, want)
     torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
@@ -194,6 +299,52 @@ def test_kernel_matches_plain_on_card(dtype, head_dim, causal):
     torch.cuda.synchronize()
     assert qg.grad is not None and qg.grad.dtype == dt
     assert (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ) == (dkv0 + 1, dq0 + 1)
+
+
+# bf16/fp16 shapes for the tensor-core kernels (K1, K2): ragged T (200,
+# 1000: no multiple of a 64- or 128-row tile), Tq 256 against Tk 512,
+# head dim 32 (64-byte swizzle), 64 and 128 (two 64-column panels), and
+# non-causal T 2048, where P's rounding shows most.
+CARD_16BIT_SHAPES = [
+    ((2, 3, 200, 64), (2, 3, 200, 64), True),
+    ((1, 4, 1000, 128), (1, 4, 1000, 128), False),
+    ((1, 4, 1000, 64), (1, 4, 1000, 64), True),
+    ((1, 4, 256, 64), (1, 4, 512, 64), True),
+    ((1, 4, 256, 128), (1, 4, 512, 128), False),
+    ((2, 3, 200, 32), (2, 3, 200, 32), True),
+    ((1, 4, 1000, 32), (1, 4, 1000, 32), False),
+    ((1, 4, 256, 32), (1, 4, 512, 32), True),
+    ((1, 4, 2048, 64), (1, 4, 2048, 64), False),
+]
+CARD_16BIT_CASES = [(dt,) + case for dt in ("bfloat16", "float16")
+                    for case in CARD_16BIT_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape_q,shape_k,causal", CARD_16BIT_CASES)
+def test_wgmma_forward_matches_plain_on_card(dtype, shape_q, shape_k,
+                                             causal):
+    """K1's bf16/fp16 (wgmma + TMA) kernel against the fp32 plain
+    forward at ragged and cross shapes, within kernel_tolerance; LSE to
+    1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+               for s in (shape_q, shape_k, shape_k))
+    blocks = dict(block_q=shape_q[2], block_k=shape_k[2])
+    before = tfa.LAUNCHES
+    out, lse = tfa.flash_attention_forward(q, k, v, causal=causal, **blocks)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == before + 1
+    want, want_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                   **blocks)
+    rtol, atol = tfa.kernel_tolerance(dt, want)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -325,12 +476,14 @@ def test_plain_twins_of_k2_and_k3_give_the_full_backward():
     ("float32", (1, 4, 128, 128), (1, 4, 384, 128), False),
     ("bfloat16", (2, 4, 384, 64), (2, 4, 384, 64), True),
     ("float16", (2, 4, 384, 128), (2, 4, 384, 128), True),
-])
+] + CARD_16BIT_CASES)
 def test_backward_kernels_match_plain_on_card(dtype, shape_q, shape_k,
                                               causal):
     """K2 and K3, through the autograd.Function, against the plain
     backward on the same CUDA inputs, fp32 at head dims 32, 64 and 128,
-    to the tolerance of _card_tolerance."""
+    bf16/fp16 (K2 on the tensor cores) at the ragged and cross shapes,
+    to kernel_tolerance (dq, from the FFMA K3, without the tensor-core
+    term)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -352,9 +505,9 @@ def test_backward_kernels_match_plain_on_card(dtype, shape_q, shape_k,
                                             block_q=bq, block_k=bk)
     want = tfa.flash_attention_backward_reference(
         q, k, v, out2, lse, g, causal=causal, block_q=bq, block_k=bk)
-    for t, w in zip(leaves, want):
+    for name, t, w in zip("qkv", leaves, want):
         assert t.grad.dtype == dt
-        rtol, atol = _card_tolerance(dt, w)
+        rtol, atol = tfa.kernel_tolerance(dt, w, tensor_cores=name != "q")
         torch.testing.assert_close(t.grad.float(), w.float(), rtol=rtol,
                                    atol=atol)
 
