@@ -16,7 +16,7 @@ phase falls back to the host or to a plain version):
    head_dim 64 or 128, fails.
 3. kernels: each kernel against its plain PyTorch version on the same
    CUDA inputs (fp32 at head dims 32, 64 and 128; bf16 and fp16, the
-   tensor-core K1/K2, at ragged and cross shapes, WGMMA_CASES; held to
+   tensor-core K1/K2/K3, at ragged and cross shapes, WGMMA_CASES; held to
    ``ops.flash_attention.kernel_tolerance``), and at the shape the main
    path gives it, where it is timed beside its plain version, the
    library call that computes the same function, and its bound: the
@@ -284,7 +284,8 @@ ATTENTION_KERNELS = {
     "flash_fwd_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
     "flash_bwd_dkv_kernel": ("f",),
     "flash_bwd_dkv_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
-    "flash_bwd_dq_kernel": ("f", "13__nv_bfloat16", "6__half"),
+    "flash_bwd_dq_kernel": ("f",),
+    "flash_bwd_dq_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
 }
 
 
@@ -335,7 +336,7 @@ def phase_build():
           "\n" + "\n".join(spills))
 
 
-# bf16/fp16 cases of the tensor-core kernels (K1, K2): the training
+# bf16/fp16 cases of the tensor-core kernels (K1, K2, K3): the training
 # geometry at head dims 64 and 128, non-causal T 2048 (where P's rounding
 # to the dtype shows most), ragged T (200, 1000: no multiple of a 64- or
 # 128-row tile), Tq 256 against Tk 512, and head dim 32 (64-byte
@@ -360,8 +361,8 @@ DESIGN = {
                             "float32": "ffma"},
     "flash_attention_bwd_dkv": {"bfloat16": "wgmma+tma",
                                 "float16": "wgmma+tma", "float32": "ffma"},
-    "flash_attention_bwd_dq": {"bfloat16": "ffma", "float16": "ffma",
-                               "float32": "ffma"},
+    "flash_attention_bwd_dq": {"bfloat16": "wgmma+tma",
+                               "float16": "wgmma+tma", "float32": "ffma"},
 }
 
 
@@ -480,15 +481,13 @@ def _fold_error(by_dtype, dtype, got, want, rtol, atol):
 
 def _hold_backward(names, got, want, errs, where):
     """Log and hold each gradient against its plain version
-    (``kernel_tolerance``; dq from K3, which rounds nothing before a
-    product, without the tensor-core term); folds the largest errors
-    into `errs`. True if all are within."""
+    (``kernel_tolerance``); folds the largest errors into `errs`. True
+    if all are within."""
     from mxnet_tpu_torch.ops.flash_attention import kernel_tolerance
 
     res = {}
     for name, g_, w in zip(names, got, want):
-        rtol, atol = kernel_tolerance(w.dtype, w,
-                                      tensor_cores=name != "dq")
+        rtol, atol = kernel_tolerance(w.dtype, w)
         res[name] = (float((g_.float() - w.float()).abs().max()),
                      max_violation(g_, w, rtol, atol), rtol, atol)
     errs["dq"] = max(errs["dq"], res["dq"][0])
@@ -547,8 +546,7 @@ def phase_backward_kernels(card):
                                      ("dkv", leaves[1].grad, want[1]),
                                      ("dkv", leaves[2].grad, want[2])):
             _fold_error(by_dtype[which], dt, got_w, want_w,
-                        *fa.kernel_tolerance(dt, want_w,
-                                             tensor_cores=which == "dkv"))
+                        *fa.kernel_tolerance(dt, want_w))
         within = _hold_backward(("dq", "dk", "dv"),
                                 [t.grad for t in leaves], want, errs,
                                 dict(q=shape_q, k=shape_k, causal=causal))
@@ -612,12 +610,14 @@ def phase_backward_kernels(card):
                                    retain_graph=True)
 
     library_ms, library_device_ms = time_ms(library), time_queued(library)
-    # K2's fp32 (FFMA) kernel at the same shape, as for K1.
+    # The fp32 (FFMA) kernels at the same shape, as for K1.
     q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
-    dkv_fp32_ms = time_ms(lambda: fa.launch_bwd_dkv(
-        q32, k32, v32, g32, lse, delta, True, d ** -0.5))
+    fp32_ms = {
+        "dkv": time_ms(lambda: fa.launch_bwd_dkv(
+            q32, k32, v32, g32, lse, delta, True, d ** -0.5)),
+        "dq": time_ms(lambda: fa.launch_bwd_dq(
+            q32, k32, v32, g32, lse, delta, True, d ** -0.5))}
     del q32, k32, v32, g32
-    fp32_ms = {"dkv": dkv_fp32_ms, "dq": None}
     entries = []
     for name, which, ms, plain_ms, replaces in (
             ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_dkv_ms,

@@ -34,36 +34,49 @@
 // Ragged edges (T not a multiple of a tile) are masked here; the op's
 // block_q/block_k keep only their divisibility contract.
 //
-// K2 for bf16/fp16: `flash_bwd_dkv_wgmma_kernel`, on the tensor cores.
-// - One block of three warpgroups owns 128 keys; warpgroups 0 and 1
-//   each own 64 of them, warpgroup 2 is the producer (setmaxnreg 24 /
-//   240). K and V are loaded once by TMA and stay in shared memory; Q
-//   and dO tiles of 64 queries stream through a two-stage ring (full and
-//   empty mbarriers), with the fp32 lse and delta slices staged beside
-//   them by the producer warp's lanes.
-// - Each product is computed transposed, keys along M, so no fragment
-//   is ever transposed in registers: S^T = K Q^T and dP^T = V dO^T by
-//   wgmma m64n64k16 from shared memory (K-major, as the TMA's 128-byte
-//   swizzle, 64-byte at D 32, wrote them); P^T = exp(scale S^T - lse)
-//   and dS^T = P^T (dP^T - delta) scale in fp32 registers, then rounded
-//   to the input dtype as the register A fragments of dV += P^T dO and
-//   dK += dS^T Q, with dO and Q read MN-major from the same tiles.
-// - dK and dV accumulate in fp32 registers and are written once.
-// P and dS in the input dtype are the roundings the fp32 plain version
-// does not make; ops/flash_attention.py's kernel_tolerance() accounts
-// for them.
+// K2 and K3 for bf16/fp16 run on the tensor cores, each a block of three
+// warpgroups: consumers 0 and 1 each own 64 rows of the block's 128,
+// warpgroup 2 is the producer (setmaxnreg 24 / 240), whose one thread
+// issues every TMA load. The block's own 128 rows are loaded once and
+// stay in shared memory; tiles of 64 rows of the other side stream
+// through a two-stage ring (full and empty mbarriers). Every product
+// puts the block's own rows along M, so no fragment is ever transposed
+// in registers: the fp32 accumulator of the first two products,
+// regenerated into P and dS in registers and rounded to the input
+// dtype, is the register A fragment of the updates, whose B is read
+// MN-major from the streamed tile that the first products read K-major
+// (shared memory as the TMA's 128-byte swizzle, 64-byte at D 32, wrote
+// it). The accumulators are fp32 and written once, in the input dtype.
+// - K2 (`flash_bwd_dkv_wgmma_kernel`) owns 128 keys; Q and dO stream,
+//   with the fp32 lse and delta of each tile staged beside them by the
+//   producer warp's lanes. S^T = K Q^T and dP^T = V dO^T by wgmma
+//   m64n64k16; P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta)
+//   scale; dV += P^T dO and dK += dS^T Q.
+// - K3 (`flash_bwd_dq_wgmma_kernel`) owns 128 queries; K and V stream in
+//   tiles of 64 keys at every D (128 would need about 224 accumulator
+//   and fragment registers a thread at D 128; 64 need about 144). Each
+//   thread's two accumulator rows are fixed queries, so it holds their
+//   lse and delta in registers for the whole block. S = Q K^T and
+//   dP = dO V^T by wgmma m64n64k16; P = exp(scale S - lse),
+//   dS = P (dP - delta) scale; dQ += dS K. Causal: the loop stops at the
+//   key tile of the block's last query, a warpgroup skips the tiles
+//   wholly above its diagonal, and only tiles that cross the diagonal or
+//   the sequence's end pay for the mask. Blocks launch longest-first.
+// P and dS in the input dtype are the roundings the fp32 plain versions
+// do not make; ops/flash_attention.py's kernel_tolerance() accounts for
+// them.
 //
-// K2 for float32 and K3 for every dtype: IEEE fp32 FFMA on the CUDA
-// cores (67 TFLOP/s), because fp32 inputs must match the JAX package to
-// rtol 2e-4 / atol 2e-5, which TF32 cannot. K3 has the forward's FFMA
-// shape: one block per (batch*head, query tile), L = D/16 lanes per
-// query row, each holding 16 floats of q, dO and the dQ accumulator in
-// registers; keys and values stream through shared memory in 32-row
-// tiles, widened to fp32 once on load; L-lane butterfly shuffles
-// complete q.k and dO.v. The fp32 K2 is its transpose: L lanes per key
-// row holding k, v and the dK/dV accumulators, queries, dO, lse and
-// delta streaming through shared memory in 16-row tiles. 256 threads
-// per block at every D. K3 blocks launch longest-first.
+// K2 and K3 for float32: IEEE fp32 FFMA on the CUDA cores (67 TFLOP/s),
+// because fp32 inputs must match the JAX package to rtol 2e-4 / atol
+// 2e-5, which TF32 cannot. K3 has the forward's FFMA shape: one block
+// per (batch*head, query tile), L = D/16 lanes per query row, each
+// holding 16 floats of q, dO and the dQ accumulator in registers; keys
+// and values stream through shared memory in 32-row tiles; L-lane
+// butterfly shuffles complete q.k and dO.v. The fp32 K2 is its
+// transpose: L lanes per key row holding k, v and the dK/dV
+// accumulators, queries, dO, lse and delta streaming through shared
+// memory in 16-row tiles. 256 threads per block at every D. K3 blocks
+// launch longest-first.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -87,40 +100,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float4 load4(const __half* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&a);
-  raw.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ void store4(__half* p, float4 v) {
-  __half2 a = __floats2half2_rn(v.x, v.y);
-  __half2 b = __floats2half2_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&a);
-  raw.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -145,13 +126,14 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// K3: dQ for one (batch*head, query tile).
-template <typename T, int D>
+// K3 for float32: dQ for one (batch*head, query tile) on FFMA.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int tq, int tk, int causal, float scale) {
   using G = Geo<D>;
   constexpr int L = G::kLanes;
@@ -167,8 +149,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_pos = qtile * G::kRows + row;
   const bool row_valid = q_pos < tq;
 
-  const T* kb = k + bh * tk * D;
-  const T* vb = v + bh * tk * D;
+  const float* kb = k + bh * tk * D;
+  const float* vb = v + bh * tk * D;
 
   float4 qr[C], dor[C], acc[C];
 #pragma unroll
@@ -234,7 +216,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_valid) return;
-  T* dqrow = dq + (bh * tq + q_pos) * D;
+  float* dqrow = dq + (bh * tq + q_pos) * D;
 #pragma unroll
   for (int i = 0; i < C; ++i) store4(dqrow + 4 * (lane + L * i), acc[i]);
 }
@@ -350,8 +332,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kTcKeys = 128;     // keys per block (64 per consumer)
 constexpr int kTcQueries = 64;   // queries per streamed tile
-constexpr int kTcStages = 2;     // Q/dO ring depth
-constexpr int kTcConsumers = 2;  // warpgroups of 64 keys each
+constexpr int kTcStages = 2;     // ring depth (K2: Q/dO, K3: K/V)
+constexpr int kTcConsumers = 2;  // warpgroups of 64 rows each
 constexpr int kTcThreads = 128 * (kTcConsumers + 1);
 
 template <int D>
@@ -586,6 +568,225 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// -- K3 for bf16/fp16: wgmma + TMA ----------------------------------------------
+
+constexpr int kDqQueries = 128;  // queries per block (64 per consumer)
+constexpr int kDqKeys = 64;      // keys per streamed tile
+
+template <int D>
+struct DqGeo : hopper::Panels<D> {
+  using P = hopper::Panels<D>;
+  static constexpr int kQPanel = kDqQueries * P::kSW;  // one panel of Q or dO
+  static constexpr int kQTile = kDqQueries * D * 2;
+  static constexpr int kKPanel = kDqKeys * P::kSW;     // one panel of K or V
+  static constexpr int kKTile = kDqKeys * D * 2;
+  static constexpr int kBarOffset = 2 * kQTile + 2 * kTcStages * kKTile;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kTcStages + 1);
+};
+
+// One block owns 128 queries of one (batch*head); each consumer
+// warpgroup computes, for its 64 queries, S = Q K^T and dP = dO V^T (both
+// operands K-major in shared memory), then dQ += dS K with dS rounded to
+// T as the register A fragment and K read MN-major from the same tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dq, int tq, int tk, int causal,
+                          float scale) {
+  using G = DqGeo<D>;
+  using hopper::Wgmma;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + G::kQTile;
+  uint8_t* kv_s = smem + 2 * G::kQTile;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBarOffset);
+  uint64_t* empty = full + kTcStages;
+  uint64_t* qdo_bar = empty + kTcStages;
+
+  const int n_qtiles = (tq + kDqQueries - 1) / kDqQueries;
+  const int qtile = n_qtiles - 1 - blockIdx.x;  // longest rows first
+  const int bh = blockIdx.y;
+  int n_ktiles = (tk + kDqKeys - 1) / kDqKeys;
+  if (causal) {
+    // Up to the key tile of the block's last query; later keys are
+    // above every row's diagonal.
+    const int last_query = min(qtile * kDqQueries + kDqQueries, tq) - 1;
+    n_ktiles = min(n_ktiles, last_query / kDqKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * kTcConsumers);
+    }
+    hopper::mbar_init(qdo_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kTcConsumers) {
+    // Producer: one thread issues the TMA loads.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 128 * kTcConsumers) {
+      hopper::mbar_arrive_tx(qdo_bar, 2 * G::kQTile);
+      for (int p = 0; p < G::kPanels; ++p) {
+        hopper::tma_load_3d(q_s + p * G::kQPanel, &qmap, qdo_bar,
+                            p * G::kPanelElems, qtile * kDqQueries, bh);
+        hopper::tma_load_3d(do_s + p * G::kQPanel, &domap, qdo_bar,
+                            p * G::kPanelElems, qtile * kDqQueries, bh);
+      }
+      for (int kt = 0; kt < n_ktiles; ++kt) {
+        const int s = kt % kTcStages;
+        hopper::mbar_wait(&empty[s], ((kt / kTcStages) & 1) ^ 1);
+        hopper::mbar_arrive_tx(&full[s], 2 * G::kKTile);
+        uint8_t* dst = kv_s + 2 * s * G::kKTile;
+        for (int p = 0; p < G::kPanels; ++p) {
+          hopper::tma_load_3d(dst + p * G::kKPanel, &kmap, &full[s],
+                              p * G::kPanelElems, kt * kDqKeys, bh);
+          hopper::tma_load_3d(dst + G::kKTile + p * G::kKPanel, &vmap,
+                              &full[s], p * G::kPanelElems, kt * kDqKeys, bh);
+        }
+      }
+    }
+  } else {
+    hopper::regs_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int first_q = qtile * kDqQueries + wg * 64;
+    const int q0 = first_q + 16 * warp + lane / 4;  // and q0 + 8
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_base = hopper::smem_u32(q_s) + wg * 64 * G::kSW;
+    const uint32_t do_base = hopper::smem_u32(do_s) + wg * 64 * G::kSW;
+    const float scale_log2 = scale * hopper::kLog2e;
+    // This warpgroup's rows are all past the sequence's end: it only
+    // keeps the ring turning.
+    const bool idle = first_q >= tq;
+
+    // lse * log2(e) and delta of the thread's two rows, q0 and q0 + 8
+    // (accumulator register i is in the second iff acc_row(i) is 8).
+    float lse_l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + 8 * r;
+      const size_t at = static_cast<size_t>(bh) * tq + q;
+      lse_l2[r] = q < tq ? lse[at] * hopper::kLog2e : 0.f;
+      dl[r] = q < tq ? delta[at] : 0.f;
+    }
+
+    float dq_acc[G::kPanels][G::kPanelElems / 2];
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int i = 0; i < G::kPanelElems / 2; ++i) dq_acc[p][i] = 0.f;
+    }
+
+    hopper::mbar_wait(qdo_bar, 0);
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      const int st = kt % kTcStages;
+      const int k_first = kt * kDqKeys;
+      hopper::mbar_wait(&full[st], (kt / kTcStages) & 1);
+      if (idle || (causal && k_first > first_q + 63)) {
+        hopper::mbar_arrive(&empty[st]);  // above this warpgroup's diagonal
+        continue;
+      }
+      const uint32_t k_base = hopper::smem_u32(kv_s + 2 * st * G::kKTile);
+      const uint32_t v_base = k_base + G::kKTile;
+
+      float s[kDqKeys / 2];
+      float dp[kDqKeys / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int p = k / G::kStepsPerPanel;
+        const int off = (k % G::kStepsPerPanel) * 32;
+        Wgmma<T, kDqKeys>::ss(
+            s, hopper::smem_desc(q_base + p * G::kQPanel + off, G::kSW),
+            hopper::smem_desc(k_base + p * G::kKPanel + off, G::kSW), k > 0);
+      }
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int p = k / G::kStepsPerPanel;
+        const int off = (k % G::kStepsPerPanel) * 32;
+        Wgmma<T, kDqKeys>::ss(
+            dp, hopper::smem_desc(do_base + p * G::kQPanel + off, G::kSW),
+            hopper::smem_desc(v_base + p * G::kKPanel + off, G::kSW), k > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P = exp(scale s - lse[query]) and dS = P (dP - delta) scale,
+      // rounded to T as the A fragments of dQ += dS K: keys run along
+      // the accumulator's columns, the K of that product.
+      const bool masked = k_first + kDqKeys > tk ||
+                          (causal && k_first + kDqKeys - 1 > first_q);
+      uint32_t dsa[kDqKeys / 16][4];
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 16; ++j) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          float dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * j + 2 * h + e;
+            const int r = (i >> 1) & 1;
+            float pr = exp2f(fmaf(s[i], scale_log2, -lse_l2[r]));
+            if (masked) {
+              const int key = k_first + hopper::acc_col(i) + col0;
+              const int q = q0 + hopper::acc_row(i);
+              if (key >= tk || (causal && key > q)) pr = 0.f;
+            }
+            dsv[e] = pr * (dp[i] - dl[r]) * scale;
+          }
+          dsa[j][h] = hopper::pack2(dsv[0], dsv[1], T());
+        }
+      }
+
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) hopper::fence_regs(dq_acc[p]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 16; ++j) {
+#pragma unroll
+        for (int p = 0; p < G::kPanels; ++p) {
+          Wgmma<T, G::kPanelElems>::rs_mn(
+              dq_acc[p], dsa[j],
+              hopper::smem_desc(k_base + p * G::kKPanel + j * 16 * G::kSW,
+                                G::kSW));
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) hopper::fence_regs(dq_acc[p]);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+#pragma unroll
+      for (int i = 0; i < G::kPanelElems / 2; i += 2) {
+        const int q = q0 + hopper::acc_row(i);
+        if (q < tq) {
+          const size_t at = (static_cast<size_t>(bh) * tq + q) * D +
+                            p * G::kPanelElems + hopper::acc_col(i) + col0;
+          *reinterpret_cast<uint32_t*>(dq + at) =
+              hopper::pack2(dq_acc[p][i], dq_acc[p][i + 1], T());
+        }
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -598,14 +799,45 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int D>
+int launch_dq_ffma(const Args& a, void* dq) {
+  const int n_qtiles = (a.tq + Geo<D>::kRows - 1) / Geo<D>::kRows;
+  flash_bwd_dq_kernel<D><<<dim3(n_qtiles, a.bh), kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(dq), a.tq, a.tk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq_wgmma(const Args& a, void* dq) {
+  using G = DqGeo<D>;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!hopper::make_panel_map<T>(&qmap, a.q, a.bh, a.tq, D, kDqQueries, G::kSW) ||
+      !hopper::make_panel_map<T>(&domap, a.dout, a.bh, a.tq, D, kDqQueries, G::kSW) ||
+      !hopper::make_panel_map<T>(&kmap, a.k, a.bh, a.tk, D, kDqKeys, G::kSW) ||
+      !hopper::make_panel_map<T>(&vmap, a.v, a.bh, a.tk, D, kDqKeys, G::kSW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_bwd_dq_wgmma_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (a.tq + kDqQueries - 1) / kDqQueries;
+  kernel<<<dim3(n_qtiles, a.bh), kTcThreads, G::kSmem, a.stream>>>(
+      qmap, kmap, vmap, domap, a.lse, a.delta, static_cast<T*>(dq), a.tq,
+      a.tk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 by dtype: fp32 on FFMA, bf16/fp16 on the tensor cores.
 template <typename T, int D>
 int launch_dq(const Args& a, void* dq) {
-  const int n_qtiles = (a.tq + Geo<D>::kRows - 1) / Geo<D>::kRows;
-  flash_bwd_dq_kernel<T, D><<<dim3(n_qtiles, a.bh), kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dq), a.tq, a.tk, a.causal, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_dq_ffma<D>(a, dq);
+  } else {
+    return launch_dq_wgmma<T, D>(a, dq);
+  }
 }
 
 template <int D>

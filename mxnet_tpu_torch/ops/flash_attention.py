@@ -11,9 +11,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_attention.py``. Three kernels:
   pass (K2, the port of ``_bwd_dkv_kernel``) and then the dQ pass (K3,
   ``_bwd_dq_kernel``).
 
-K1 and K2 run bf16/fp16 inputs on the tensor cores and fp32 inputs on
-IEEE fp32 FFMA; K3 is FFMA for every dtype. :func:`kernel_tolerance` is
-the rule a kernel's output is held to against its plain version.
+All three run bf16/fp16 inputs on the tensor cores (wgmma fed by TMA)
+and fp32 inputs on IEEE fp32 FFMA, chosen by the input dtype inside the
+library; nothing falls back from one to the other.
+:func:`kernel_tolerance` is the one rule a kernel's output is held to
+against its plain version.
 
 A ``torch.autograd.Function`` ties them together as the JAX op's
 ``custom_vjp`` does: the forward saves (q, k, v, out, lse), O(T·d), and
@@ -66,7 +68,7 @@ HEAD_DIMS = (32, 64, 128)
 _UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
 
-def kernel_tolerance(dtype, want, tensor_cores=True):
+def kernel_tolerance(dtype, want):
     """(rtol, atol) of a kernel's output against its plain version.
 
     float32: the JAX package's test tolerance (rtol 2e-4, atol 2e-5);
@@ -76,26 +78,22 @@ def kernel_tolerance(dtype, want, tensor_cores=True):
     - rtol 2u: the kernel and the plain version each round their fp32
       result once to the dtype, half an ulp at most;
     - atol 1e-3 of the tensor's largest entry for the fp32 summation
-      order;
-    - with ``tensor_cores`` (K1 and K2), plus u times the largest entry:
-      the tensor cores multiply 16-bit operands, so those kernels round
-      P (K1, K2) and dS (K2) to the dtype before the second product
-      (O += P V, dV += P^T dO, dK += dS^T Q), where the plain versions
-      keep them in fp32. Each term of those sums then carries a relative
-      error of at most u, with random sign, so the sum should be off by
-      about u times the root sum of squares of its terms, below u times
-      the largest entry the sum reaches. That is an estimate, not a
-      bound: the host tests emulate the rounding against it, and the
-      card's readings are in PERF.md. Without the term, non-causal bf16
-      at T 2048 misses by one ulp.
-    K3 (dQ) rounds nothing before a product (FFMA for every dtype), so
-    its outputs are held with ``tensor_cores=False``.
+      order, plus u times the largest entry: the tensor cores multiply
+      16-bit operands, so the kernels round P (K1, K2) and dS (K2, K3)
+      to the dtype before the second product (O += P V, dV += P^T dO,
+      dK += dS^T Q, dQ += dS K), where the plain versions keep them in
+      fp32. Each term of those sums then carries a relative error of at
+      most u, with random sign, so the sum should be off by about u
+      times the root sum of squares of its terms, below u times the
+      largest entry the sum reaches. That is an estimate, not a bound:
+      the host tests emulate the rounding against it, and the card's
+      readings are in PERF.md. Without the term, non-causal bf16 at
+      T 2048 misses by one ulp.
     """
     if dtype == torch.float32:
         return 2e-4, 2e-5
     u = _UNIT_ROUNDOFF[dtype]
-    return 2 * u, (1e-3 + (u if tensor_cores else 0.0)) * float(
-        want.float().abs().max())
+    return 2 * u, (1e-3 + u) * float(want.float().abs().max())
 
 
 def _resolve(q, k, v, scale, block_q, block_k):

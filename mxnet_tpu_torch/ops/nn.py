@@ -111,6 +111,35 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
     return mean / avg(F.pad(ones, pads), kernel, stride)
 
 
+class _BatchVariance(torch.autograd.Function):
+    """torch.var(data) over `red` (biased), differentiated as
+    mean(centered * centered) with respect to `centered`, the caller's
+    data minus its mean: the gradient autodiff of jnp.var gives in the
+    JAX package.
+
+    torch.var's own backward, 2/n (x - mean(x)), rounds x - mean(x) a
+    second time, so the gradient of anything that shifts a channel
+    before BatchNorm (a bias there: zero in exact arithmetic) carries
+    noise in proportion to |x|. Through `centered`, the mean's share
+    returns through the caller's mean and cancels against the same
+    rounded values, leaving noise in proportion to |x - mean(x)|. The
+    value stays torch.var's, so the forward is unchanged."""
+
+    @staticmethod
+    def forward(ctx, data, centered, red):
+        ctx.save_for_backward(centered)
+        ctx.red = red
+        return torch.var(data, dim=red, unbiased=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (centered,) = ctx.saved_tensors
+        n = centered.numel() // grad.numel()
+        for d in ctx.red:
+            grad = grad.unsqueeze(d)
+        return None, grad * centered * (2.0 / n), None
+
+
 @register("BatchNorm", aliases=("batch_norm",), train_aware=True)
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
@@ -120,10 +149,13 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     eval mode uses the moving stats. The caller commits the new stats."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
     axis = axis % data.ndim
+    shape = [1] * data.ndim
+    shape[axis] = data.shape[axis]
     if training and not use_global_stats:
         red = tuple(i for i in range(data.ndim) if i != axis)
         mean = torch.mean(data, dim=red)
-        var = torch.var(data, dim=red, unbiased=False)
+        centered = data - mean.reshape(shape)
+        var = _BatchVariance.apply(data, centered, red)
         # The moving stats are aux state: never part of a graph.
         new_mm = moving_mean.detach() * momentum \
             + mean.detach() * (1 - momentum)
@@ -136,11 +168,9 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             out = F.batch_norm(data, mean, var, g, beta, training=False,
                                eps=eps)
             return out, new_mm, new_mv
-    shape = [1] * data.ndim
-    shape[axis] = data.shape[axis]
+        centered = data - mean.reshape(shape)
     inv = torch.rsqrt(var.reshape(shape) + eps)
-    out = (data - mean.reshape(shape)) * inv * g.reshape(shape) \
-        + beta.reshape(shape)
+    out = centered * inv * g.reshape(shape) + beta.reshape(shape)
     return out, new_mm, new_mv
 
 

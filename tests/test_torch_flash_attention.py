@@ -213,6 +213,22 @@ def _emulate_wgmma_bwd_dkv(q, k, v, out, lse, dout, causal):
     return dk.to(dt), dv.to(dt)
 
 
+def _emulate_wgmma_bwd_dq(q, k, v, out, lse, dout, causal):
+    """The bf16/fp16 dQ kernel's arithmetic on the host: dS in fp32,
+    rounded to the input dtype before dQ += dS K, in fp32."""
+    dt = q.dtype
+    qf, kf, vf, dof = (t.to(torch.float32) for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    delta = (dof * out.to(torch.float32)).sum(-1)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    if causal:
+        p = p * _mask(q.shape[2], k.shape[2], 0, k.shape[2])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None]) \
+        * scale
+    return torch.matmul(_rounded(ds, dt), kf).to(dt)
+
+
 EMULATED = [(dt, d, causal) for dt in ("bfloat16", "float16")
             for d in (64, 128) for causal in (False, True)]
 
@@ -252,20 +268,31 @@ def test_kernel_tolerance_covers_rounded_p_and_ds_backward(dtype, head_dim,
                                    msg=lambda m: "%s: %s" % (name, m))
 
 
+@pytest.mark.parametrize("dtype,head_dim,causal", EMULATED)
+def test_kernel_tolerance_covers_rounded_ds_dq(dtype, head_dim, causal):
+    """The dQ kernel rounds dS to bf16/fp16 before dQ += dS K; its
+    emulation stays within kernel_tolerance of the fp32 plain K3."""
+    dt = getattr(torch, dtype)
+    shape = (1, 2, 1024, head_dim)
+    q, k, v, g = _inputs16(22, shape, shape, dt)
+    out, lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                             block_q=512, block_k=512)
+    want = tfa.flash_attention_bwd_dq_reference(
+        q, k, v, out, lse, g, causal=causal, block_q=512, block_k=512)
+    got = _emulate_wgmma_bwd_dq(q, k, v, out, lse, g, causal)
+    rtol, atol = tfa.kernel_tolerance(dt, want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 def test_kernel_tolerance_fp32_is_the_jax_tolerance():
+    """fp32: the JAX tolerance; bf16/fp16: two output roundings, and
+    1e-3 plus one unit roundoff of the largest entry."""
     assert tfa.kernel_tolerance(torch.float32, torch.ones(3)) == (RTOL, ATOL)
     rtol, atol = tfa.kernel_tolerance(torch.bfloat16, torch.full((3,), 2.0))
     assert rtol == 2.0 ** -7 and atol == pytest.approx(2 * (1e-3 + 2 ** -8))
-
-
-def test_kernel_tolerance_without_tensor_cores_is_two_roundings():
-    """K3 (FFMA for every dtype) is held to two output roundings and
-    1e-3 of the largest entry, with no term for P or dS rounding."""
-    want = torch.full((3,), 2.0)
-    assert tfa.kernel_tolerance(torch.float16, want, tensor_cores=False) \
-        == (2.0 ** -10, pytest.approx(2e-3))
-    assert tfa.kernel_tolerance(torch.float32, want, tensor_cores=False) \
-        == (RTOL, ATOL)
+    rtol, atol = tfa.kernel_tolerance(torch.float16, torch.full((3,), 2.0))
+    assert rtol == 2.0 ** -10 and atol == pytest.approx(2 * (1e-3 + 2 ** -11))
 
 
 @pytest.mark.cuda
@@ -301,7 +328,7 @@ def test_kernel_matches_plain_on_card(dtype, head_dim, causal):
     assert (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ) == (dkv0 + 1, dq0 + 1)
 
 
-# bf16/fp16 shapes for the tensor-core kernels (K1, K2): ragged T (200,
+# bf16/fp16 shapes for the tensor-core kernels (K1, K2, K3): ragged T (200,
 # 1000: no multiple of a 64- or 128-row tile), Tq 256 against Tk 512,
 # head dim 32 (64-byte swizzle), 64 and 128 (two 64-column panels), and
 # non-causal T 2048, where P's rounding shows most.
@@ -481,9 +508,8 @@ def test_backward_kernels_match_plain_on_card(dtype, shape_q, shape_k,
                                               causal):
     """K2 and K3, through the autograd.Function, against the plain
     backward on the same CUDA inputs, fp32 at head dims 32, 64 and 128,
-    bf16/fp16 (K2 on the tensor cores) at the ragged and cross shapes,
-    to kernel_tolerance (dq, from the FFMA K3, without the tensor-core
-    term)."""
+    bf16/fp16 (both on the tensor cores) at the ragged and cross shapes,
+    dq, dk and dv each to kernel_tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -507,7 +533,7 @@ def test_backward_kernels_match_plain_on_card(dtype, shape_q, shape_k,
         q, k, v, out2, lse, g, causal=causal, block_q=bq, block_k=bk)
     for name, t, w in zip("qkv", leaves, want):
         assert t.grad.dtype == dt
-        rtol, atol = tfa.kernel_tolerance(dt, w, tensor_cores=name != "q")
+        rtol, atol = tfa.kernel_tolerance(dt, w)
         torch.testing.assert_close(t.grad.float(), w.float(), rtol=rtol,
                                    atol=atol)
 
