@@ -46,9 +46,12 @@ phase falls back to the host or to a plain version):
    NVRTC for sm_90a (compile time and cache counts logged); scale_add
    launched through the CudaKernel API on the JAX fixture's (1, 8) and
    at 4096x4096, and relu as the rtc kernel of a partitioned dense-relu
-   MLP (b32, 1024 -> 4096 -> 1000), each exact against its plain version.
+   MLP (b32, 1024 -> 4096 -> 1000), each exact against its plain version;
+   then (not counted) scale_add on views one element past a 16-byte
+   boundary at an odd n, through CudaKernel.launch and the wrapper.
 9. rtc kernels: scale_add and relu timed beside their plain versions,
-   torch calls and bounds; fused BatchNorm(inference)+ReLU at each
+   torch calls (device time and back-to-back) and bounds, relu also at
+   4096x4096; fused BatchNorm(inference)+ReLU at each
    distinct ResNet-50 v1 b32 shape against its plain version (rtol 1e-5
    + 1e-6 max|want|), timed beside it, ``F.batch_norm`` + ``F.relu``
    and its bytes bound; its two-output variant held at one shape; the
@@ -1198,13 +1201,44 @@ def phase_rtc_direct():
     check(bool(torch.equal(rtc_kernels.relu(pre),
                            rtc_kernels.relu_reference(pre))),
           "relu disagrees with its plain version")
+    odd = _scale_add_at_an_odd_offset(gen)
     log(json.dumps({"phase": "rtc_direct", "launches": launches,
+                    "scale_add_odd_offset": odd,
                     "mlp_max_abs_err_vs_unpartitioned": mlp_err,
                     "nvrtc_compile_s": compile_s,
                     "nvrtc_stats_delta": {k: _nvrtc.STATS[k] - stats0[k]
                                           for k in stats0},
                     "compile_log": rtc_kernels.module().compile_log}))
     return launches, (x, y, pre)
+
+
+def _scale_add_at_an_odd_offset(gen, n=4096 * 33 + 3):
+    """scale_add on contiguous views one element past a 16-byte boundary,
+    at an odd n, through the public API: CudaModule/CudaKernel.launch on
+    NDArrays with every pointer at that offset (a scalar head, float4
+    vectors, a scalar tail), and the wrapper, whose aligned output makes
+    the pointers differ mod 16 (the scalar path). Exact against the
+    plain version."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import rtc_kernels
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    x, y, out = (torch.randn(n + 1, generator=gen, device="cuda")[1:]
+                 for _ in range(3))
+    want = rtc_kernels.scale_add_reference(x, y)
+    with open(rtc_kernels.SOURCE) as f:
+        kern = mx.rtc.CudaModule(f.read()).get_kernel(
+            "scale_add", "const float *x, const float *y, float *out, "
+            "int64_t n")
+    plan = rtc_kernels.launch_plan(n, (x.data_ptr() % 16) // 4)
+    kern.launch([NDArray(x), NDArray(y), NDArray(out), n], mx.gpu(0),
+                (plan[3],), (256,))
+    check(bool(torch.equal(out, want)), "scale_add through CudaKernel.launch"
+          " disagrees with its plain version at offset 1, n %d" % n)
+    check(bool(torch.equal(rtc_kernels.scale_add(x, y), want)),
+          "scale_add disagrees with its plain version at offset 1, n %d" % n)
+    return {"n": n, "offset_bytes": x.data_ptr() % 16,
+            "plan": list(plan), "exact": True}
 
 
 def _hold(name, got, want, rtol, atol_rel):
@@ -1214,6 +1248,20 @@ def _hold(name, got, want, rtol, atol_rel):
           "%s disagrees with its plain version: %g (rtol %g, atol %g)"
           % (name, err, rtol, atol))
     return err
+
+
+def _elementwise_times(card, kernel, plain, library, nbytes):
+    """An elementwise rtc kernel's times (ms) beside its plain version and
+    the library call: device time (time_queued) and back-to-back calls
+    (ms_host_window), with its bytes bound and the kernel's share."""
+    row = {"ms": time_queued(kernel), "ms_host_window": time_each(kernel),
+           "plain_ms": time_queued(plain),
+           "bound_ms": _bytes_bound(card, nbytes),
+           "library_ms": time_queued(library),
+           "library_ms_host_window": time_each(library)}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["library_bound_share"] = row["bound_ms"] / row["library_ms"]
+    return row
 
 
 def phase_rtc_kernels(card, tensors):
@@ -1238,29 +1286,33 @@ def phase_rtc_kernels(card, tensors):
         "name": "rtc_scale_add", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/rtc/elementwise.cu",
         "replaces": "mxnet_tpu/rtc.py:87", "max_abs_err": err,
-        "ms": time_queued(lambda: rtc_kernels.scale_add(x, y)),
-        "ms_host_window": time_each(lambda: rtc_kernels.scale_add(x, y)),
-        "plain_ms": time_queued(
-            lambda: rtc_kernels.scale_add_reference(x, y)),
-        "bound_ms": _bytes_bound(card, 3 * 4 * x.numel()),
+        **_elementwise_times(card, lambda: rtc_kernels.scale_add(x, y),
+                             lambda: rtc_kernels.scale_add_reference(x, y),
+                             lambda: torch.add(y, x, alpha=2.0),
+                             3 * 4 * x.numel()),
         "bound_by": "bytes",
-        "library_ms": time_queued(lambda: torch.add(y, x, alpha=2.0)),
         "library_call": "torch.add(y, x, alpha=2)",
         "shape": list(x.shape), "dtype": "float32"}
     err = float((rtc_kernels.relu(pre) - torch.relu(pre)).abs().max())
     check(err == 0, "relu not exact: %g" % err)
+    # relu also where bytes, not the launch, set the time: over x.
+    large_err = float((rtc_kernels.relu(x) - torch.relu(x)).abs().max())
+    check(large_err == 0, "relu not exact at 4096x4096: %g" % large_err)
     entries["relu"] = {
         "name": "rtc_relu", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/rtc/elementwise.cu",
         "replaces": "mxnet_tpu/rtc.py:87", "max_abs_err": err,
-        "ms": time_queued(lambda: rtc_kernels.relu(pre)),
-        "ms_host_window": time_each(lambda: rtc_kernels.relu(pre)),
-        "plain_ms": time_queued(lambda: rtc_kernels.relu_reference(pre)),
-        "bound_ms": _bytes_bound(card, 2 * 4 * pre.numel()),
+        **_elementwise_times(card, lambda: rtc_kernels.relu(pre),
+                             lambda: rtc_kernels.relu_reference(pre),
+                             lambda: F.relu(pre), 2 * 4 * pre.numel()),
         "bound_by": "bytes",
-        "library_ms": time_queued(lambda: F.relu(pre)),
         "library_call": "torch.nn.functional.relu",
-        "shape": list(pre.shape), "dtype": "float32"}
+        "shape": list(pre.shape), "dtype": "float32",
+        "at_4096x4096": {
+            "shape": list(x.shape), "max_abs_err": large_err,
+            **_elementwise_times(card, lambda: rtc_kernels.relu(x),
+                                 lambda: rtc_kernels.relu_reference(x),
+                                 lambda: F.relu(x), 2 * 4 * x.numel())}}
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     per_shape, bn_err, both_err = [], 0.0, None

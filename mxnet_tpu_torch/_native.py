@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels (and the host
+code that launches the rtc kernels).
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with the
 installed toolkit's ``nvcc`` for ``sm_90a`` into a shared library under
@@ -23,8 +24,10 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 
-# Every kernel source of the port.
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+# Every source of the port built by nvcc: the attention kernels and the
+# host-side launcher of the rtc kernels (which NVRTC compiles at run
+# time, csrc/rtc/).
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "rtc_launch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,6 +14,11 @@ carries NVRTC's program log.
 Compiled programs are cached per process by (source, options, name
 expressions), loaded modules by (program, device): a graph partitioned
 into many fragments, once per served bucket, compiles its kernel once.
+
+A launch crosses into C once: :func:`launch` hands one packed buffer
+(function, context, stream, dims and the kernel's parameters) to
+``csrc/rtc_launch.cu``, built by ``_native`` at first use, which makes
+the context current where it is not and calls ``cuLaunchKernel``.
 """
 from __future__ import annotations
 
@@ -23,10 +28,11 @@ import os
 import threading
 import time
 
+from . import _native
 from .base import MXNetError
 
 __all__ = ["CudaError", "search_dirs", "compile_program", "load_function",
-           "launch", "STATS"]
+           "primary_context", "launch", "HEADER", "MAX_PARAMS", "STATS"]
 
 _c_p = ctypes.c_void_p
 _lock = threading.RLock()
@@ -224,19 +230,28 @@ def compile_program(source, options, names):
         return prog
 
 
+def primary_context(device):
+    """The primary context (the one PyTorch uses) of `device`, retained
+    at first use."""
+    with _lock:
+        ctx = _primary.get(device)
+        if ctx is None:
+            lib = _cuda()
+            dev = ctypes.c_int()
+            _check_cu(lib, lib.cuDeviceGet(ctypes.byref(dev), device),
+                      "cuDeviceGet")
+            ctx = _c_p()
+            _check_cu(lib, lib.cuDevicePrimaryCtxRetain(ctypes.byref(ctx),
+                                                        dev),
+                      "cuDevicePrimaryCtxRetain")
+            _primary[device] = ctx
+        return ctx
+
+
 def _make_current(lib, device):
-    """Make the device's primary context (the one PyTorch uses) current
-    on this thread: a server's worker thread may never have touched the
-    driver API."""
-    ctx = _primary.get(device)
-    if ctx is None:
-        dev = ctypes.c_int()
-        _check_cu(lib, lib.cuDeviceGet(ctypes.byref(dev), device),
-                  "cuDeviceGet")
-        ctx = _c_p()
-        _check_cu(lib, lib.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
-                  "cuDevicePrimaryCtxRetain")
-        _primary[device] = ctx
+    """Make the device's primary context current on this thread: a
+    server's worker thread may never have touched the driver API."""
+    ctx = primary_context(device)
     cur = _c_p()
     _check_cu(lib, lib.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
     if cur.value != ctx.value:
@@ -269,14 +284,44 @@ def load_function(prog, symbol, device):
         return fn
 
 
-def launch(fn, device, grid, block, shared_mem, stream, params):
-    """cuLaunchKernel on `stream` (a ``cudaStream_t`` as an int). `params`
-    are ctypes scalars, one per kernel parameter; they stay referenced
-    here until the call returns."""
-    lib = _cuda()
-    _make_current(lib, device)
-    ptrs = (_c_p * max(len(params), 1))(
-        *[ctypes.addressof(p) for p in params])
-    _check_cu(lib, lib.cuLaunchKernel(fn, *grid, *block, shared_mem,
-                                      _c_p(stream), ptrs, None),
-              "cuLaunchKernel")
+# The head of a launch buffer (csrc/rtc_launch.cu): function, context,
+# stream, grid (3), block (3), shared memory bytes, parameter count; the
+# kernel's parameters follow, packed with native alignment.
+HEADER = "@PPP8I"
+# The most parameters a kernel launched through it may have
+# (MX_RTC_MAX_PARAMS there).
+MAX_PARAMS = 256
+
+
+def _launcher():
+    """``mx_rtc_launch`` of csrc/rtc_launch.cu, given the driver's entry
+    points at first use."""
+    fn = _libs.get("launcher")
+    if fn is None:
+        with _lock:
+            fn = _libs.get("launcher")
+            if fn is None:
+                cuda = _cuda()
+                lib = _native.load("rtc_launch")
+                lib.mx_rtc_init.argtypes = [_c_p] * 3
+                lib.mx_rtc_init.restype = None
+                lib.mx_rtc_init(*[ctypes.cast(getattr(cuda, f), _c_p)
+                                  for f in ("cuLaunchKernel",
+                                            "cuCtxGetCurrent",
+                                            "cuCtxSetCurrent")])
+                fn = lib.mx_rtc_launch
+                fn.argtypes = [ctypes.c_char_p, _c_p]
+                fn.restype = ctypes.c_int
+                _libs["launcher"] = fn
+    return fn
+
+
+def launch(buffer, params_offset):
+    """Launch from `buffer` (bytes: the :data:`HEADER` fields, then the
+    kernel's parameters, each at its offset in `params_offset`, the
+    address of a uint32 array that stays alive until the call returns)
+    on the stream it names, making its context current first where it
+    is not."""
+    res = _launcher()(buffer, params_offset)
+    if res != 0:
+        _check_cu(_cuda(), res, "cuLaunchKernel (csrc/rtc_launch.cu)")

@@ -124,7 +124,7 @@ def bn_relu(x, gamma, beta, mean, var, eps=1e-3, fix_gamma=True, axis=1):
     axis = axis % x.ndim
     vectors = (gamma, beta, mean, var)
     _check_channels(x, vectors, axis)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return bn_relu_reference(x, *vectors, eps, fix_gamma, axis)
     y = torch.empty_like(x)
     _launch("bn_relu_forward", x, vectors, (y,), eps, fix_gamma, axis)
@@ -138,7 +138,7 @@ def bn_and_relu(x, gamma, beta, mean, var, eps=1e-3, fix_gamma=True,
     axis = axis % x.ndim
     vectors = (gamma, beta, mean, var)
     _check_channels(x, vectors, axis)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return bn_and_relu_reference(x, *vectors, eps, fix_gamma, axis)
     z, y = torch.empty_like(x), torch.empty_like(x)
     _launch("bn_relu_forward_both", x, vectors, (z, y), eps, fix_gamma,

@@ -8,6 +8,13 @@ of tests/test_subgraph_nce.py:109-142), both fp32, from
 counts the launch in ``LAUNCHES``; a host tensor gets the plain PyTorch
 version beside it. A CUDA tensor never falls back: a failed compile or
 launch raises.
+
+The kernels move 16-byte float4 vectors, with a scalar head up to the
+first 16-byte boundary and a scalar tail; where the pointers differ mod
+16 every element takes the scalar path. Their loops are grid-stride, so
+any grid a caller passes through ``CudaKernel.launch`` is right;
+:func:`launch_plan` gives the split and the grid the wrappers launch
+(one float4 a thread), :func:`launch_elementwise` launches with it.
 """
 from __future__ import annotations
 
@@ -18,8 +25,9 @@ import torch
 
 from .. import rtc
 
-__all__ = ["SOURCE", "LAUNCHES", "module", "launch_1d", "scale_add",
-           "scale_add_reference", "relu", "relu_reference"]
+__all__ = ["SOURCE", "LAUNCHES", "module", "launch_1d", "launch_plan",
+           "launch_elementwise", "scale_add", "scale_add_reference", "relu",
+           "relu_reference"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "rtc", "elementwise.cu")
@@ -28,6 +36,11 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
 LAUNCHES = {"scale_add": 0, "relu": 0}
 
 _THREADS = 256
+# float4 vectors of each input a thread loads per whole trip in
+# csrc/rtc/elementwise.cu (ELEMENTWISE_VECTORS there), for grids smaller
+# than the work; and scalars a thread takes per trip on the scalar path.
+VECTORS = 4
+SCALARS = 4
 _lock = threading.Lock()
 _module = []
 _sms = {}  # device -> multiprocessor count
@@ -55,6 +68,37 @@ def launch_1d(kernel, tensors, scalars, n):
     blocks = max(1, min((n + _THREADS - 1) // _THREADS, 8 * sms))
     kernel.launch_tensors(list(tensors) + list(scalars), (blocks,),
                           (_THREADS,))
+
+
+def launch_plan(n, offset):
+    """How the kernels of elementwise.cu split `n` elements, and the grid
+    that covers them.
+
+    `offset` is the element offset (0-3) of every pointer past a 16-byte
+    boundary, or None where the pointers differ mod 16. Returns (head,
+    vectors, tail, blocks): `head` scalar elements up to the first
+    boundary, `vectors` float4 after them, `tail` scalars after those
+    (head + 4 vectors + tail == n; all scalars where offset is None), and
+    the blocks of 256 threads to launch: one float4 a thread (as ATen's
+    vectorized kernels), SCALARS a thread on the scalar path. A grid of
+    whole trips of VECTORS float4 a thread measured no faster at
+    4096x4096 and slower at 32x4096, where it leaves multiprocessors
+    idle (``python3 -m mxnet_tpu_torch.profile_rtc --sweep``)."""
+    head = n if offset is None else min(n, (4 - offset) % 4)
+    vectors = (n - head) // 4
+    tail = n - head - 4 * vectors
+    threads = max(vectors, -(-(head + tail) // SCALARS), 1)
+    return head, vectors, tail, -(-threads // _THREADS)
+
+
+def launch_elementwise(kernel, tensors, n):
+    """Launch a kernel of elementwise.cu over `n` elements of `tensors`
+    (CUDA, one device, contiguous; the output last), with the grid of
+    :func:`launch_plan`."""
+    mis = {t.data_ptr() & 15 for t in tensors}
+    offset = mis.pop() >> 2 if len(mis) == 1 else None
+    blocks = launch_plan(n, offset)[3]
+    kernel.launch_tensors(list(tensors) + [n], (blocks,), (_THREADS,))
 
 
 _kernels = {}
@@ -85,13 +129,13 @@ def scale_add(x, y):
     if x.shape != y.shape:
         raise ValueError("scale_add: x %s and y %s differ in shape"
                          % (tuple(x.shape), tuple(y.shape)))
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return scale_add_reference(x, y)
     _check(x, y)
     out = torch.empty_like(x)
-    launch_1d(_kernel("scale_add", "const float *x, const float *y, "
-                      "float *out, int64_t n"), [x, y, out], [x.numel()],
-              x.numel())
+    launch_elementwise(_kernel("scale_add", "const float *x, const float *y, "
+                               "float *out, int64_t n"), (x, y, out),
+                       x.numel())
     LAUNCHES["scale_add"] += 1
     return out
 
@@ -102,12 +146,13 @@ def relu_reference(x):
 
 def relu(x):
     """``max(x, 0)``: the rtc kernel on CUDA tensors, the plain version on
-    host tensors."""
-    if x.device.type == "cpu":
+    host tensors. NaN passes through; on the card -0.0 gives +0.0, as
+    F.relu does there."""
+    if x.is_cpu:
         return relu_reference(x)
     _check(x)
     y = torch.empty_like(x)
-    launch_1d(_kernel("relu", "const float *x, float *y, int64_t n"),
-              [x, y], [x.numel()], x.numel())
+    launch_elementwise(_kernel("relu", "const float *x, float *y, int64_t n"),
+                       (x, y), x.numel())
     LAUNCHES["relu"] += 1
     return y

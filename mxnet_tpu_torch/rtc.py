@@ -30,6 +30,13 @@ to a non-``const`` pointer get their ``version`` bumped. Nothing falls
 back to the host: a launch on host arrays raises, and so does a missing
 NVRTC (see ``_nvrtc.py`` for where it is searched).
 
+A launch packs the function, context, stream, dims and every parameter
+into one buffer with a ``struct`` format fixed per kernel (each
+parameter at its C alignment) and crosses into C once, through
+``csrc/rtc_launch.cu`` (built with ``nvcc`` by ``_native`` at the first
+launch): the launcher makes the device's primary context current where
+it is not and calls ``cuLaunchKernel``.
+
 ``PallasModule`` and ``PallasKernel`` exist for API parity and raise:
 Pallas kernels cannot run under PyTorch.
 """
@@ -38,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import os
 import re
+import struct
 
 import numpy as np
 import torch
@@ -55,11 +63,11 @@ _DTYPE_CPP = {
     "uint8_t": "uint8", "int": "int32", "int32_t": "int32",
     "int8_t": "int8", "char": "int8", "int64_t": "int64",
 }
-_CTYPE = {
-    "float32": ctypes.c_float, "float64": ctypes.c_double,
-    "float16": ctypes.c_uint16,  # the bits of an IEEE half
-    "uint8": ctypes.c_uint8, "int8": ctypes.c_int8,
-    "int32": ctypes.c_int32, "int64": ctypes.c_int64,
+# dtype name -> struct code of a scalar parameter in the launch buffer.
+_STRUCT = {
+    "float32": "f", "float64": "d",
+    "float16": "H",  # the bits of an IEEE half
+    "uint8": "B", "int8": "b", "int32": "i", "int64": "q",
 }
 _ARG = re.compile(r"^\s*(const)?\s*([\w_]+)\s*(\*)?\s*([\w_]+)?\s*$")
 
@@ -67,6 +75,45 @@ ARCH = "sm_90a"
 
 # Kernels launched through CudaKernel.launch since import.
 LAUNCHES = 0
+
+# Lookups a launch makes, cached: torch.device's attributes cost more
+# than a dict lookup.
+_devices = {}  # (device type, id) -> torch.device, checked once
+_indices = {}  # torch.device of a CUDA card with an index -> the index
+_streams = {}  # (device index, raw stream) -> torch.cuda.Stream
+
+
+def _torch_device(ctx):
+    """The torch device of the GPU context `ctx`, checked (a card, an
+    existing index) at its first launch."""
+    key = (ctx.device_type, ctx.device_id)
+    device = _devices.get(key)
+    if device is None:
+        device = _devices[key] = ctx.torch_device
+    return device
+
+
+def _cuda_index(device):
+    """The CUDA device index of `device`, or None where it is no CUDA
+    device; ``cuda`` without an index is the current device."""
+    index = _indices.get(device)
+    if index is None:
+        if device is None or device.type != "cuda":
+            return None
+        if device.index is None:
+            return torch.cuda.current_device()
+        index = _indices[device] = device.index
+    return index
+
+
+def _current_stream(index):
+    """PyTorch's current stream of device `index` as a Stream object,
+    one object per raw stream."""
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    stream = _streams.get(key)
+    if stream is None:
+        stream = _streams[key] = torch.cuda.current_stream(index)
+    return stream
 
 
 def parse_signature(signature):
@@ -142,12 +189,28 @@ class CudaKernel:
     """One kernel of a :class:`CudaModule` (reference rtc.py:CudaKernel)."""
 
     def __init__(self, program, name, symbol, params):
+        if len(params) > _nvrtc.MAX_PARAMS:
+            raise ValueError("kernel %s has %d parameters; a launch takes "
+                             "at most %d" % (name, len(params),
+                                             _nvrtc.MAX_PARAMS))
         self._program = program
         self.name = name
         self._symbol = symbol
         self._params = params
         self._dtypes = [torch_dtype(d) for d, _, _ in params]
-        self._fns = {}  # device index -> CUfunction
+        self._pointers = [i for i, (_, is_ptr, _) in enumerate(params)
+                          if is_ptr]
+        self._halves = [i for i, (d, is_ptr, _) in enumerate(params)
+                        if d == "float16" and not is_ptr]
+        # The launch buffer: csrc/rtc_launch.cu's header, then each
+        # parameter at its C alignment, as the driver reads them.
+        codes = ["P" if is_ptr else _STRUCT[d] for d, is_ptr, _ in params]
+        self._pack = struct.Struct(_nvrtc.HEADER + "".join(codes)).pack
+        offsets = [struct.calcsize(_nvrtc.HEADER + "".join(codes[:i + 1]))
+                   - struct.calcsize(codes[i]) for i in range(len(codes))]
+        self._offsets = (ctypes.c_uint32 * max(len(codes), 1))(*offsets)
+        self._offsets_ptr = ctypes.addressof(self._offsets)
+        self._fns = {}  # device index -> (CUfunction, CUcontext) as ints
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on `ctx` (a GPU context) with `grid_dims`/`block_dims`
@@ -165,11 +228,16 @@ class CudaKernel:
             if is_ptr and not isinstance(arg, NDArray):
                 raise TypeError("argument %d of %s must be an NDArray, got %s"
                                 % (i, self.name, type(arg)))
-        stream = self.launch_tensors(
+        device = _torch_device(ctx)
+        self.launch_tensors(
             [a._data if isinstance(a, NDArray) else a for a in args],
-            grid_dims, block_dims, shared_mem, device=ctx.torch_device)
-        for arg, (_, is_ptr, is_const) in zip(args, self._params):
-            if is_ptr and not is_const:
+            grid_dims, block_dims, shared_mem, device=device)
+        written = [arg for arg, (_, is_ptr, is_const) in zip(args,
+                                                             self._params)
+                   if is_ptr and not is_const]
+        if written:
+            stream = _current_stream(device.index)
+            for arg in written:
                 arg.version += 1
                 arg._stream = stream
 
@@ -178,51 +246,56 @@ class CudaKernel:
         """:meth:`launch` over torch tensors, for the port's own
         wrappers: the pointer parameters take CUDA tensors on one device
         (`device`, default that of the first), checked as in
-        :meth:`launch`. Returns the stream launched on."""
+        :meth:`launch`. Launches on PyTorch's current stream of that
+        device."""
         global LAUNCHES
         if len(args) != len(self._params):
             raise ValueError("kernel %s takes %d arguments, got %d"
                              % (self.name, len(self._params), len(args)))
-        values = []
-        for i, (arg, (dtype, is_ptr, _), tdt) in enumerate(
-                zip(args, self._params, self._dtypes)):
-            if is_ptr:
-                if device is None:
-                    device = arg.device
-                if arg.dtype != tdt:
-                    raise TypeError(
-                        "argument %d of %s is expected to be an NDArray of "
-                        "type %s, but got %s" % (i, self.name, dtype,
-                                                 str(arg.dtype)[6:]))
-                if arg.device != device:
-                    raise ValueError("argument %d of %s lies on %s, not on "
-                                     "the launch device %s"
-                                     % (i, self.name, arg.device, device))
-                if not arg.is_contiguous():
-                    raise ValueError("argument %d of %s is not contiguous"
-                                     % (i, self.name))
-                values.append(ctypes.c_void_p(arg.data_ptr()))
-            elif dtype == "float16":
-                values.append(ctypes.c_uint16(
-                    int(np.float16(arg).view(np.uint16))))
-            else:
-                values.append(_CTYPE[dtype](arg))
-        if device is None or device.type != "cuda":
+        values = list(args)
+        for i in self._pointers:
+            arg = args[i]
+            if device is None:
+                device = arg.device
+            if arg.dtype != self._dtypes[i]:
+                raise TypeError(
+                    "argument %d of %s is expected to be an NDArray of "
+                    "type %s, but got %s" % (i, self.name, self._params[i][0],
+                                             str(arg.dtype)[6:]))
+            if arg.device != device:
+                raise ValueError("argument %d of %s lies on %s, not on "
+                                 "the launch device %s"
+                                 % (i, self.name, arg.device, device))
+            if not arg.is_contiguous():
+                raise ValueError("argument %d of %s is not contiguous"
+                                 % (i, self.name))
+            values[i] = arg.data_ptr()
+        for i in self._halves:
+            values[i] = int(np.float16(args[i]).view(np.uint16))
+        index = _cuda_index(device)
+        if index is None:
             raise ValueError("kernel %s launches on a CUDA device, got %s"
                              % (self.name, device))
-        index = device.index if device.index is not None \
-            else torch.cuda.current_device()
         fn = self._fns.get(index)
         if fn is None:
-            fn = self._fns[index] = _nvrtc.load_function(
-                self._program, self._symbol, index)
+            fn = self._fns[index] = (
+                _nvrtc.load_function(self._program, self._symbol,
+                                     index).value,
+                _nvrtc.primary_context(index).value)
         grid = (tuple(grid_dims) + (1, 1, 1))[:3]
         block = (tuple(block_dims) + (1, 1, 1))[:3]
-        stream = torch.cuda.current_stream(device)
-        _nvrtc.launch(fn, index, grid, block, int(shared_mem),
-                      stream.cuda_stream, values)
+        try:
+            buffer = self._pack(fn[0], fn[1],
+                                torch._C._cuda_getCurrentRawStream(index),
+                                *grid, *block, int(shared_mem), len(args),
+                                *values)
+        except struct.error as e:
+            raise TypeError("arguments of %s do not fit its parameters %s "
+                            "(grid %s, block %s): %s"
+                            % (self.name, [d for d, _, _ in self._params],
+                               grid, block, e)) from None
+        _nvrtc.launch(buffer, self._offsets_ptr)
         LAUNCHES += 1
-        return stream
 
 
 class PallasModule:
