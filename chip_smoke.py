@@ -68,8 +68,26 @@ phase falls back to the host or to a plain version):
    both servers and the hybridized gluon net agree within 1e-5 of the
    largest logit; img/s at b32 on a batch on the card and through
    ``predict()``.
+11. ResNet-50 v1 trained through ``gluon.Trainer`` (the usual MXNet
+   loop: ``autograd.record``, ``backward``, ``trainer.step(32)``;
+   hybridized; SGD lr 0.1, momentum 0.9, wd 1e-4) at full width, b32:
+   img/s as ``benchmark_rate`` times it, fp32 (TF32 off) and bf16
+   (``net.cast("bfloat16")``, ``multi_precision``); the optimizer's
+   launches and device time per ``step`` (torch.profiler) with
+   ``fused=True`` and ``fused=False``; from one state, on the same
+   gradients, one fused step equal to one loop step bit for bit
+   (weights and optimizer states of all 161 trainable tensors, fp32 and
+   bf16+mp, two steps); ``save_states`` after 2 steps and
+   ``load_states`` into a fresh Trainer, then 2 more steps equal to 4
+   uninterrupted steps bit for bit. No flash-attention kernel runs. Phase
+   7's parity also holds one Trainer step against the float64 step
+   with the fp32 terms of PARITY_LIMITS, and prints whether it equals
+   the TrainStep step bit for bit.
+12. the attention layer of phase 6 trained through ``gluon.Trainer``
+   (adam lr 1e-3, ``multi_precision``, bf16 weights) for 10 steps on one
+   batch: K1, K2 and K3 launch once per step, the loss falls; step ms.
 
-Each path (4, 6, 7, 8, 10) is driven with every launch count set to 0
+Each path (4, 6, 7, 8, 10, 11, 12) is driven with every launch count set to 0
 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -982,10 +1000,47 @@ def _rel_l2(got, want):
     return (num / den) ** 0.5
 
 
+def _trainer_parity_run(w0, prefix, xs, ys, opt):
+    """One gluon.Trainer step (hybridized, fused) of ResNet-50 v1 on the
+    card from the weights `w0`: the run dict _resnet_parity compares."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import params_from_numpy
+
+    t0 = time.perf_counter()
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(ctx=mx.gpu(0))
+    params_from_numpy(net, w0, prefix=prefix)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(opt))
+    loss = _record_and_backward(net, nd.array(xs, ctx=mx.gpu(0)),
+                                nd.array(ys, ctx=mx.gpu(0)))
+    trainer.step(xs.shape[0])
+    params = list(net.collect_params().values())
+    states = trainer._updater.states
+    train = {p.name: p.data().asnumpy() for p in params
+             if p.grad_req != "null"}
+    mom = {p.name: states[i].asnumpy() for i, p in enumerate(params)
+           if p.grad_req != "null"}
+    aux = {p.name: p.data().asnumpy() for p in params
+           if p.grad_req == "null"}
+    check(trainer._applier.num_compiles >= 1, "the parity Trainer step did "
+          "not take the fused path")
+    return {"loss": float(loss.asnumpy().mean()),
+            "w": _relative(train, net.prefix),
+            "mom": _relative(mom, net.prefix),
+            "aux": _relative(aux, net.prefix),
+            "seconds": time.perf_counter() - t0}
+
+
 def _resnet_parity(seed):
     """One SGD-momentum-wd step of ResNet-50 v1 at PARITY_BATCH from one
     set of weights: fp32 and float64 on the card, fp32 on the host, and
-    (first seed) float64 on the host; held to PARITY_LIMITS."""
+    (first seed) float64 on the host; held to PARITY_LIMITS. The same
+    step through gluon.Trainer on the card (``card_trainer``) is held to
+    the fp32 terms, and compared with the TrainStep step bit for bit
+    (printed, not held: cuDNN may pick nondeterministic algorithms)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.gluon.model_zoo import vision
@@ -1035,6 +1090,8 @@ def _resnet_parity(seed):
                     "seconds": time.perf_counter() - t0}
         del st
     runs.clear()
+    out["card_trainer"] = _trainer_parity_run(w0, card_net.prefix, xs, ys,
+                                              opt)
     w0 = _relative(w0, card_net.prefix)
     ref = out["card_f64"]
     failed = []
@@ -1065,7 +1122,7 @@ def _resnet_parity(seed):
         hold("f64 running stats", max(aux.values()), lim["f64_aux"])
         hold("f64 weights", weight_excess, lim["f64_weight_step"])
     errs = {}
-    for tag in ("card_fp32", "host_fp32"):
+    for tag in ("card_fp32", "host_fp32", "card_trainer"):
         o = out[tag]
         errs[tag] = _rel_max(o["mom"], ref["mom"])
         loss = abs(o["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -1094,6 +1151,24 @@ def _resnet_parity(seed):
          reading["card_fp32_vs_card_f64"]["momentum_rel_l2"]
          / reading["host_fp32_vs_card_f64"]["momentum_rel_l2"],
          lim["fp32_update_l2_ratio"])
+    # The Trainer's step, held to the same fp32 terms.
+    t_excess = {n: errs["card_trainer"][n] - lim["fp32_update_ratio"]
+                * errs["host_fp32"][n] for n in errs["card_trainer"]}
+    t_worst = max(t_excess, key=lambda n: t_excess[n])
+    hold("Trainer fp32 update of %s over %g x host's"
+         % (t_worst, lim["fp32_update_ratio"]), t_excess[t_worst],
+         lim["fp32_update_floor"])
+    hold("Trainer fp32 update over the net against host's",
+         reading["card_trainer_vs_card_f64"]["momentum_rel_l2"]
+         / reading["host_fp32_vs_card_f64"]["momentum_rel_l2"],
+         lim["fp32_update_l2_ratio"])
+    tr, ts = out["card_trainer"], out["card_fp32"]
+    reading["trainer_equals_train_step_bitwise"] = {
+        "weights": all(np.array_equal(tr["w"][n], ts["w"][n])
+                       for n in ts["w"]),
+        "momentum": all(np.array_equal(tr["mom"][n], ts["mom"][n])
+                        for n in ts["mom"]),
+        "loss": tr["loss"] == ts["loss"]}
     reading["limits"] = lim
     reading["failed"] = failed
     reading["within"] = not failed
@@ -1556,6 +1631,333 @@ def phase_checkpoint_served():
     return result
 
 
+# -- slice 7: the imperative trainer (gluon.Trainer) ---------------------------
+
+TRAINER_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+RESNET50_TRAINABLE = 161
+
+
+def _resnet50(seed=SEED, dtype=None):
+    """ResNet-50 v1 at full width on the card, initialized as the
+    TrainStep phases initialize it, shapes inferred, hybridized."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mx.random.seed(seed)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    with autograd.pause():
+        net(nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))
+    if dtype is not None:
+        net.cast(dtype)
+    net.hybridize()
+    return net
+
+
+def _copy_weights(src, dst):
+    for p, q in zip(src.collect_params().values(),
+                    dst.collect_params().values()):
+        q.data()._data.detach().copy_(p.data()._data.detach())
+
+
+def _trainable(net):
+    return [p for p in net.collect_params().values() if p.grad_req != "null"]
+
+
+def _record_and_backward(net, x, y, cast_out=False, loss_fn=None):
+    from mxnet_tpu_torch import autograd, gluon
+
+    loss_fn = loss_fn or gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        out = net(x)
+        if cast_out:
+            out = out.astype("float32")
+        loss = loss_fn(out, y)
+    loss.backward()
+    return loss
+
+
+def _state_tensors(trainer):
+    """{index: [state tensors]} of a trainer's updater, nesting
+    flattened ((inner, master) under multi_precision)."""
+    def flat(s):
+        if s is None:
+            return []
+        if isinstance(s, (list, tuple)):
+            return [t for x in s for t in flat(x)]
+        return [s._data]
+
+    return {i: flat(s) for i, s in trainer._updater.states.items()}
+
+
+def _trainer_img_s(net, trainer, x, y, cast_out, warmup=3, windows=5,
+                   iters=16):
+    """benchmark_rate's protocol over the Trainer loop: warmup steps,
+    then the median img/s of `windows` windows of `iters` steps, each
+    closed by a host readback of the loss."""
+    loss = None
+    for _ in range(warmup):
+        loss = _record_and_backward(net, x, y, cast_out)
+        trainer.step(x.shape[0])
+    float(loss.asnumpy().mean())
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            loss = _record_and_backward(net, x, y, cast_out)
+            trainer.step(x.shape[0])
+        float(loss.asnumpy().mean())
+        rates.append(x.shape[0] * iters / (time.perf_counter() - t0))
+    return sorted(rates)[len(rates) // 2], float(loss.asnumpy().mean())
+
+
+def _optimizer_profile(trainer, batch, reps=5):
+    """Per trainer.step on the gradients in place: CUDA launches and
+    device ms (torch.profiler), and host ms (the card synchronised at
+    the end of the window)."""
+    trainer.step(batch)       # plans and states exist
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+    count, device_us = 0, 0.0
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            count += evt.count
+            device_us += evt.self_device_time_total
+    return {"launches_per_step": count / reps,
+            "device_ms_per_step": device_us / 1e3 / reps,
+            "wall_ms_per_step": wall}
+
+
+def _fused_equals_loop(dtype, x, y, steps=2):
+    """From one state and on the same gradients, `steps` fused steps and
+    `steps` loop steps: every weight and optimizer-state tensor equal bit
+    for bit. Returns the number of trainable tensors held."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    opt = dict(TRAINER_OPT, multi_precision=dtype is not None)
+    nets = [_resnet50(dtype=dtype) for _ in range(2)]
+    _copy_weights(nets[0], nets[1])
+    trainers = [gluon.Trainer(n.collect_params(), "sgd", dict(opt), fused=f)
+                for n, f in zip(nets, (True, False))]
+    train = [_trainable(n) for n in nets]
+    check(len(train[0]) == RESNET50_TRAINABLE, "ResNet-50 v1 has %d "
+          "trainable tensors, not %d" % (len(train[0]), RESNET50_TRAINABLE))
+    for _ in range(steps):
+        _record_and_backward(nets[0], x, y, dtype is not None)
+        for p, q in zip(*train):
+            q.grad()._data.copy_(p.grad()._data)
+        for t in trainers:
+            t.step(x.shape[0])
+    bad = [p.name for p, q in zip(*train)
+           if not torch.equal(p.data()._data, q.data()._data)]
+    sa, sb = (_state_tensors(t) for t in trainers)
+    bad += ["state %d" % i for i in sa
+            if len(sa[i]) != len(sb[i]) or
+            not all(torch.equal(u, v) for u, v in zip(sa[i], sb[i]))]
+    check(not bad, "fused != loop (%s) at %s" % (dtype or "fp32", bad[:5]))
+    check(trainers[0]._applier.num_compiles >= 1
+          and trainers[1]._applier.num_compiles == 0,
+          "the fused trainer did not fuse, or the loop trainer did")
+    masters = [s for i, s in trainers[0]._updater.states.items()]
+    if dtype is not None:
+        check(all(isinstance(s, tuple) and len(s) == 2
+                  and s[1]._data.dtype == torch.float32 for s in masters),
+              "bf16 states are not (inner, fp32 master)")
+    del nets, trainers
+    return len(train[0])
+
+
+def _resume_equals_uninterrupted(x, y, tmpdir):
+    """4 uninterrupted fused steps against 2 steps, save_states,
+    load_states into a fresh Trainer, 2 more steps, on the same recorded
+    gradients: weights and states equal bit for bit."""
+    import os
+
+    from mxnet_tpu_torch import gluon
+
+    nets = [_resnet50() for _ in range(2)]
+    _copy_weights(nets[0], nets[1])
+    train = [_trainable(n) for n in nets]
+    ref = gluon.Trainer(nets[0].collect_params(), "sgd", dict(TRAINER_OPT))
+    grads = []
+    for _ in range(4):
+        _record_and_backward(nets[0], x, y)
+        grads.append([p.grad()._data.clone() for p in train[0]])
+        ref.step(x.shape[0])
+    path = os.path.join(tmpdir, "trainer.states")
+    tr = gluon.Trainer(nets[1].collect_params(), "sgd", dict(TRAINER_OPT))
+    for k, gs in enumerate(grads):
+        if k == 2:
+            tr.save_states(path)
+            tr = gluon.Trainer(nets[1].collect_params(), "sgd",
+                               dict(TRAINER_OPT))
+            tr.load_states(path)
+        for q, g in zip(train[1], gs):
+            q.grad()._data.copy_(g)
+        tr.step(x.shape[0])
+    bad = [p.name for p, q in zip(*train)
+           if not torch.equal(p.data()._data, q.data()._data)]
+    sa, sb = _state_tensors(ref), _state_tensors(tr)
+    bad += ["state %d" % i for i in sa
+            if not all(torch.equal(u, v) for u, v in zip(sa[i], sb[i]))]
+    check(not bad, "resumed Trainer != uninterrupted at %s" % bad[:5])
+    return os.path.getsize(path)
+
+
+def _update_bytes(net, dtype):
+    """Bytes one SGD-momentum update must move: read weight, gradient
+    and momentum, write weight and momentum; with fp32 masters also
+    read and write the master, the momentum fp32."""
+    n = sum(p.data().size for p in _trainable(net))
+    if dtype is None:
+        return 5 * 4 * n
+    return (2 + 2 + 4 + 4) * n + (2 + 4 + 4) * n
+
+
+def phase_resnet_trainer(card_line):
+    """ResNet-50 v1 through gluon.Trainer (see the module docstring,
+    phase 11)."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    rng = np.random.default_rng(SEED)
+    xs = rng.random((32, 3, 224, 224), dtype=np.float32)
+    ys = rng.integers(0, 1000, 32).astype(np.float32)
+    y = nd.array(ys, ctx=mx.gpu(0))
+    result = {"phase": "resnet50_v1_trainer", "card": card_line,
+              "batch": 32, "optimizer": ["sgd", TRAINER_OPT],
+              "windows": 5, "iters_per_window": 16}
+    _reset_launches()  # the main path starts here
+    card = torch.cuda.get_device_name(0)
+    for tag, dtype in (("fp32", None), ("bf16_mp", "bfloat16")):
+        x = nd.array(xs, ctx=mx.gpu(0), dtype=dtype or "float32")
+        net = _resnet50(dtype=dtype)
+        opt = dict(TRAINER_OPT, multi_precision=dtype is not None)
+        trainer = gluon.Trainer(net.collect_params(), "sgd", opt)
+        t0 = time.perf_counter()
+        rate, loss = _trainer_img_s(net, trainer, x, y, dtype is not None)
+        entry = {"img_s_b32": rate, "ms_per_step": 32e3 / rate,
+                 "loss": loss, "phase_s": time.perf_counter() - t0,
+                 "fused_plans": trainer._applier.num_compiles}
+        check(np.isfinite(loss), "non-finite Trainer loss %r" % loss)
+        check(trainer._applier.num_compiles >= 1, "the Trainer did not "
+              "take the fused path")
+        # The optimizer alone, on the gradients of the last step.
+        fused = _optimizer_profile(trainer, 32)
+        loop = gluon.Trainer(net.collect_params(), "sgd", opt, fused=False)
+        _record_and_backward(net, x, y, dtype is not None)
+        per_param = _optimizer_profile(loop, 32)
+        for key in ("launches_per_step", "device_ms_per_step",
+                    "wall_ms_per_step"):
+            entry["optimizer_" + key] = {"fused": fused[key],
+                                         "loop": per_param[key]}
+        nbytes = _update_bytes(net, dtype)
+        entry["optimizer_bytes"] = nbytes
+        entry["optimizer_bound_ms"] = _bytes_bound(card, nbytes)
+        entry["optimizer_bound_share_fused"] = \
+            entry["optimizer_bound_ms"] / fused["device_ms_per_step"]
+        result[tag] = entry
+        del net, trainer, loop
+        torch.cuda.empty_cache()
+    launches = _launches()  # read just after the path
+    result["flash_attention_launches"] = launches
+    check(launches == (0, 0, 0), "ResNet-50 Trainer launched flash "
+          "attention kernels %s" % (launches,))
+
+    x = nd.array(xs, ctx=mx.gpu(0))
+    result["fused_equals_loop_fp32_tensors"] = _fused_equals_loop(None, x, y)
+    torch.cuda.empty_cache()
+    xb = nd.array(xs, ctx=mx.gpu(0), dtype="bfloat16")
+    result["fused_equals_loop_bf16_mp_tensors"] = _fused_equals_loop(
+        "bfloat16", xb, y)
+    torch.cuda.empty_cache()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mxnet_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="trainer-", dir=build)
+    try:
+        result["resume_states_bytes"] = _resume_equals_uninterrupted(
+            x, y, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["resume_equals_uninterrupted"] = True
+    torch.cuda.empty_cache()
+    log(json.dumps(result))
+    return result
+
+
+def phase_attention_trainer(card_line):
+    """The attention layer through gluon.Trainer: adam, bf16 weights with
+    fp32 masters, 10 steps on one batch (module docstring, phase 12)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.examples.attention_layer import SelfAttention
+
+    units, steps = 1024, 10
+    mx.random.seed(SEED)
+    net = SelfAttention(units, heads=16)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-3, "multi_precision": True})
+    rng = np.random.default_rng(SEED)
+    x = nd.array(rng.standard_normal((8, 2048, units), dtype=np.float32),
+                 ctx=mx.gpu(0), dtype="bfloat16")
+    y = nd.array(rng.standard_normal((8, 2048, units), dtype=np.float32),
+                 ctx=mx.gpu(0))
+    loss_fn = gluon.loss.L2Loss()
+    losses, per_step, times = [], [], []
+    _reset_launches()  # the main path starts here
+    for _ in range(steps):
+        before = _launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _record_and_backward(net, x, y, True, loss_fn)
+        trainer.step(8)
+        losses.append(float(loss.asnumpy().mean()))
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(_launches(), before)))
+    launches = _launches()  # read just after the path
+    check(all(c == (1, 1, 1) for c in per_step),
+          "Trainer: K1/K2/K3 launches per step %s, not once each" % per_step)
+    check(all(np.isfinite(losses)), "non-finite loss %s" % losses)
+    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
+    check(trainer._applier.num_compiles >= 1, "adam did not take the "
+          "fused path")
+    masters = list(trainer._updater.states.values())
+    check(all(s[1]._data.dtype == torch.float32 for s in masters),
+          "adam states are not (inner, fp32 master)")
+    result = {"phase": "attention_layer_trainer", "card": card_line,
+              "shape": [8, 16, 2048, 64], "dtype": "bfloat16",
+              "optimizer": ["adam", {"learning_rate": 1e-3,
+                                     "multi_precision": True}],
+              "steps": steps, "losses": losses, "step_ms": times,
+              "step_ms_median": float(np.median(times[2:])),
+              "launches_per_step": per_step, "launches": launches}
+    log(json.dumps(result))
+    return launches, result["step_ms_median"]
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -1570,6 +1972,8 @@ def main():
     direct, tensors = phase_rtc_direct()
     rtc_entries = phase_rtc_kernels(card, tensors)
     ckpt = phase_checkpoint_served()
+    phase_resnet_trainer(card_line)
+    attn_trainer, attn_trainer_ms = phase_attention_trainer(card_line)
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -1584,20 +1988,26 @@ def main():
         "rtc_direct": direct["rtc"],
         "checkpoint_served_partitioned": ckpt["partitioned"]["rtc_launches"],
         "checkpoint_served_plain": ckpt["plain"]["rtc_launches"]}
-    fwd["launches"] = served + trained[0]
+    fwd["launches"] = served + trained[0] + attn_trainer[0]
     fwd["launches_by_path"] = {"attention_served": served,
                                "attention_trained": trained[0],
-                               "resnet50_trained": 0}
-    for entry, n in ((dkv, trained[1]), (dq, trained[2])):
-        entry["launches"] = n
+                               "resnet50_trained": 0,
+                               "attention_trainer": attn_trainer[0],
+                               "resnet50_trainer": 0}
+    for entry, n, m in ((dkv, trained[1], attn_trainer[1]),
+                        (dq, trained[2], attn_trainer[2])):
+        entry["launches"] = n + m
         entry["launches_by_path"] = {"attention_trained": n,
-                                     "resnet50_trained": 0}
+                                     "resnet50_trained": 0,
+                                     "attention_trainer": m,
+                                     "resnet50_trainer": 0}
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
     for entry in [fwd, dkv, dq] + rtc_list:
         entry["card"] = card_line
     log(json.dumps({"kernels": [fwd, dkv, dq] + rtc_list,
-                    "attention_train_step_ms": attn_step_ms}))
+                    "attention_train_step_ms": attn_step_ms,
+                    "attention_trainer_step_ms": attn_trainer_ms}))
     log("total_seconds", round(time.perf_counter() - t_start, 3))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -24,6 +24,8 @@ from . import ndarray
 from . import ndarray as nd
 from . import autograd
 from . import name
+from . import engine
+from . import util
 from .ndarray import NDArray
 
 _LAZY = {
@@ -40,6 +42,17 @@ _LAZY = {
     "subgraph": ".subgraph",
     "rtc": ".rtc",
     "attribute": ".attribute",
+    "optimizer": ".optimizer",
+    "lr_scheduler": ".lr_scheduler",
+    "metric": ".metric",
+    "callback": ".callback",
+    "kvstore": ".kvstore",
+    "kv": ".kvstore",
+    "gradient_compression": ".gradient_compression",
+    "fused_update": ".fused_update",
+    "telemetry": ".telemetry",
+    "env": ".env",
+    "registry_util": ".registry_util",
 }
 
 

@@ -8,3 +8,5 @@ from . import nn
 from . import utils
 from . import loss
 from . import model_zoo
+from . import trainer
+from .trainer import Trainer

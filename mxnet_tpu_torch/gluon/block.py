@@ -114,6 +114,12 @@ class Block:
                    force_reinit=False):
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
+    def cast(self, dtype):
+        """Cast every parameter to `dtype` (reference block.py:cast; the
+        JAX package's ``Block.cast`` casts BatchNorm's too)."""
+        for p in self.collect_params().values():
+            p.cast(dtype)
+
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
             child.hybridize(active, **kwargs)

@@ -15,6 +15,12 @@ variables, so ``autograd.backward`` writes (or, for ``"add"``,
 accumulates) into ``grad()``. Setting ``grad_req = "null"`` drops the
 buffer. BatchNorm's running statistics are ``"null"`` parameters, and
 their train-mode writes are detached values.
+
+What the Trainer reads, as in the JAX package: ``lr_mult``/``wd_mult``,
+``list_ctx()``/``list_data()``, ``_grad_stype`` (always ``"default"``:
+the port has no sparse NDArray, ROADMAP Queue 1 item 11) and
+``cast(dtype)``, which re-types the data and the gradient buffers (the
+way a net is trained in bfloat16).
 """
 from __future__ import annotations
 
@@ -68,11 +74,21 @@ class Parameter:
     """A weight (reference: gluon/parameter.py:Parameter)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        if stype != "default" or grad_stype != "default":
+            raise NotImplementedError(
+                "sparse parameters (stype=%r, grad_stype=%r) need the "
+                "sparse NDArray, ROADMAP Queue 1 item 11"
+                % (stype, grad_stype))
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self._grad_stype = "default"
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._data = None  # dict ctx -> NDArray
@@ -184,6 +200,27 @@ class Parameter:
             raise RuntimeError("Parameter '%s' was not initialized on "
                                "context %s" % (self.name, ctx))
         return self._data[ctx]
+
+    def list_data(self):
+        self._check_initialized()
+        return list(self._data.values())
+
+    def list_ctx(self):
+        self._check_initialized()
+        return list(self._data)
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
+
+    def cast(self, dtype):
+        """Re-type the data (and, for a trainable parameter, fresh zero
+        gradient buffers) to `dtype` (reference parameter.py:cast)."""
+        self.dtype = dtype
+        if self._data is not None:
+            self._data = {c: d.astype(dtype) for c, d in self._data.items()}
+            if self._grad_req != "null":
+                self._init_grad()
 
     def grad(self, ctx=None):
         if self._grad is None:

@@ -24,6 +24,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import engine as _engine
 from ..base import mx_real_t, numpy_dtype, torch_dtype, dtype_name
 from ..context import Context, current_context
 from ..ops import registry as _reg
@@ -70,6 +71,8 @@ class NDArray:
         self._data = new_data
         self._stream = _producer_stream(new_data)
         self.version += 1
+        if _engine.is_naive():
+            self.wait_to_read()
         return self
 
     @property
@@ -236,6 +239,18 @@ class NDArray:
     def dot(self, other):
         return _invoke("dot", [self, other])
 
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return _invoke("norm", [self], ord=ord, axis=axis, keepdims=keepdims)
+
+    def clip(self, a_min=None, a_max=None):
+        return _invoke("clip", [self], a_min=a_min, a_max=a_max)
+
+    def square(self):
+        return _invoke("square", [self])
+
+    def sqrt(self):
+        return _invoke("sqrt", [self])
+
     # -- arithmetic -----------------------------------------------------------
 
     def __add__(self, other):
@@ -333,6 +348,8 @@ def _wrap_outputs(raw, ctx, out=None, recorded=False):
     wrapped = [NDArray(r, ctx=ctx) for r in outs]
     for w in wrapped:
         w._recorded = recorded
+        if _engine.is_naive():
+            w.wait_to_read()
     return tuple(wrapped) if multi else wrapped[0]
 
 

@@ -64,6 +64,7 @@ _UNARY = {
     "sqrt": torch.sqrt,
     "exp": torch.exp,
     "log": torch.log,
+    "sign": torch.sign,
 }
 for _name, _fn in _UNARY.items():
     register(_name)(_fn)
@@ -72,3 +73,8 @@ for _name, _fn in _UNARY.items():
 @register("cast", aliases=("Cast",))
 def _cast(a, dtype="float32"):
     return a.to(torch_dtype(dtype))
+
+
+@register("clip")
+def _clip(a, a_min=None, a_max=None):
+    return torch.clamp(a, a_min, a_max)

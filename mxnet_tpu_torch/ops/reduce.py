@@ -1,4 +1,4 @@
-"""Reductions (``sum``, ``mean``).
+"""Reductions (``sum``, ``mean``, ``norm``).
 
 Counterpart of the subset of ``mxnet_tpu/ops/reduce.py`` that the served
 models use, with MXNet's ``axis``/``keepdims``/``exclude`` attrs.
@@ -29,3 +29,11 @@ def _reduce(name, fn):
 
 _reduce("sum", lambda a, ax, kd: torch.sum(a, dim=ax, keepdim=kd))
 _reduce("mean", lambda a, ax, kd: torch.mean(a, dim=ax, keepdim=kd))
+
+
+@register("norm")
+def _norm(a, ord=2, axis=None, keepdims=False):
+    ax = _axes(a, axis, False)
+    if ord == 1:
+        return torch.sum(torch.abs(a), dim=ax, keepdim=keepdims)
+    return torch.sqrt(torch.sum(a * a, dim=ax, keepdim=keepdims))

@@ -31,9 +31,19 @@ updates the masters, the optimizer state and the aux state in place,
 under ``torch.no_grad()``. The net's own parameters keep their values
 until :meth:`TrainStep.sync_to_net`, as in the reference.
 
-Not ported in this slice (ROADMAP Queue 1): the optimizer families other
-than ``sgd`` and ``nag`` (item 3), meshes over more than one device
-(item 7), ``state_dict``/checkpointing (item 5), the telemetry hooks
+Every optimizer family of the JAX TrainStep runs here: sgd, nag,
+signum, signsgd, adam, rmsprop (plain and centered), adagrad, adadelta,
+ftrl, ftml, nadam, dcasgd, sgld and lbsgd, over the bodies of
+``ops/optimizer_ops.py`` (the rules of
+``mxnet_tpu/parallel/train_step.py:160-262``, with the same defaults as
+the optimizer classes). Two differ in their arithmetic, not their
+formula: Adam's bias-corrected step size ``lr * sqrt(1 - beta2**t) /
+(1 - beta1**t)`` is computed in Python floats (the JAX package computes
+it in fp32 inside its traced step), and SGLD draws its noise from the
+port's per-device generator (``random.generator``).
+
+Not ported in this slice (ROADMAP Queue 1): meshes over more than one
+device (item 7), ``state_dict``/checkpointing (item 5), the telemetry hooks
 (spans, watchdog lane, health-plane readiness, memstats; item 9), the
 compile cache (item 10) and ``deterministic_reduction``.
 """
@@ -50,10 +60,12 @@ from .mesh import make_mesh, data_sharding
 
 __all__ = ["TrainStep"]
 
-# Families the JAX TrainStep supports beyond sgd/nag.
-_QUEUED_FAMILIES = ("signum", "signsgd", "adam", "rmsprop", "adagrad",
-                    "adadelta", "ftrl", "ftml", "nadam", "dcasgd", "sgld",
-                    "lbsgd")
+
+
+def _as_pair(res):
+    """(new_weight, single_state) -> (new_weight, (single_state,))."""
+    w, s = res
+    return w, (s,)
 
 
 def _as_tensor(a):
@@ -76,9 +88,11 @@ class TrainStep:
     net : initialized gluon Block (deferred shapes are inferred by one
         forward at the first call). TrainStep takes copies of its values.
     loss_fn : callable (pred NDArray, label NDArray) -> per-sample loss.
-    optimizer : ``"sgd"`` (with or without momentum) or ``"nag"``.
-    optimizer_params : dict — learning_rate, momentum, wd, rescale_grad,
-        clip_gradient. The learning rate is a runtime value
+    optimizer : family name: sgd, nag, signum, signsgd, adam, rmsprop,
+        adagrad, adadelta, ftrl, ftml, nadam, dcasgd, sgld or lbsgd.
+    optimizer_params : dict — learning_rate, momentum, wd, beta1, beta2,
+        epsilon, rescale_grad, clip_gradient and the family's own knobs
+        (gamma1, rho, lamda1, ...). The learning rate is a runtime value
         (:meth:`set_learning_rate`).
     mesh : :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` of one device
         (default: ``make_mesh()``, every CUDA device, so one card).
@@ -92,56 +106,247 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.mesh = mesh if mesh is not None else make_mesh()
         opt_params = dict(optimizer_params or {})
+        self._explicit = frozenset(opt_params)
         self.lr = float(opt_params.pop("learning_rate", 0.01))
         self.optimizer = optimizer
         self.momentum = float(opt_params.pop("momentum", 0.0))
+        # Defaults match the optimizer classes, so Trainer and TrainStep
+        # train alike on the same optimizer_params.
         self.wd = float(opt_params.pop("wd", 0.0))
-        # Accepted for every family, as in the reference; sgd/nag read
-        # none of them.
-        for knob in ("beta1", "beta2", "epsilon"):
-            opt_params.pop(knob, None)
+        self.beta1 = float(opt_params.pop("beta1", 0.9))
+        self.beta2 = float(opt_params.pop("beta2", 0.999))
+        self.epsilon = float(opt_params.pop("epsilon", 1e-8)) \
+            if "epsilon" in opt_params else None
         self.rescale_grad = float(opt_params.pop("rescale_grad", 1.0))
         clip = opt_params.pop("clip_gradient", None)
         self.clip_gradient = None if clip is None else float(clip)
-        self._opt_n_states, self._opt_update = self._make_opt_rule(
-            opt_params)
+        # The rest is family-specific (gamma1, rho, lamda1, ...).
+        self._opt_extra = opt_params
+        self._opt_init = None          # custom state init (e.g. DCASGD)
+        self._opt_n_states, self._opt_update = self._make_opt_rule()
         self.num_update = 0
         self._dtype = None if dtype is None else torch_dtype(dtype)
         self._device = self.mesh.device
         self._data_sharding = data_sharding(self.mesh)
         self._materialized = False
 
-    def _make_opt_rule(self, extra):
+    def _make_opt_rule(self):
         """(n_states, update_fn(param, grad, states, lr, t) -> (new_param,
-        new_states)) over the bodies of ops/optimizer_ops.py."""
+        new_states)) over the bodies of ops/optimizer_ops.py: the bodies
+        the Trainer's update ops run."""
         from ..ops import optimizer_ops as oo
+        from .. import random as _random
 
         name = self.optimizer.lower()
         mom, wd, rs = self.momentum, self.wd, self.rescale_grad
         clip = -1.0 if self.clip_gradient is None else self.clip_gradient
-        if name in _QUEUED_FAMILIES:
-            raise NotImplementedError(
-                "TrainStep(%r) is not ported yet: the port's TrainStep "
-                "runs sgd and nag; the other optimizer families come with "
-                "ROADMAP Queue 1 item 3" % name)
-        if name not in ("sgd", "nag"):
-            raise ValueError("TrainStep supports sgd/nag (got %r)"
-                             % self.optimizer)
-        if extra:
-            raise ValueError("TrainStep(%s) got unsupported optimizer_params "
-                             "%s" % (name, sorted(extra)))
-        if mom > 0:
-            body = oo._sgd_mom_update if name == "sgd" else oo._nag_mom_update
+        b1, b2 = self.beta1, self.beta2
+        ex = self._opt_extra
 
-            def update(p, g, s, lr, t):
-                w, m = body(p, g, s[0], lr=lr, momentum=mom, wd=wd,
-                            rescale_grad=rs, clip_gradient=clip)
-                return w, (m,)
+        def eps(default):
+            return self.epsilon if self.epsilon is not None else default
 
-            return 1, update
-        return 0, lambda p, g, s, lr, t: (
-            oo._sgd_update(p, g, lr=lr, wd=wd, rescale_grad=rs,
-                           clip_gradient=clip), ())
+        def check_extra(*allowed):
+            unknown = set(ex) - set(allowed)
+            if unknown:
+                raise ValueError(
+                    "TrainStep(%s) got unsupported optimizer_params %s"
+                    % (name, sorted(unknown)))
+
+        def f32(v):
+            return torch.zeros_like(v, dtype=torch.float32,
+                                    requires_grad=False)
+
+        if name in ("sgd", "nag"):
+            check_extra()
+            if mom > 0:
+                body = oo._sgd_mom_update if name == "sgd" \
+                    else oo._nag_mom_update
+                return 1, lambda p, g, s, lr, t: _as_pair(
+                    body(p, g, s[0], lr=lr, momentum=mom, wd=wd,
+                         rescale_grad=rs, clip_gradient=clip))
+            return 0, lambda p, g, s, lr, t: (
+                oo._sgd_update(p, g, lr=lr, wd=wd, rescale_grad=rs,
+                               clip_gradient=clip), ())
+        if name in ("signum", "signsgd"):
+            check_extra("wd_lh")
+            # Signum defaults to momentum 0.9, SignSGD to 0.0; an
+            # explicit momentum wins for both.
+            if "momentum" in self._explicit:
+                sig_mom = mom
+            else:
+                sig_mom = 0.9 if name == "signum" else 0.0
+            wd_lh = float(ex.get("wd_lh", 0.0))
+            if sig_mom > 0:
+                return 1, lambda p, g, s, lr, t: _as_pair(
+                    oo._signum_update(p, g, s[0], lr=lr, momentum=sig_mom,
+                                      wd=wd, rescale_grad=rs,
+                                      clip_gradient=clip, wd_lh=wd_lh))
+            return 0, lambda p, g, s, lr, t: (
+                oo._signsgd_update(p, g, lr=lr, wd=wd, rescale_grad=rs,
+                                   clip_gradient=clip), ())
+        if name == "adam":
+            check_extra()
+            e = eps(1e-8)
+
+            def adam(p, g, s, lr, t):
+                lr_t = lr * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t)
+                w, m, v = oo._adam_update(
+                    p, g, s[0], s[1], lr=lr_t, beta1=b1, beta2=b2,
+                    epsilon=e, wd=wd, rescale_grad=rs, clip_gradient=clip)
+                return w, (m, v)
+
+            return 2, adam
+        if name == "rmsprop":
+            check_extra("gamma1", "gamma2", "centered", "clip_weights")
+            g1 = float(ex.get("gamma1", 0.9))
+            g2 = float(ex.get("gamma2", 0.9))
+            cw = float(ex.get("clip_weights", -1.0))
+            e = eps(1e-8)
+            if ex.get("centered", False):
+                def rmsc(p, g, s, lr, t):
+                    w, n, gb, d = oo._rmspropalex_update(
+                        p, g, s[0], s[1], s[2], lr=lr, gamma1=g1,
+                        gamma2=g2, epsilon=e, wd=wd, rescale_grad=rs,
+                        clip_gradient=clip, clip_weights=cw)
+                    return w, (n, gb, d)
+
+                return 3, rmsc
+            return 1, lambda p, g, s, lr, t: _as_pair(
+                oo._rmsprop_update(p, g, s[0], lr=lr, gamma1=g1,
+                                   epsilon=e, wd=wd, rescale_grad=rs,
+                                   clip_gradient=clip, clip_weights=cw))
+        if name == "adagrad":
+            check_extra("eps")
+            # AdaGrad spells its knob "eps"; "epsilon" is honored too.
+            e = float(ex.get("eps", eps(1e-7)))
+            return 1, lambda p, g, s, lr, t: _as_pair(
+                oo._adagrad_update(p, g, s[0], lr=lr, epsilon=e, wd=wd,
+                                   rescale_grad=rs, clip_gradient=clip))
+        if name == "adadelta":
+            check_extra("rho")
+            rho = float(ex.get("rho", 0.90))
+            e = eps(1e-5)
+
+            def adad(p, g, s, lr, t):
+                w, ag, ad = oo._adadelta_update(
+                    p, g, s[0], s[1], rho=rho, epsilon=e, wd=wd,
+                    rescale_grad=rs, clip_gradient=clip)
+                return w, (ag, ad)
+
+            return 2, adad
+        if name == "ftrl":
+            check_extra("lamda1", "beta")
+            lam = float(ex.get("lamda1", 0.01))
+            beta = float(ex.get("beta", 1.0))
+
+            def ftrl(p, g, s, lr, t):
+                w, z, n = oo._ftrl_update(
+                    p, g, s[0], s[1], lr=lr, lamda1=lam, beta=beta,
+                    wd=wd, rescale_grad=rs, clip_gradient=clip)
+                return w, (z, n)
+
+            return 2, ftrl
+        if name == "ftml":
+            check_extra()
+            e = eps(1e-8)
+            fb1 = self.beta1 if "beta1" in self._explicit else 0.6
+
+            def ftml(p, g, s, lr, t):
+                w, d, v, z = oo._ftml_update(
+                    p, g, s[0], s[1], s[2], lr=lr, beta1=fb1, beta2=b2,
+                    epsilon=e, wd=wd, rescale_grad=rs, clip_grad=clip,
+                    t=t)
+                return w, (d, v, z)
+
+            return 3, ftml
+        if name == "nadam":
+            check_extra("schedule_decay")
+            e = eps(1e-8)
+            decay = float(ex.get("schedule_decay", 0.004))
+            # The running schedule product is state starting at 1.0.
+            self._opt_init = lambda v: (f32(v), f32(v), f32(v) + 1.0)
+
+            def nadam(p, g, s, lr, t):
+                mean, var, sched = s
+                g = g * rs + wd * p
+                if clip > 0:
+                    g = g.clamp(-clip, clip)
+                mom_t = b1 * (1.0 - 0.5 * 0.96 ** (t * decay))
+                mom_t1 = b1 * (1.0 - 0.5 * 0.96 ** ((t + 1) * decay))
+                m_sched = sched * mom_t
+                m_sched_next = m_sched * mom_t1
+                mean = b1 * mean + (1.0 - b1) * g
+                var = b2 * var + (1.0 - b2) * g * g
+                g_prime = g / (1.0 - m_sched)
+                m_prime = mean / (1.0 - m_sched_next)
+                v_prime = var / (1.0 - b2 ** t)
+                m_bar = (1.0 - mom_t) * g_prime + mom_t1 * m_prime
+                w = p - lr * m_bar / (torch.sqrt(v_prime) + e)
+                return w, (mean, var, m_sched)
+
+            return 3, nadam
+        if name == "dcasgd":
+            check_extra("lamda")
+            lam = float(ex.get("lamda", 0.04))
+            # previous_weight starts AT the weight, as its own buffer.
+            self._opt_init = lambda v: (
+                f32(v), v.detach().to(torch.float32).clone())
+
+            def dcasgd(p, g, s, lr, t):
+                mom_s, prev = s
+                g = g * rs
+                if clip > 0:
+                    g = g.clamp(-clip, clip)
+                delta = -lr * (g + wd * p + lam * g * g * (p - prev))
+                if mom > 0:
+                    mom_s = mom * mom_s + delta
+                    delta = mom_s
+                # A copy: the step then writes p in place.
+                return p + delta, (mom_s, p.to(torch.float32, copy=True))
+
+            return 2, dcasgd
+        if name == "sgld":
+            check_extra()
+            ctx = self.mesh.context
+
+            def sgld(p, g, s, lr, t):
+                g = g * rs
+                if clip > 0:
+                    g = g.clamp(-clip, clip)
+                noise = torch.randn(
+                    p.shape, generator=_random.generator(ctx),
+                    device=p.device, dtype=p.dtype) * lr ** 0.5
+                return p - lr / 2.0 * (g + wd * p) + noise, ()
+
+            return 0, sgld
+        if name == "lbsgd":
+            # LARS-style trust-ratio scaling over SGD (optimizer.LBSGD);
+            # the warmup knobs are accepted and advisory, as there.
+            check_extra("warmup_strategy", "warmup_epochs", "batch_scale",
+                        "updates_per_epoch", "begin_epoch", "num_epochs")
+
+            def lars_lr(p, g, lr):
+                wnorm = torch.linalg.vector_norm(p)
+                gnorm = torch.linalg.vector_norm(g) * rs
+                ratio = torch.clamp(
+                    wnorm / (gnorm + wd * wnorm + 1e-9), max=10.0)
+                return torch.where((wnorm > 0) & (gnorm > 0), lr * ratio,
+                                   torch.full_like(ratio, lr))
+
+            if mom > 0:
+                return 1, lambda p, g, s, lr, t: _as_pair(
+                    oo._sgd_mom_update(p, g, s[0], lr=lars_lr(p, g, lr),
+                                       momentum=mom, wd=wd,
+                                       rescale_grad=rs,
+                                       clip_gradient=clip))
+            return 0, lambda p, g, s, lr, t: (
+                oo._sgd_update(p, g, lr=lars_lr(p, g, lr), wd=wd,
+                               rescale_grad=rs, clip_gradient=clip), ())
+        raise ValueError(
+            "TrainStep supports sgd/nag/signum/signsgd/adam/rmsprop/"
+            "adagrad/adadelta/ftrl/ftml/nadam/dcasgd/sgld/lbsgd (got %r);"
+            " for other optimizers use gluon.Trainer" % self.optimizer)
 
     def _materialize(self, x_example):
         """Collect the parameters (inferring deferred shapes with one
@@ -164,11 +369,13 @@ class TrainStep:
             .requires_grad_(True) for p in self._train_params}
         self._aux_vals = {p.name: p.data()._data.detach().to(dev).clone()
                           for p in self._aux_params}
-        self._opt_state = {
-            n: tuple(torch.zeros_like(v, dtype=torch.float32,
-                                      requires_grad=False)
-                     for _ in range(self._opt_n_states))
-            for n, v in self._param_vals.items()}
+        k = self._opt_n_states
+        init = self._opt_init or (lambda v: tuple(
+            torch.zeros_like(v, dtype=torch.float32, requires_grad=False)
+            for _ in range(k)))
+        with torch.no_grad():
+            self._opt_state = {n: init(v)
+                               for n, v in self._param_vals.items()}
         self._materialized = True
 
     def _loss_and_grads(self, x, y):

@@ -68,7 +68,14 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.ops.flash_attention, "
         "mxnet_tpu_torch.profile_serving, mxnet_tpu_torch.gluon.loss, "
         "mxnet_tpu_torch.parallel, mxnet_tpu_torch.profile_training, "
-        "mxnet_tpu_torch.examples.train_imagenet\n"
+        "mxnet_tpu_torch.examples.train_imagenet, "
+        "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.lr_scheduler, "
+        "mxnet_tpu_torch.metric, mxnet_tpu_torch.callback, "
+        "mxnet_tpu_torch.kvstore, mxnet_tpu_torch.gradient_compression, "
+        "mxnet_tpu_torch.fused_update, mxnet_tpu_torch.engine, "
+        "mxnet_tpu_torch.env, mxnet_tpu_torch.util, "
+        "mxnet_tpu_torch.registry_util, mxnet_tpu_torch.telemetry, "
+        "mxnet_tpu_torch.gluon.trainer\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
@@ -95,6 +102,9 @@ def test_default_context_is_gpu0_and_tpu_aliases_gpu():
     lambda: mx.gluon.nn.Dense(2, in_units=3).initialize(),
     lambda: mx.serving.InferenceServer(lambda x: x, item_shape=(3,),
                                        max_batch=2, start=False),
+    # Optimizer states with no context to follow go to the default one.
+    lambda: mx.optimizer.get_updater(mx.optimizer.create("sgd")).set_states(
+        __import__("pickle").dumps({0: np.ones((2,), np.float32)})),
 ])
 def test_no_ctx_without_cuda_raises(make):
     if torch.cuda.is_available():

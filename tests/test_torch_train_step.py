@@ -413,15 +413,104 @@ def test_loss_is_the_mean_of_the_per_sample_loss():
 
 @pytest.mark.parametrize("family", ["adam", "rmsprop", "sgld"])
 def test_other_optimizer_families_name_the_roadmap(family):
+    """These families raised (ROADMAP Queue 1 item 3) until the port's
+    TrainStep took every family of the JAX TrainStep: each now builds
+    and steps; an unknown family still raises, naming gluon.Trainer."""
     with mx.cpu():
         net = mx.gluon.nn.Dense(2, in_units=3)
         net.initialize(ctx=mx.cpu())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TrainStep(net, mx.gluon.loss.L2Loss(), optimizer=family,
-                  mesh=make_mesh({"dp": 1}, devices=[mx.cpu()]))
-    with pytest.raises(ValueError):
+    step = TrainStep(net, mx.gluon.loss.L2Loss(), optimizer=family,
+                     mesh=make_mesh({"dp": 1}, devices=[mx.cpu()]))
+    loss = step(np.ones((4, 3), np.float32), np.zeros((4, 2), np.float32))
+    assert np.isfinite(float(loss)) and step.num_update == 1
+    with pytest.raises(ValueError, match="gluon.Trainer"):
         TrainStep(net, mx.gluon.loss.L2Loss(), optimizer="nope",
                   mesh=make_mesh({"dp": 1}, devices=[mx.cpu()]))
+
+
+def _dense_bn_dense_nobias(pkg):
+    """No bias before BatchNorm: its gradient is zero in exact arithmetic,
+    and a scale-free family (Adam, AdaGrad, RMSProp, Signum) would step
+    by the sign of each package's rounding noise there."""
+    net = pkg.gluon.nn.HybridSequential()
+    net.add(pkg.gluon.nn.Dense(8, in_units=4, use_bias=False))
+    net.add(pkg.gluon.nn.BatchNorm())
+    net.add(pkg.gluon.nn.Dense(2, in_units=8))
+    return net
+
+
+FAMILIES = {
+    "signum": ("signum", {"learning_rate": 0.01, "wd": 0.01,
+                          "wd_lh": 0.01}),
+    "signsgd": ("signsgd", {"learning_rate": 0.01}),
+    "adam": ("adam", {"learning_rate": 0.01, "wd": 0.001, "beta1": 0.8}),
+    "rmsprop": ("rmsprop", {"learning_rate": 0.01, "gamma1": 0.8}),
+    "rmsprop_centered": ("rmsprop", {"learning_rate": 0.01,
+                                     "centered": True}),
+    "adagrad": ("adagrad", {"learning_rate": 0.05, "eps": 1e-6}),
+    "adadelta": ("adadelta", {"rho": 0.8, "wd": 0.01}),
+    "ftrl": ("ftrl", {"learning_rate": 0.1, "lamda1": 0.001}),
+    "ftml": ("ftml", {"learning_rate": 0.01}),
+    "nadam": ("nadam", {"learning_rate": 0.01, "clip_gradient": 0.5}),
+    "dcasgd": ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9,
+                          "wd": 0.01}),
+    "lbsgd": ("lbsgd", {"learning_rate": 0.1, "momentum": 0.9,
+                        "wd": 0.01}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FAMILIES))
+def test_other_families_three_steps_match_jax(case):
+    """Every family the JAX TrainStep accepts beyond sgd/nag: losses,
+    weights, each optimizer-state tensor and the running stats after
+    three steps (rtol 1e-5, atol 1e-4 of each tensor's largest entry, the
+    Dense-BN-Dense bound above; Adam's lr_t is fp32 arithmetic there and
+    Python floats here)."""
+    optimizer, opt = FAMILIES[case]
+    jnet, net = _pair(_dense_bn_dense_nobias, (8, 4), 0)
+    batches = _batches(np.random.RandomState(1), 3, (8, 4), 2)
+    jstep, tstep, jl, tl = _steps(jnet, net, batches, optimizer, opt)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-6)
+    jp, js, ja = jstep.state_to_host()
+    tp, ts, ta = tstep.state_to_host()
+    for jd, td in ((jp, tp), (ja, ta)):
+        want = _by_relative({n: np.asarray(v) for n, v in jd.items()},
+                            jnet.prefix)
+        got = _by_relative(td, net.prefix)
+        for name in want:
+            np.testing.assert_allclose(
+                got[name], want[name], rtol=1e-5,
+                atol=1e-4 * max(np.abs(want[name]).max(), 1e-6),
+                err_msg=name)
+    want = _by_relative({n: [np.asarray(x) for x in s]
+                         for n, s in js.items()}, jnet.prefix)
+    got = _by_relative(ts, net.prefix)
+    assert sorted(want) == sorted(got)
+    for name in want:
+        assert len(got[name]) == len(want[name]), name
+        for w, g in zip(want[name], got[name]):
+            np.testing.assert_allclose(
+                g, w, rtol=1e-5, atol=1e-4 * max(np.abs(w).max(), 1e-6),
+                err_msg="state " + name)
+
+
+def test_sgld_step_adds_noise_of_the_langevin_scale():
+    """SGLD's noise comes from the port's generator, so its draw is held
+    to its moments: with a zero gradient (L2 loss at the optimum) the
+    step is N(0, lr) noise."""
+    lr = 0.01
+    with mx.cpu():
+        net = mx.gluon.nn.Dense(64, in_units=64, use_bias=False)
+        net.initialize(ctx=mx.cpu())
+    w0 = net.weight.data().asnumpy()
+    step = TrainStep(net, mx.gluon.loss.L2Loss(), optimizer="sgld",
+                     optimizer_params={"learning_rate": lr},
+                     mesh=make_mesh({"dp": 1}, devices=[mx.cpu()]))
+    x = np.zeros((4, 64), np.float32)
+    step(x, np.zeros((4, 64), np.float32))
+    d = step.state_to_host()[0][net.weight.name] - w0
+    assert abs(d.mean()) < 0.01
+    assert abs(d.std() - lr ** 0.5) < 0.01
 
 
 @pytest.mark.parametrize("axes,devices", [
