@@ -86,9 +86,25 @@ phase falls back to the host or to a plain version):
 12. the attention layer of phase 6 trained through ``gluon.Trainer``
    (adam lr 1e-3, ``multi_precision``, bf16 weights) for 10 steps on one
    batch: K1, K2 and K3 launch once per step, the loss falls; step ms.
+13. input pipeline: 512 PNG records of 256x256x3 noise (labels in
+   [0, 1000)) and their .idx written with the port's ``recordio``;
+   ``DataPipeline`` (4 decode threads, prefetch 2, ``place=True``: pinned
+   staging and a side-stream copy to gpu(0)) and ``ImageRecordIter``,
+   center crop to 224 and mean/std normalization, each batch on the card
+   read back before and after a b32 fp32 ResNet-50 ``TrainStep`` on it and
+   held bit for bit against the same source's host pass; the pipeline's
+   img/s at 1, 4 and 8 decode threads (random crop and mirror); one
+   19.27 MB batch's upload, pinned against pageable, beside the PCIe
+   link's bound; ResNet-50 v1 b32 train img/s fed by the pipeline (fp32,
+   bf16) and, bf16, by a 4-worker process-pool ``DataLoader``, beside
+   phase 7's synthetic img/s, with the data-wait share and
+   ``stall_fraction`` of each; the gluon loop (``DataLoader`` with 0 and
+   4 workers and ``pin_memory``, ``gluon.Trainer``) at its own
+   configuration, its loss falling. The native RecordIO reader must be
+   the one that read the records; no kernel of the port launches.
 
-Each path (4, 6, 7, 8, 10, 11, 12) is driven with every launch count set to 0
-just before it and read just after. Then one ``{"kernels": [...]}`` line and,
+Each path (4, 6, 7, 8, 10, 11, 12, 13) is driven with every launch count set
+to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
 ``library_ms`` are CUDA-event medians of 20 single calls after warmup
@@ -1958,6 +1974,348 @@ def phase_attention_trainer(card_line):
     return launches, result["step_ms_median"]
 
 
+# Phase 13: the input pipeline. Records, widths and protocol.
+PIPE_RECORDS = 512
+PIPE_SIDE = 256
+PIPE_BATCH = 32
+PIPE_SHAPE = (3, 224, 224)
+PIPE_MEAN = (123.68, 116.28, 103.53)
+PIPE_STD = (58.395, 57.12, 57.375)
+# PCIe transfer rate per lane (GT/s) and line-code efficiency by gen.
+PCIE_GT_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
+
+
+def _all_launches():
+    """Every launch counter of the port's kernels: K1-K3, K4 (rtc), the
+    fused BN+ReLU and the elementwise rtc kernels."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.examples import fused_bn_relu, rtc_kernels
+
+    return {"k1_k2_k3": _launches(), "rtc": rtc.LAUNCHES,
+            "bn_relu": fused_bn_relu.LAUNCHES,
+            "scale_add": rtc_kernels.LAUNCHES["scale_add"],
+            "relu": rtc_kernels.LAUNCHES["relu"]}
+
+
+def _reset_all_launches():
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.examples import fused_bn_relu, rtc_kernels
+
+    _reset_launches()
+    rtc.LAUNCHES = 0
+    fused_bn_relu.LAUNCHES = 0
+    rtc_kernels.LAUNCHES["scale_add"] = rtc_kernels.LAUNCHES["relu"] = 0
+
+
+def _write_records(tmpdir, n=PIPE_RECORDS, side=PIPE_SIDE, seed=SEED):
+    """n PNG records of side x side x 3 noise, labels in [0, 1000), and
+    their .idx, written with the port's recordio."""
+    import os
+
+    from mxnet_tpu_torch import recordio
+
+    rng = np.random.RandomState(seed)
+    rec = os.path.join(tmpdir, "train.rec")
+    idx = os.path.join(tmpdir, "train.idx")
+    writer = recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(n):
+        img = rng.randint(0, 256, (side, side, 3), dtype=np.uint8)
+        header = recordio.IRHeader(0, float(rng.randint(0, 1000)), i, 0)
+        writer.write_idx(i, recordio.pack_img(header, img, img_fmt=".png"))
+    writer.close()
+    return rec, idx
+
+
+def _pipeline(rec, ctx, place, seed=SEED, threads=4, random_aug=False):
+    from mxnet_tpu_torch import data
+
+    decoder = data.ImageRecordDecoder(
+        PIPE_SHAPE, rand_crop=random_aug, rand_mirror=random_aug,
+        mean=np.array(PIPE_MEAN), std=np.array(PIPE_STD), seed=seed)
+    return data.DataPipeline(rec, decoder, PIPE_BATCH, shuffle=True,
+                             seed=seed, decode_threads=threads, prefetch=2,
+                             place=place, ctx=ctx)
+
+
+def _record_iter(rec, idx, ctx, seed=SEED):
+    import mxnet_tpu_torch as mx
+
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, path_imgidx=idx, data_shape=PIPE_SHAPE,
+        batch_size=PIPE_BATCH, shuffle=True, preprocess_threads=4,
+        mean_r=PIPE_MEAN[0], mean_g=PIPE_MEAN[1], mean_b=PIPE_MEAN[2],
+        std_r=PIPE_STD[0], std_g=PIPE_STD[1], std_b=PIPE_STD[2], ctx=ctx,
+        seed=seed)
+
+
+def _card_equals_host(card_batches, host_batches, step, what):
+    """Each batch delivered on the card, read back before and after a
+    fp32 train step on it, equals the host pass's batch bit for bit."""
+    bad = 0
+    n = 0
+    for got, want in zip(card_batches, host_batches):
+        x, y = got.data[0], got.label[0]
+        check(x.context.device_type == "gpu", "%s delivered on %s"
+              % (what, x.context))
+        before = torch.empty(x.shape, dtype=x.data_.dtype, pin_memory=True)
+        before.copy_(x.data_, non_blocking=True)   # ordered after the copy
+        step(x, y)
+        after = x.data_.cpu()                       # after the step read it
+        want_x = np.asarray(want.data[0])
+        want_y = np.asarray(want.label[0])
+        for arr in (before.numpy(), after.numpy()):
+            bad += int(not np.array_equal(arr.view(np.uint32),
+                                          want_x.view(np.uint32)))
+        bad += int(not np.array_equal(y.asnumpy(), want_y))
+        n += 1
+    return n, bad
+
+
+def _fed_rate(step, batches, warmup=3, windows=3, iters=16):
+    """benchmark_rate's protocol over batches from a data source: warmup
+    steps, then the median img/s of windows of `iters` steps, each
+    closed by a host readback of the loss; and the data-wait share of
+    the windows (time blocked in next() over wall time) beside
+    ``stall_fraction`` of the spans recorded in them."""
+    from mxnet_tpu_torch.data import stall_fraction
+    from mxnet_tpu_torch.telemetry import trace
+
+    it = iter(batches)
+
+    def pull():
+        b = next(it)
+        return (b.data[0], b.label[0]) if hasattr(b, "data") else b
+
+    loss = None
+    for _ in range(warmup):
+        loss = step(*pull())
+    float(loss)
+    trace.clear()
+    rates, waited, wall = [], 0.0, 0.0
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            t1 = time.perf_counter()
+            x, y = pull()
+            waited += time.perf_counter() - t1
+            loss = step(x, y)
+        float(loss)
+        dt = time.perf_counter() - t0
+        wall += dt
+        rates.append(PIPE_BATCH * iters / dt)
+    return {"img_s": sorted(rates)[len(rates) // 2],
+            "data_wait_share": waited / wall,
+            "stall_fraction": stall_fraction(),
+            "loss": float(loss)}
+
+
+class _DecodeSample:
+    """DataLoader worker body: one PNG record to (CHW float32, label)
+    through `augs` (host numpy only)."""
+
+    def __init__(self, augs):
+        self.augs = augs
+
+    def __call__(self, record):
+        from mxnet_tpu_torch import recordio
+        from mxnet_tpu_torch.image import image as img_mod
+
+        header, payload = recordio.unpack(record)
+        img = img_mod._imdecode_np(payload)      # RGB, as the iterators
+        for aug in self.augs:
+            img = aug(img)
+        return (np.ascontiguousarray(np.asarray(img, np.float32)
+                                     .transpose(2, 0, 1)),
+                np.float32(header.label))
+
+
+def _loader_batches(rec, workers, epochs=100):
+    """Batches of a process-pool DataLoader over the raw records, each
+    decoded (random crop and mirror, normalized) in a worker, pinned and
+    copied to gpu(0)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.image import image as img_mod
+
+    augs = img_mod.CreateAugmenter(
+        PIPE_SHAPE, rand_crop=True, rand_mirror=True,
+        mean=np.array(PIPE_MEAN), std=np.array(PIPE_STD))
+    ds = gluon.data.RecordFileDataset(rec).transform(_DecodeSample(augs))
+    loader = gluon.data.DataLoader(ds, PIPE_BATCH, shuffle=True,
+                                   last_batch="discard",
+                                   num_workers=workers, pin_memory=True)
+
+    def gen():
+        for _ in range(epochs):
+            for x, y in loader:
+                yield x, y
+    return loader, gen()
+
+
+def _upload_times():
+    """One 19.27 MB batch (32x3x224x224 fp32) host to card: pinned
+    against pageable, CUDA-event median of 10, beside the link's bound."""
+    x = torch.from_numpy(np.random.RandomState(SEED).rand(
+        PIPE_BATCH, *PIPE_SHAPE).astype(np.float32))
+    pinned = x.pin_memory()
+    dev = torch.empty(x.shape, device="cuda")
+    nbytes = x.numel() * 4
+    out = {"bytes": nbytes}
+    for tag, src in (("pageable_ms", x), ("pinned_ms", pinned),
+                     ("pinned_ms_2", pinned), ("pageable_ms_2", x)):
+        out[tag] = time_ms(lambda: dev.copy_(src, non_blocking=True),
+                           iters=10)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    out["nvidia_smi_pcie"] = smi
+    fields = [v.strip() for v in smi.split(",")]
+    links = [(fields[0], fields[1], "nvidia-smi current"),
+             (fields[2], fields[3], "nvidia-smi max"),
+             # Where the card reports neither: the H100 SXM5 data sheet.
+             ("5", "16", "data sheet (nvidia-smi reads N/A)")]
+    gen, width, source = next((int(g), int(w), src) for g, w, src in links
+                              if g.isdigit() and w.isdigit())
+    rate = PCIE_GT_S[gen] * 1e9 * width * (128 / 130 if gen >= 3 else 0.8) / 8
+    out["link"] = "PCIe gen%d x%d (%s)" % (gen, width, source)
+    out["link_bound_ms"] = nbytes / rate * 1e3
+    out["pinned_share_of_bound"] = out["link_bound_ms"] / min(
+        out["pinned_ms"], out["pinned_ms_2"])
+    return out
+
+
+def phase_input_pipeline(card_line, synthetic):
+    """ResNet-50 v1 at full width trained from a .rec: 512 PNG records
+    of 256x256x3 noise written with the port's recordio; DataPipeline
+    (4 decode threads, prefetch 2, place=True: pinned staging and a
+    side-stream copy to gpu(0)) and ImageRecordIter, each batch on the
+    card held bit for bit against the same source's host pass while a
+    b32 fp32 TrainStep runs on it; the pipeline's img/s at 1, 4 and 8
+    decode threads; one batch's upload pinned against pageable beside
+    the link's bound; ResNet-50 train img/s fed by the pipeline (fp32,
+    bf16) and, bf16, by a process-pool DataLoader, beside phase 7's
+    synthetic img/s, with the data-wait share of each; the gluon loop
+    (DataLoader, pin_memory, gluon.Trainer) at its own configuration.
+    The native RecordIO reader must be the one that ran."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recordio_native
+    from mxnet_tpu_torch.examples import gluon_image_classification as gic
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    check(recordio_native.available(), "the native RecordIO reader did "
+          "not build on this host")
+    result = {"phase": "input_pipeline", "card": card_line,
+              "records": PIPE_RECORDS, "record_shape": [PIPE_SIDE,
+                                                         PIPE_SIDE, 3],
+              "batch": PIPE_BATCH}
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    try:
+        t0 = time.perf_counter()
+        rec, idx = _write_records(tmpdir)
+        result["write_s"] = time.perf_counter() - t0
+        log("phase 13: wrote %d records in %.1f s"
+            % (PIPE_RECORDS, result["write_s"]))
+        result["rec_mb"] = __import__("os").path.getsize(rec) / 1e6
+        _reset_all_launches()   # the main path starts here
+        reads0 = recordio_native.READS
+        gpu, host = mx.gpu(0), mx.cpu()
+        mx.random.seed(SEED)
+        step = train_imagenet.build_train_step("resnet50", device=gpu)
+        # Gate: the card's copy equals the host bytes, under a step.
+        t0 = time.perf_counter()
+        with _pipeline(rec, host, place=False) as pipe:
+            want = [next(pipe) for _ in range(PIPE_RECORDS // PIPE_BATCH)]
+        with _pipeline(rec, gpu, place=True) as pipe:
+            got = (next(pipe) for _ in range(len(want)))
+            n, bad = _card_equals_host(got, want, step, "DataPipeline")
+        check(n == len(want) and bad == 0, "DataPipeline: %d of %d batches "
+              "on the card differ from the host pass" % (bad, n))
+        it_host = _record_iter(rec, idx, host)
+        want = [b for b in it_host]
+        it_host.close()
+        it_card = _record_iter(rec, idx, gpu)
+        n, bad = _card_equals_host(it_card, want, step, "ImageRecordIter")
+        it_card.close()
+        check(n == len(want) == PIPE_RECORDS // PIPE_BATCH and bad == 0,
+              "ImageRecordIter: %d of %d batches on the card differ from "
+              "the host pass" % (bad, n))
+        log("phase 13: gate passed, %.1f s" % (time.perf_counter() - t0))
+        result["gate"] = {"datapipeline_batches": len(want),
+                          "imagerecorditer_batches": n, "mismatches": 0,
+                          "seconds": time.perf_counter() - t0}
+        # The pipeline alone, rand crop + mirror, copy included.
+        result["pipeline_img_s"] = {}
+        for threads in (1, 4, 8):
+            with _pipeline(rec, gpu, True, threads=threads,
+                           random_aug=True) as pipe:
+                next(pipe)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(PIPE_RECORDS // PIPE_BATCH):
+                    batch = next(pipe)
+                batch.data[0].wait_to_read()
+                result["pipeline_img_s"][threads] = \
+                    PIPE_RECORDS / (time.perf_counter() - t0)
+        log("phase 13: pipeline alone", result["pipeline_img_s"])
+        result["upload"] = _upload_times()
+        # ResNet-50 fed by the pipeline (threads) and a DataLoader
+        # (processes), beside phase 7's synthetic rates.
+        fed = {}
+        for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+            mx.random.seed(SEED)
+            s = train_imagenet.build_train_step("resnet50", dtype=dtype,
+                                                device=gpu)
+            with _pipeline(rec, gpu, True, random_aug=True) as pipe:
+                fed[tag] = _fed_rate(s, pipe)
+            fed[tag]["synthetic_img_s"] = synthetic[tag]["img_s_b32"]
+            log("phase 13: fed", tag, fed[tag])
+        mx.random.seed(SEED)
+        s = train_imagenet.build_train_step("resnet50", dtype="bfloat16",
+                                            device=gpu)
+        loader, batches = _loader_batches(rec, workers=4)
+        try:
+            fed["bf16_dataloader_4_workers"] = _fed_rate(s, batches)
+        finally:
+            loader.close()
+        # The DataLoader records no data::wait spans: its wait is the
+        # share measured around next().
+        del fed["bf16_dataloader_4_workers"]["stall_fraction"]
+        fed["bf16_dataloader_4_workers"]["synthetic_img_s"] = \
+            synthetic["bf16"]["img_s_b32"]
+        log("phase 13: fed by the DataLoader",
+            fed["bf16_dataloader_4_workers"])
+        result["train_fed"] = fed
+        result["native_reads"] = recordio_native.READS - reads0
+        check(result["native_reads"] >= 2 * PIPE_RECORDS, "the pipeline "
+              "read %d records through the native reader"
+              % result["native_reads"])
+        # The gluon loop at its own configuration.
+        result["gluon_loop"] = {}
+        for workers in (0, 4):
+            t0 = time.perf_counter()
+            run = gic.run(num_workers=workers, pin_memory=True, ctx=gpu)
+            run["seconds"] = time.perf_counter() - t0
+            losses = [e["loss"] for e in run["epochs"]]
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  "the gluon loop's loss did not fall (workers %d): %s"
+                  % (workers, losses))
+            result["gluon_loop"][workers] = run
+            log("phase 13: gluon loop, %d workers, %.1f s, losses %s"
+                % (workers, run["seconds"], losses))
+        launches = _all_launches()   # read just after the path
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    result["launches"] = launches
+    check(launches["k1_k2_k3"] == (0, 0, 0) and launches["rtc"] == 0,
+          "the input pipeline launched kernels %s" % (launches,))
+    log(json.dumps(result))
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -1968,12 +2326,13 @@ def main():
     served = phase_attention_served()
     phase_resnet_served()
     trained, attn_step_ms = phase_attention_trained()
-    phase_resnet_trained()
+    synthetic = phase_resnet_trained()
     direct, tensors = phase_rtc_direct()
     rtc_entries = phase_rtc_kernels(card, tensors)
     ckpt = phase_checkpoint_served()
     phase_resnet_trainer(card_line)
     attn_trainer, attn_trainer_ms = phase_attention_trainer(card_line)
+    pipeline = phase_input_pipeline(card_line, synthetic)
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -2003,6 +2362,15 @@ def main():
                                      "resnet50_trainer": 0}
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
+    # The input pipeline's path (phase 13) launches none of them.
+    read = pipeline["launches"]
+    for entry, n in zip([fwd, dkv, dq] + rtc_list,
+                        list(read["k1_k2_k3"]) + [read["rtc"],
+                                                  read["bn_relu"],
+                                                  read["scale_add"],
+                                                  read["relu"]]):
+        entry.setdefault("launches_by_path", {})["input_pipeline"] = n
+        entry["launches"] += n
     for entry in [fwd, dkv, dq] + rtc_list:
         entry["card"] = card_line
     log(json.dumps({"kernels": [fwd, dkv, dq] + rtc_list,

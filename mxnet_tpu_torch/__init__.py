@@ -53,6 +53,13 @@ _LAZY = {
     "telemetry": ".telemetry",
     "env": ".env",
     "registry_util": ".registry_util",
+    "recordio": ".recordio",
+    "recordio_native": ".recordio_native",
+    "io": ".io",
+    "image": ".image",
+    "img": ".image",
+    "data": ".data",
+    "log": ".log",
 }
 
 

@@ -41,6 +41,16 @@ CATALOGUE = [
     Knob("MXNET_MP_LOWP_DTYPES", str, "float16,bfloat16", "optimizer.py",
          "low-precision weight dtypes that keep an fp32 master copy "
          "when multi_precision=True", False),
+    Knob("MXNET_WORKER_START_METHOD", str, "fork",
+         "gluon/data/dataloader.py",
+         "DataLoader worker start method: fork | forkserver | spawn",
+         False),
+    Knob("MXNET_DATA_MAX_WORKERS", int, 16, "data/autoscale.py",
+         "decode-pool autoscaling ceiling: DecodeAutoscaler never grows "
+         "a pool past this many workers", False),
+    Knob("MXNET_USE_NATIVE_RECORDIO", int, 1, "recordio.py",
+         "0 forces the pure-python RecordIO path (escape hatch; re-read "
+         "on every read so a mid-run flip takes effect)", False),
     Knob("MXNET_TRACE_SAMPLE", float, 1.0, "telemetry/xtrace.py",
          "head-based trace sampling probability in [0, 1], decided once "
          "per root context", False),

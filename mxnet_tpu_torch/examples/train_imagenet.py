@@ -14,13 +14,25 @@ readback of the loss, and the median over the windows::
     python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1 \\
         --dtype bfloat16
 
-It runs on ``gpu(0)`` unless ``--device cpu`` is given. ResNet-50 v1 is
-the network of this slice; the other names of the reference's factory
-raise until their model-zoo entries are ported.
+``--data-train x.rec`` trains from a RecordIO file instead, as
+``examples/train_imagenet.py:139-165`` does: ``mx.io.ImageRecordIter``
+(random crop and mirror, shuffled through the ``.idx`` beside the file
+when there is one) feeds its batches, copied to the card through pinned
+memory on a side stream, into the same step, for ``--num-epochs``
+epochs of at most ``--max-batches`` batches::
+
+    python -m mxnet_tpu_torch.examples.train_imagenet --data-train x.rec \\
+        --max-batches 50
+
+It runs on ``gpu(0)`` unless ``--device cpu`` is given. The ResNets are
+the networks of the port's model zoo; the other names of the
+reference's factory raise until their model-zoo entries are ported.
 """
 from __future__ import annotations
 
 import argparse
+import logging
+import os
 import sys
 import time
 
@@ -100,9 +112,47 @@ def benchmark_rate(network="resnet50", batch=32, dtype=None, device=None,
     return sorted(rates)[len(rates) // 2]
 
 
+def train_from_rec(step, data_train, batch_size, image_shape, num_epochs=1,
+                   max_batches=0, ctx=None):
+    """Train `step` on the records of `data_train` through
+    ``mx.io.ImageRecordIter``; returns the last loss as a float."""
+    from .. import io as mxio
+
+    idx_path = os.path.splitext(data_train)[0] + ".idx"
+    if not os.path.exists(idx_path):
+        logging.warning("no %s: shuffle is a no-op without the index",
+                        idx_path)
+    it = mxio.ImageRecordIter(
+        path_imgrec=data_train,
+        path_imgidx=idx_path if os.path.exists(idx_path) else None,
+        batch_size=batch_size, data_shape=image_shape, shuffle=True,
+        rand_crop=True, rand_mirror=True, ctx=ctx)
+    loss = None
+    try:
+        for epoch in range(num_epochs):
+            it.reset()
+            t0 = time.perf_counter()
+            n = 0
+            for i, batch in enumerate(it):
+                loss = step(batch.data[0], batch.label[0])
+                n += batch_size
+                if max_batches and i + 1 >= max_batches:
+                    break
+            if loss is None:
+                raise SystemExit("no batches in %s (batch size %d too "
+                                 "large?)" % (data_train, batch_size))
+            logging.info("epoch %d: loss %.4f, %.1f img/s", epoch,
+                         float(loss), n / (time.perf_counter() - t0))
+    finally:
+        it.close()
+    step.sync_to_net()
+    return float(loss)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="train imagenet (synthetic-data benchmark)",
+        description="train imagenet (from a .rec, or the synthetic-data "
+        "benchmark)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--network", default="resnet50", choices=_NETWORKS)
     parser.add_argument("--device", default="gpu", choices=["gpu", "cpu"])
@@ -117,15 +167,30 @@ def main(argv=None):
     parser.add_argument("--benchmark", type=int, default=0,
                         help="1: synthetic data, print img/s (the "
                         "reference's measurement mode)")
+    parser.add_argument("--data-train", default=None,
+                        help=".rec file for real training data")
+    parser.add_argument("--num-epochs", type=int, default=1)
+    parser.add_argument("--max-batches", type=int, default=0,
+                        help="stop an epoch early (0 = full epoch)")
     args = parser.parse_args(argv)
-    if not args.benchmark:
-        raise SystemExit("the port's driver runs --benchmark 1 (reading "
-                         ".rec data is ROADMAP Queue 1 item 4)")
     from ..context import cpu, gpu
 
     device = cpu() if args.device == "cpu" else gpu(0)
     shape = tuple(int(v) for v in args.image_shape.split(","))
     dtype = None if args.dtype == "float32" else args.dtype
+    if not args.benchmark:
+        if not args.data_train:
+            raise SystemExit("provide --data-train <file.rec> or "
+                             "--benchmark 1")
+        logging.basicConfig(level=logging.INFO)
+        step = build_train_step(args.network, args.num_classes, dtype,
+                                device, lr=args.lr, momentum=args.mom,
+                                wd=args.wd)
+        loss = train_from_rec(step, args.data_train, args.batch_size, shape,
+                              args.num_epochs, args.max_batches, ctx=device)
+        print("trained: %s b%d %s on %s: final loss %.4f"
+              % (args.network, args.batch_size, args.dtype, device, loss))
+        return loss
     rate = benchmark_rate(args.network, args.batch_size, dtype,
                           device=device, image_shape=shape,
                           num_classes=args.num_classes, lr=args.lr,

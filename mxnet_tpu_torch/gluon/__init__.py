@@ -10,3 +10,4 @@ from . import loss
 from . import model_zoo
 from . import trainer
 from .trainer import Trainer
+from . import data

@@ -1,0 +1,148 @@
+"""Dataset abstractions.
+
+Reference: python/mxnet/gluon/data/dataset.py (Dataset :37,
+SimpleDataset, ArrayDataset :74, RecordFileDataset :136,
+_LazyTransformDataset).
+
+Counterpart of ``mxnet_tpu/gluon/data/dataset.py``, unchanged: datasets
+are host-side (numpy / python objects); the copy to the card happens
+once per batch at the DataLoader boundary. ``ArrayDataset`` copies
+NDArrays (on the card or not) to host numpy at construction (:81-112),
+so forked DataLoader workers never touch CUDA; ``RecordFileDataset``
+reopens its file after pickling.
+"""
+from __future__ import annotations
+
+import os
+
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
+
+
+class Dataset:
+    """Abstract dataset: __getitem__ + __len__ (reference dataset.py:37)."""
+
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def transform(self, fn, lazy=True):
+        """Return a dataset with `fn` applied to each sample (reference
+        dataset.py:transform)."""
+        trans = _LazyTransformDataset(self, fn)
+        if lazy:
+            return trans
+        return SimpleDataset([trans[i] for i in range(len(trans))])
+
+    def transform_first(self, fn, lazy=True):
+        """Apply `fn` only to the first element of each sample tuple
+        (reference dataset.py:transform_first — label untouched)."""
+        return self.transform(_TransformFirstClosure(fn), lazy)
+
+
+class SimpleDataset(Dataset):
+    """Wrap any indexable (reference dataset.py:SimpleDataset)."""
+
+    def __init__(self, data):
+        self._data = data
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _LazyTransformDataset(Dataset):
+    def __init__(self, data, fn):
+        self._data = data
+        self._fn = fn
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        item = self._data[idx]
+        if isinstance(item, tuple):
+            return self._fn(*item)
+        return self._fn(item)
+
+
+class _TransformFirstClosure:
+    """Picklable transform-first wrapper (workers need to pickle it)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self, x, *args):
+        if args:
+            return (self._fn(x),) + args
+        return self._fn(x)
+
+
+class ArrayDataset(Dataset):
+    """Zip of N indexables (reference dataset.py:74).
+
+    Device-backed NDArrays are snapshot to host numpy at construction:
+    datasets feed fork-based DataLoader workers, which must never call
+    into the device runtime (dataloader.py contract), so the stored form
+    is host memory and placement happens per batch in the consumer.
+    """
+
+    def __init__(self, *args):
+        if not args:
+            raise ValueError("ArrayDataset requires at least one array")
+        self._length = len(args[0])
+        self._data = []
+        for i, data in enumerate(args):
+            if len(data) != self._length:
+                raise ValueError(
+                    "ArrayDataset arrays disagree on length: [0] -> %d, "
+                    "[%d] -> %d" % (self._length, i, len(data)))
+            if isinstance(data, (list, tuple)):
+                data = SimpleDataset(data)
+            elif hasattr(data, "asnumpy"):
+                data = data.asnumpy()
+            self._data.append(data)
+
+    def __getitem__(self, idx):
+        if len(self._data) == 1:
+            return self._data[0][idx]
+        return tuple(d[idx] for d in self._data)
+
+    def __len__(self):
+        return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Each sample is one raw record of a RecordIO file (reference
+    dataset.py:136 — backed by MXIndexedRecordIO; the .idx sidecar maps
+    sample index → file offset)."""
+
+    def __init__(self, filename):
+        from ... import recordio
+
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    # pickling support for worker processes: reopen the file handle
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d["_record"] = None
+        return d
+
+    def __setstate__(self, state):
+        from ... import recordio
+
+        self.__dict__.update(state)
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")

@@ -44,19 +44,30 @@ port's per-device generator (``random.generator``).
 
 Not ported in this slice (ROADMAP Queue 1): meshes over more than one
 device (item 7), ``state_dict``/checkpointing (item 5), the telemetry hooks
-(spans, watchdog lane, health-plane readiness, memstats; item 9), the
+other than the ``train_step::data_put``/``train_step::step`` spans and
+``mx_train_step_seconds``, which the input pipeline's ``stall_fraction``
+and decode autoscaler read (the watchdog lane, health-plane readiness,
+memstats; item 9), the
 compile cache (item 10) and ``deterministic_reduction``.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .. import autograd
+from ..telemetry import metrics as _tm
+from ..telemetry import trace as _trace
 from ..base import torch_dtype
 from ..gluon.parameter import override
 from ..ndarray.ndarray import NDArray
 from .mesh import make_mesh, data_sharding
+
+_step_seconds = _tm.REGISTRY.histogram(
+    "mx_train_step_seconds",
+    "TrainStep.__call__ wall time (host dispatch path)")
 
 __all__ = ["TrainStep"]
 
@@ -416,11 +427,13 @@ class TrainStep:
     def __call__(self, x, y):
         """Run one training step; returns the mean loss as a 0-d fp32
         tensor on the mesh's device (reading it waits for the step)."""
+        t_start = time.perf_counter()
         x, y = _as_tensor(x), _as_tensor(y)
         if not self._materialized:
             self._materialize(x[:1])
-        x = x.to(self._device, non_blocking=True)
-        y = y.to(self._device, non_blocking=True)
+        with _trace.span("train_step::data_put"):
+            x = x.to(self._device, non_blocking=True)
+            y = y.to(self._device, non_blocking=True)
         t = self.num_update + 1
         loss, grads, new_aux = self._loss_and_grads(x, y)
         with torch.no_grad():
@@ -435,6 +448,9 @@ class TrainStep:
                 # Running stats keep their stored (fp32) dtype.
                 self._aux_vals[name].copy_(v)
         self.num_update = t
+        t_end = time.perf_counter()
+        _trace.complete("train_step::step", t_start, t_end, step=t)
+        _step_seconds.observe(t_end - t_start)
         return loss
 
     def set_learning_rate(self, lr):

@@ -18,7 +18,8 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "advance", "get_state", "set_state"]
+__all__ = ["seed", "generator", "advance", "host_seed", "get_state",
+           "set_state"]
 
 _lock = threading.Lock()
 _root_seed = 0
@@ -64,6 +65,18 @@ def advance():
     initializers call it so that successive draws differ)."""
     with _lock:
         _counter[0] += 1
+
+
+def host_seed():
+    """A 32-bit seed for a host-side generator (an iterator's shuffle,
+    an augmenter stream), drawn from the root seed and the host counter,
+    which it advances: successive generators differ, and ``seed(s)``
+    makes them repeat."""
+    with _lock:
+        counter = _counter[0]
+        _counter[0] += 1
+        root = _root_seed
+    return (root * 1000003 + counter * 7919 + 17) & 0xFFFFFFFF
 
 
 def get_state():

@@ -2,7 +2,8 @@
 
 - No file of mxnet_tpu_torch/ (nor chip_smoke.py) imports jax or
   mxnet_tpu, by an AST scan, and importing the port in a fresh process
-  leaves both out of sys.modules.
+  (every module, the input pipeline's and those ``mx.data`` loads
+  lazily included) leaves both out of sys.modules.
 - The default context is gpu(0): without a CUDA device, an entry point
   given no ctx raises instead of computing on the host.
 """
@@ -75,7 +76,20 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.fused_update, mxnet_tpu_torch.engine, "
         "mxnet_tpu_torch.env, mxnet_tpu_torch.util, "
         "mxnet_tpu_torch.registry_util, mxnet_tpu_torch.telemetry, "
-        "mxnet_tpu_torch.gluon.trainer\n"
+        "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.recordio, "
+        "mxnet_tpu_torch.recordio_native, mxnet_tpu_torch.io, "
+        "mxnet_tpu_torch.image, mxnet_tpu_torch.image.png, "
+        "mxnet_tpu_torch.data, mxnet_tpu_torch.data.sharding, "
+        "mxnet_tpu_torch.data.reader, mxnet_tpu_torch.data.decode, "
+        "mxnet_tpu_torch.data.prefetch, mxnet_tpu_torch.data.pipeline, "
+        "mxnet_tpu_torch.data.autoscale, mxnet_tpu_torch.gluon.data, "
+        "mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.log, "
+        "mxnet_tpu_torch.telemetry.watchdog, "
+        "mxnet_tpu_torch.telemetry.healthplane, "
+        "mxnet_tpu_torch.examples.gluon_image_classification\n"
+        "import mxnet_tpu_torch.data as d\n"
+        "d.DataPipeline, d.DecodePool, d.DevicePrefetcher, d.RecordDataset, "
+        "d.DecodeAutoscaler, d.stall_fraction\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad)\n"
