@@ -102,9 +102,37 @@ phase falls back to the host or to a plain version):
    4 workers and ``pin_memory``, ``gluon.Trainer``) at its own
    configuration, its loss falling. The native RecordIO reader must be
    the one that read the records; no kernel of the port launches.
+14. checkpoint: ResNet-50 v1 at full width (b32, SGD lr 0.1, momentum
+   0.9, wd 1e-4, random weights from seed 0) through
+   ``mxnet_tpu_torch.checkpoint``: the bytes of a TrainStep
+   ``state_dict``; fp32 TrainStep img/s (benchmark_rate's windows) with
+   no saves, an async ``CheckpointManager.save`` every step and every 10
+   steps, and no saves again (``keep_last=2`` in a temporary directory,
+   whose free space and filesystem type are printed), with the
+   ``checkpoint::snapshot`` ms, the writer's MB/s, write and commit ms
+   and ``dropped_saves``, beside a pageable copy of the same state; 4
+   TrainStep steps saved each, step 2 restored into a fresh step and 2
+   more steps equal to the 4 uninterrupted steps bit for bit (cuDNN
+   deterministic; the uninterrupted run repeated as a control); the same
+   for a bf16 net with ``multi_precision`` through ``gluon.Trainer``
+   (``checkpoint.state_dict`` of net and trainer; the restored weights
+   are bfloat16; its state's bytes); a SIGTERM sent from inside a step's
+   update loop commits the pre- or post-step state bit for bit; and
+   ``examples.train_resume`` SIGTERMed mid-run in a child process,
+   restarted, with the same final digest as an uninterrupted run.
+15. Module: the same ResNet-50 v1 exported, with
+   ``SoftmaxOutput(name="softmax")``, trained through ``Module.fit`` over
+   an ``NDArrayIter`` of synthetic b32 batches (fp32, TF32 off; the
+   default ``acc`` metric): img/s in benchmark_rate's windows beside
+   phase 11's Trainer, and the peak memory of a batch beside the
+   Trainer's; one step at batch 8 from the same weights through a
+   float64 Module and ``TrainStep(dtype="float64")`` held to
+   PARITY_LIMITS' float64 terms; ``module_checkpoint`` after epoch 1,
+   ``Module.load`` and ``fit(begin_epoch=1)`` equal to the uninterrupted
+   two epochs bit for bit.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13) is driven with every launch count set
-to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15) is driven with every
+launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
 ``library_ms`` are CUDA-event medians of 20 single calls after warmup
@@ -2293,19 +2321,28 @@ def phase_input_pipeline(card_line, synthetic):
         check(result["native_reads"] >= 2 * PIPE_RECORDS, "the pipeline "
               "read %d records through the native reader"
               % result["native_reads"])
-        # The gluon loop at its own configuration.
+        # The gluon loop at its own configuration, with cuDNN's
+        # deterministic algorithms: its loss check reads the mean loss of
+        # five epochs of a seeded run, which nondeterministic
+        # convolutions made differ from run to run (near zero, a spike
+        # in the last epoch read above the first in one run of three).
         result["gluon_loop"] = {}
-        for workers in (0, 4):
-            t0 = time.perf_counter()
-            run = gic.run(num_workers=workers, pin_memory=True, ctx=gpu)
-            run["seconds"] = time.perf_counter() - t0
-            losses = [e["loss"] for e in run["epochs"]]
-            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-                  "the gluon loop's loss did not fall (workers %d): %s"
-                  % (workers, losses))
-            result["gluon_loop"][workers] = run
-            log("phase 13: gluon loop, %d workers, %.1f s, losses %s"
-                % (workers, run["seconds"], losses))
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for workers in (0, 4):
+                t0 = time.perf_counter()
+                run = gic.run(num_workers=workers, pin_memory=True, ctx=gpu)
+                run["seconds"] = time.perf_counter() - t0
+                losses = [e["loss"] for e in run["epochs"]]
+                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      "the gluon loop's loss did not fall (workers %d): %s"
+                      % (workers, losses))
+                result["gluon_loop"][workers] = run
+                log("phase 13: gluon loop, %d workers, %.1f s, losses %s"
+                    % (workers, run["seconds"], losses))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         launches = _all_launches()   # read just after the path
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
@@ -2313,6 +2350,693 @@ def phase_input_pipeline(card_line, synthetic):
     check(launches["k1_k2_k3"] == (0, 0, 0) and launches["rtc"] == 0,
           "the input pipeline launched kernels %s" % (launches,))
     log(json.dumps(result))
+    return result
+
+
+# -- slice 9: checkpoint and the Module API ----------------------------------
+
+CKPT_KEEP_LAST = 2
+CKPT_STEPS = 4          # bit-exact resume: save every step, restore step 2
+CKPT_RESTORE = 2
+SIGTERM_AT_PARAM = 80   # phase 14's in-step SIGTERM: the k-th parameter
+
+
+def _state_bytes(tree):
+    """Bytes of the arrays and bytes leaves of a nested state."""
+    n = 0
+    for v in tree.values():
+        if isinstance(v, dict):
+            n += _state_bytes(v)
+        elif isinstance(v, torch.Tensor):
+            n += v.numel() * v.element_size()
+        elif isinstance(v, (bytes, bytearray)):
+            n += len(v)
+    return n
+
+
+def _fs_info(path):
+    import shutil
+
+    usage = shutil.disk_usage(path)
+    fstype = subprocess.run(["stat", "-f", "-c", "%T", path],
+                            capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+    return {"dir": path, "free_gb": usage.free / 1e9,
+            "total_gb": usage.total / 1e9, "fs_type": fstype}
+
+
+def _spans_ms(events, name):
+    return [e["dur"] / 1e3 for e in events
+            if e.get("ph") == "X" and e.get("name") == name]
+
+
+def _stats(values):
+    if not values:
+        return None
+    v = sorted(values)
+    return {"n": len(v), "median": v[len(v) // 2], "mean": sum(v) / len(v),
+            "min": v[0], "max": v[-1]}
+
+
+def _ckpt_rate(step, x, y, tmpdir, every, warmup=3, windows=5, iters=16):
+    """benchmark_rate's protocol (warmup steps, then the median img/s of
+    `windows` windows of `iters` steps, each closed by a host readback of
+    the loss) with an async ``CheckpointManager.save`` of the step's
+    state every `every` steps (0: none), keep_last=2; then the writer's
+    figures, read from its trace spans and totals after it drained."""
+    import os
+    import shutil
+
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.telemetry import trace
+
+    d = os.path.join(tmpdir, "every-%d-%d" % (every, step.num_update))
+    mgr = CheckpointManager(d, keep_last=CKPT_KEEP_LAST)
+    loss = None
+    for _ in range(warmup):
+        loss = step(x, y)
+    float(loss)
+    trace.clear()
+    rates, save_ms, state_ms = [], [], []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            loss = step(x, y)
+            if every and step.num_update % every == 0:
+                t1 = time.perf_counter()
+                state = step.state_dict()
+                t2 = time.perf_counter()
+                mgr.save(step.num_update, state)
+                del state
+                state_ms.append((t2 - t1) * 1e3)
+                save_ms.append((time.perf_counter() - t2) * 1e3)
+        float(loss)
+        rates.append(x.shape[0] * iters / (time.perf_counter() - t0))
+    t_wait = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t_wait
+    events = trace.chrome_trace()["traceEvents"]
+    out = {"every": every, "img_s_b32": sorted(rates)[len(rates) // 2],
+           "img_s_windows": rates, "loss": float(loss)}
+    if every:
+        commits = mgr.all_steps()
+        out.update({
+            "saves_requested": len(save_ms),
+            "dropped_saves": mgr.dropped_saves,
+            "state_dict_ms": _stats(state_ms),
+            "save_call_ms": _stats(save_ms),
+            "snapshot_span_ms": _stats(_spans_ms(events,
+                                                 "checkpoint::snapshot")),
+            "write_span_ms": _stats(_spans_ms(events, "checkpoint::write")),
+            "commit_span_ms": _stats(_spans_ms(events,
+                                               "checkpoint::commit")),
+            "writer_bytes": mgr.total_bytes,
+            "writer_seconds": mgr.total_save_seconds,
+            "writer_mb_s": mgr.total_bytes / 1e6
+            / max(mgr.total_save_seconds, 1e-9),
+            "drain_after_windows_s": wait_s,
+            "committed_steps": commits,
+            "last_error": repr(mgr.last_error)})
+        check(mgr.last_error is None, "checkpoint writer failed: %r"
+              % (mgr.last_error,))
+        check(commits and commits[-1] == step.num_update,
+              "the newest save (step %d) did not commit: %s"
+              % (step.num_update, commits))
+    mgr.close()
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def _pageable_copy_ms(state, reps=3):
+    """The state's tensors copied to pageable host memory, one .cpu()
+    each (what a snapshot without pinned staging costs)."""
+    flat = []
+
+    def walk(t):
+        for v in t.values():
+            if isinstance(v, dict):
+                walk(v)
+            elif isinstance(v, torch.Tensor):
+                flat.append(v)
+    walk(state)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [v.cpu() for v in flat]
+        times.append((time.perf_counter() - t0) * 1e3)
+        del host
+    return sorted(times)[len(times) // 2]
+
+
+def _equal_trees(a, b, where=""):
+    """Names of the leaves that differ bit for bit between two states."""
+    bad = []
+    for k in set(a) | set(b):
+        u, v = a.get(k), b.get(k)
+        name = where + k
+        if isinstance(u, dict) and isinstance(v, dict):
+            bad += _equal_trees(u, v, name + "/")
+        elif isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor):
+            if u.dtype != v.dtype or u.shape != v.shape or \
+                    not torch.equal(u.cpu(), v.cpu()):
+                bad.append(name)
+        elif u != v:
+            bad.append(name)
+    return bad
+
+
+def _resnet_batches(n, batch=32, seed=SEED, dtype=None):
+    """`n` synthetic ImageNet batches on gpu(0): images uniform in [0, 1),
+    labels in [0, 1000)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.random((batch, 3, 224, 224), dtype=np.float32)
+        y = rng.integers(0, 1000, batch).astype(np.float32)
+        out.append((nd.array(x, ctx=mx.gpu(0), dtype=dtype or "float32"),
+                    nd.array(y, ctx=mx.gpu(0))))
+    return out
+
+
+def _fresh_names():
+    """Restart gluon's per-class block counters, as a new process starts
+    them: a net built next gets the parameter names the first net of a
+    process gets (names are counter based, ROADMAP Queue 3), which a
+    TrainStep state is keyed by."""
+    from mxnet_tpu_torch.gluon.block import _BlockScope
+
+    _BlockScope._counters.clear()
+
+
+def _trainstep_resume(tmpdir, batches):
+    """4 TrainStep steps saving each, step 2 restored into a fresh step
+    (other random weights) and 2 more steps, against 4 uninterrupted
+    steps, bit for bit; and the uninterrupted run repeated (a control of
+    the card's determinism)."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    def build(seed):
+        _fresh_names()
+        mx.random.seed(seed)
+        return train_imagenet.build_train_step("resnet50", device=mx.gpu(0))
+
+    def run(step, items):
+        for x, y in items:
+            step(x, y)
+
+    ref = build(SEED)
+    run(ref, batches)
+    want = ref.state_dict()
+    del ref
+    again = build(SEED)
+    run(again, batches)
+    control = _equal_trees(again.state_dict(), want)
+    del again
+    mgr = CheckpointManager(os.path.join(tmpdir, "trainstep"),
+                            keep_last=CKPT_STEPS)
+    first = build(SEED)
+    for i, (x, y) in enumerate(batches):
+        first(x, y)
+        mgr.save(i + 1, first.state_dict())
+    mgr.wait()
+    del first
+    step, state = mgr.restore(step=CKPT_RESTORE)
+    resumed = build(SEED + 1)
+    resumed(*batches[0])                   # shapes exist; then overwritten
+    resumed.load_state_dict(state)
+    check(resumed.num_update == CKPT_RESTORE, "restored num_update %d"
+          % resumed.num_update)
+    run(resumed, batches[CKPT_RESTORE:])
+    bad = _equal_trees(resumed.state_dict(), want)
+    mgr.close()
+    return {"restored_step": step, "steps": CKPT_STEPS,
+            "mismatches": bad[:8], "n_mismatches": len(bad),
+            "uninterrupted_repeat_mismatches": len(control),
+            "bitexact": not bad}
+
+
+def _trainer_resume(tmpdir, batches):
+    """The same for a bf16 net with multi_precision through gluon.Trainer,
+    checkpointed as state_dict(net) + state_dict(trainer): the restored
+    weights are bfloat16 and the 2 steps after the restore equal the
+    uninterrupted 4 bit for bit."""
+    import os
+
+    from mxnet_tpu_torch import checkpoint, gluon
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+
+    opt = dict(TRAINER_OPT, multi_precision=True)
+
+    def build(seed):
+        net = _resnet50(seed=seed, dtype="bfloat16")
+        return net, gluon.Trainer(net.collect_params(), "sgd", dict(opt))
+
+    def run(net, trainer, items):
+        for x, y in items:
+            _record_and_backward(net, x, y, cast_out=True)
+            trainer.step(x.shape[0])
+
+    def state(net, trainer):
+        return {"net": checkpoint.state_dict(net),
+                "trainer": checkpoint.state_dict(trainer)}
+
+    def tensors(net, trainer):
+        """Weights, and each optimizer state tensor (momentum, fp32
+        master) by index."""
+        return {"w": {k: p.data()._data.clone() for k, p in
+                      net._collect_params_with_prefix().items()},
+                "states": {"%d.%d" % (i, j): t.clone() for i, ts in
+                           _state_tensors(trainer).items()
+                           for j, t in enumerate(ts)}}
+
+    net, tr = build(SEED)
+    run(net, tr, batches)
+    want = tensors(net, tr)
+    del net, tr
+    mgr = CheckpointManager(os.path.join(tmpdir, "trainer"),
+                            keep_last=CKPT_STEPS)
+    net, tr = build(SEED)
+    sizes = None
+    for i, item in enumerate(batches):
+        run(net, tr, [item])
+        st = state(net, tr)
+        sizes = {"net_bytes": _state_bytes(st["net"]),
+                 "trainer_pickle_bytes": len(st["trainer"]["opt_states"])}
+        mgr.save(i + 1, st)
+    mgr.wait()
+    del net, tr
+    step, st = mgr.restore(step=CKPT_RESTORE)
+    net, tr = build(SEED + 1)
+    checkpoint.load_state_dict(net, st["net"])
+    checkpoint.load_state_dict(tr, st["trainer"])
+    dtypes = sorted({str(p.data()._data.dtype)
+                     for p in net.collect_params().values()})
+    check(dtypes == ["torch.bfloat16"], "restored weights are %s" % dtypes)
+    run(net, tr, batches[CKPT_RESTORE:])
+    bad = _equal_trees(tensors(net, tr), want)
+    mgr.close()
+    return dict(sizes, restored_step=step, restored_dtypes=dtypes,
+                mismatches=bad[:8], n_mismatches=len(bad), bitexact=not bad)
+
+
+def _sigterm_in_update(tmpdir, x, y):
+    """One ResNet-50 TrainStep step with a SIGTERM sent from inside its
+    update loop (at parameter SIGTERM_AT_PARAM of 161): the preemption
+    hook's commit equals the pre- or post-step state bit for bit, under
+    that state's step."""
+    import os
+    import signal
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, PreemptionHook
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    mx.random.seed(SEED)
+    step = train_imagenet.build_train_step("resnet50", device=mx.gpu(0))
+    step(x, y)
+    pre = step.state_dict()
+    real = step._opt_update
+    calls = {"n": 0}
+
+    def update(*args):
+        calls["n"] += 1
+        if calls["n"] == SIGTERM_AT_PARAM:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(*args)
+
+    step._opt_update = update
+    mgr = CheckpointManager(os.path.join(tmpdir, "sigterm"))
+    hook = PreemptionHook(mgr, state_fn=step.state_dict,
+                          step_fn=lambda: step.num_update, exit=False,
+                          snapshot_retry_delay=0.05)
+    t0 = time.perf_counter()
+    with hook:
+        step(x, y)
+        deadline = time.monotonic() + 60
+        while hook.saved_step is None and time.monotonic() < deadline:
+            time.sleep(0.02)
+    seconds = time.perf_counter() - t0
+    check(hook.saved_step is not None, "the preemption save never landed")
+    post = step.state_dict()
+    saved, state = mgr.restore()
+
+    def as_tensors(tree):
+        return {k: as_tensors(v) if isinstance(v, dict) else
+                (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+                for k, v in tree.items()}
+
+    got = as_tensors(state)
+    got.pop("rng")
+    whole = []
+    for tag, want in (("pre", pre), ("post", post)):
+        want = {k: v for k, v in want.items() if k != "rng"}
+        if not _equal_trees(got, want) and saved == want["num_update"]:
+            whole.append(tag)
+    check(whole, "the SIGTERM commit (step %d) mixes two steps" % saved)
+    mgr.close()
+    return {"signal_at_parameter": SIGTERM_AT_PARAM,
+            "committed_step": saved, "equals": whole[0],
+            "seconds_to_commit": seconds}
+
+
+def phase_checkpoint(card_line):
+    """Phase 14: fault-tolerant checkpoints of ResNet-50 v1 training at
+    full width (see the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import train_imagenet, train_resume
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    result = {"phase": "checkpoint", "card": card_line, "batch": 32,
+              "optimizer": ["sgd", TRAINER_OPT], "keep_last":
+              CKPT_KEEP_LAST, "fs": _fs_info(tmpdir)}
+    try:
+        _reset_all_launches()   # the main path starts here
+        mx.random.seed(SEED)
+        step = train_imagenet.build_train_step("resnet50", device=mx.gpu(0))
+        (x, y), = _resnet_batches(1)
+        step(x, y)
+        state = step.state_dict()
+        result["trainstep_state_bytes"] = _state_bytes(state)
+        result["pageable_copy_ms"] = _pageable_copy_ms(state)
+        del state
+        # One warning per dropped save would bury the results: the
+        # count is in each reading.
+        import logging
+        logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
+            logging.ERROR)
+        rates = [_ckpt_rate(step, x, y, tmpdir, every)
+                 for every in (0, 1, 10, 0)]
+        logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
+            logging.NOTSET)
+        result["rates"] = rates
+        log("phase 14: img/s no saves %.1f/%.1f, every step %.1f, every 10 "
+            "%.1f" % (rates[0]["img_s_b32"], rates[3]["img_s_b32"],
+                      rates[1]["img_s_b32"], rates[2]["img_s_b32"]))
+        del step
+        torch.cuda.empty_cache()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            batches = _resnet_batches(CKPT_STEPS, seed=SEED + 1)
+            result["trainstep_resume"] = _trainstep_resume(tmpdir, batches)
+            bf16 = [(x.astype("bfloat16"), y) for x, y in batches]
+            result["trainer_bf16_resume"] = _trainer_resume(tmpdir, bf16)
+            del bf16
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+        result["trainer_bf16_state_bytes"] = \
+            result["trainer_bf16_resume"]["net_bytes"] + \
+            result["trainer_bf16_resume"]["trainer_pickle_bytes"]
+        result["sigterm_in_update"] = _sigterm_in_update(tmpdir, x, y)
+        t0 = time.perf_counter()
+        result["train_resume_demo"] = train_resume.main(
+            ["--steps", "24", "--kill-after", "8", "--step-delay", "0.1"])
+        result["train_resume_demo"]["seconds"] = time.perf_counter() - t0
+        launches = _all_launches()   # read just after the path
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    result["launches"] = launches
+    log(json.dumps(result))
+    for key in ("trainstep_resume", "trainer_bf16_resume"):
+        check(result[key]["bitexact"], "%s: the resumed run differs from "
+              "the uninterrupted one at %s" % (key,
+                                               result[key]["mismatches"]))
+    check(result["train_resume_demo"]["bitexact"]
+          and result["train_resume_demo"]["exit_code"] == 143,
+          "train_resume: %s" % result["train_resume_demo"])
+    return result
+
+
+def _module_symbol(net, tmpdir):
+    """The gluon net exported, with SoftmaxOutput(name="softmax") on its
+    logits; and the exported arg/aux params."""
+    import os
+
+    import mxnet_tpu_torch as mx
+
+    prefix = os.path.join(tmpdir, "resnet50_v1")
+    net.export(prefix)
+    sym = mx.sym.SoftmaxOutput(mx.sym.load(prefix + "-symbol.json"),
+                               name="softmax")
+    arg, aux = mx.model.load_params(prefix, 0, ctx=mx.gpu(0))
+    return sym, arg, aux
+
+
+class _FitWindows:
+    """Batch-end callback timing Module.fit with benchmark_rate's
+    protocol: `warmup` batches, then windows of `iters` batches, each
+    closed by a synchronization of the card."""
+
+    def __init__(self, batch, warmup=3, iters=16):
+        self.batch, self.warmup, self.iters = batch, warmup, iters
+        self.rates = []
+        self.t0 = None
+
+    def __call__(self, param):
+        done = param.nbatch + 1
+        if done < self.warmup or (done > self.warmup and
+                                  (done - self.warmup) % self.iters):
+            return
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if done > self.warmup:
+            self.rates.append(self.batch * self.iters / (now - self.t0))
+        self.t0 = now
+
+
+def _peak_mb(fn):
+    """(peak MB above the allocation before `fn`, absolute peak MB)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return (peak - base) / 1e6, peak / 1e6
+
+
+def _module_f64_parity(w0_net, tmpdir):
+    """One SGD step at PARITY_BATCH in float64 from the same weights
+    through Module (float64 arrays) and TrainStep(dtype="float64", fp32
+    masters) on the card: loss-free comparison of weights, momentum and
+    running stats with PARITY_LIMITS' float64 terms."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.parallel import TrainStep, make_mesh
+
+    lim = PARITY_LIMITS
+    rng = np.random.default_rng(SEED + 7)
+    xs = rng.random((PARITY_BATCH, 3, 224, 224), dtype=np.float32)
+    ys = rng.integers(0, 1000, PARITY_BATCH).astype(np.float32)
+    sym, arg, aux = _module_symbol(w0_net, tmpdir)
+    w0 = {n: v.asnumpy().astype(np.float64) for n, v in arg.items()}
+    ts = TrainStep(w0_net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                   dict(TRAINER_OPT),
+                   mesh=make_mesh({"dp": 1}, devices=[mx.gpu(0)]),
+                   dtype="float64")
+    ts(xs, ys)
+    params, states, t_aux = ts.state_to_host()
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[DataDesc("data", xs.shape, np.float64)],
+             label_shapes=[DataDesc("softmax_label", ys.shape)])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAINER_OPT))
+    mod.forward(DataBatch(data=[mx.nd.array(xs, ctx=mx.gpu(0),
+                                            dtype="float64")],
+                          label=[mx.nd.array(ys, ctx=mx.gpu(0))]),
+                is_train=True)
+    mod.backward()
+    mod.update()
+    m_arg, m_aux = mod.get_params()
+    m_w = {n: v.asnumpy() for n, v in m_arg.items()}
+    m_mom = {mod._param_names[i]: s.asnumpy()
+             for i, s in mod._updater.states.items()}
+    m_aux = {n: v.asnumpy() for n, v in m_aux.items()}
+    check(all(v.dtype == np.float64 for v in m_w.values()),
+          "the float64 Module holds %s weights"
+          % {str(v.dtype) for v in m_w.values()})
+    mom = _rel_max({n: s[0] for n, s in states.items()}, m_mom)
+    auxe = _rel_max(t_aux, m_aux)
+    weight_excess = max(
+        float((np.abs(params[n] - w) - lim["f64_weight_rtol"]
+               * np.abs(w)).max())
+        / max(float(np.abs(w - w0[n]).max()), 1e-30)
+        for n, w in m_w.items())
+    reading = {"batch": PARITY_BATCH, "params": len(m_w),
+               "momentum_rel_max": max(mom.values()),
+               "aux_rel_max": max(auxe.values()),
+               "weight_excess_over_step": weight_excess,
+               "limits": {k: lim[k] for k in ("f64_momentum", "f64_aux",
+                                              "f64_weight_rtol",
+                                              "f64_weight_step")}}
+    reading["within"] = (reading["momentum_rel_max"] <= lim["f64_momentum"]
+                         and reading["aux_rel_max"] <= lim["f64_aux"]
+                         and weight_excess <= lim["f64_weight_step"])
+    return reading
+
+
+def _module_resume(sym_arg_aux, batches, tmpdir):
+    """Module.fit for 2 epochs of 2 b32 batches, against 1 epoch,
+    save_checkpoint(save_optimizer_states=True) (module_checkpoint),
+    Module.load and fit(begin_epoch=1): params and aux bit for bit."""
+    import os
+
+    import mxnet_tpu_torch as mx
+
+    sym, arg, aux = sym_arg_aux
+    gpu = mx.gpu(0)
+    x = np.concatenate([b[0] for b in batches])
+    y = np.concatenate([b[1] for b in batches])
+
+    def it():
+        return mx.io.NDArrayIter(x, y, batch_size=32, ctx=gpu)
+
+    def fit(mod, begin, end, **kw):
+        mod.fit(it(), begin_epoch=begin, num_epoch=end, optimizer="sgd",
+                optimizer_params=dict(TRAINER_OPT), **kw)
+
+    def params(mod):
+        a, x_ = mod.get_params()
+        return {"arg": {k: v._data.clone() for k, v in a.items()},
+                "aux": {k: v._data.clone() for k, v in x_.items()}}
+
+    ref = mx.mod.Module(sym, context=gpu)
+    fit(ref, 0, 2, arg_params=arg, aux_params=aux)
+    want = params(ref)
+    del ref
+    prefix = os.path.join(tmpdir, "module_resume")
+    first = mx.mod.Module(sym, context=gpu)
+    fit(first, 0, 1, arg_params=arg, aux_params=aux,
+        epoch_end_callback=mx.callback.module_checkpoint(
+            first, prefix, save_optimizer_states=True))
+    del first
+    resumed = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                 context=gpu)
+    fit(resumed, 1, 2)
+    bad = _equal_trees(params(resumed), want)
+    return {"epochs": 2, "batches_per_epoch": len(batches),
+            "mismatches": bad[:8], "n_mismatches": len(bad),
+            "states_bytes": os.path.getsize(prefix + "-0001.states"),
+            "bitexact": not bad}
+
+
+def phase_module(card_line, trainer_img_s):
+    """Phase 15: ResNet-50 v1 at full width through Module.fit (see the
+    module docstring)."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_module_")
+    warmup, windows, iters = 3, 5, 16
+    result = {"phase": "module", "card": card_line, "batch": 32,
+              "optimizer": ["sgd", TRAINER_OPT], "windows": windows,
+              "iters_per_window": iters, "eval_metric": "acc"}
+    try:
+        _reset_all_launches()   # the main path starts here
+        net = _resnet50(seed=SEED)
+        sym, arg, aux = _module_symbol(net, tmpdir)
+        rng = np.random.default_rng(SEED)
+        distinct = 8
+        xs = rng.random((distinct * 32, 3, 224, 224), dtype=np.float32)
+        ys = rng.integers(0, 1000, distinct * 32).astype(np.float32)
+        n_batches = warmup + windows * iters
+        reps = -(-n_batches // distinct)
+        xs_all = np.tile(xs, (reps, 1, 1, 1))[:n_batches * 32]
+        ys_all = np.tile(ys, reps)[:n_batches * 32]
+        timer = _FitWindows(32, warmup, iters)
+        # Bound and initialized first, so the peak below counts what a
+        # batch adds, as the Trainer's does (its net exists before).
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        mod.bind(data_shapes=[("data", (32, 3, 224, 224))],
+                 label_shapes=[("softmax_label", (32,))])
+        mod.init_params(arg_params=arg, aux_params=aux)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(TRAINER_OPT))
+
+        def fit():
+            mod.fit(mx.io.NDArrayIter(xs_all, ys_all, batch_size=32,
+                                      ctx=mx.gpu(0)),
+                    num_epoch=1, batch_end_callback=timer)
+
+        t0 = time.perf_counter()
+        peak = _peak_mb(fit)
+        check(len(timer.rates) == windows, "timed %d windows"
+              % len(timer.rates))
+        result["module_fit"] = {
+            "img_s_b32": sorted(timer.rates)[len(timer.rates) // 2],
+            "img_s_windows": timer.rates, "seconds": time.perf_counter()
+            - t0, "peak_mb_above_base": peak[0], "peak_mb": peak[1],
+            "fused_plans": mod._fused_applier.num_compiles}
+        check(mod._fused_applier.num_compiles >= 1, "Module.update did not "
+              "take the fused path")
+        del mod, xs_all, ys_all
+        trainer_net = _resnet50(seed=SEED)
+        trainer = gluon.Trainer(trainer_net.collect_params(), "sgd",
+                                dict(TRAINER_OPT))
+        x = mx.nd.array(xs[:32], ctx=mx.gpu(0))
+        y = mx.nd.array(ys[:32], ctx=mx.gpu(0))
+
+        def trainer_steps():
+            for _ in range(3):
+                _record_and_backward(trainer_net, x, y)
+                trainer.step(32)
+
+        peak = _peak_mb(trainer_steps)
+        result["trainer_peak_mb_above_base"] = peak[0]
+        result["trainer_peak_mb"] = peak[1]
+        result["trainer_img_s_b32_phase11"] = trainer_img_s
+        del trainer_net, trainer
+        torch.cuda.empty_cache()
+        log("phase 15: Module.fit %.1f img/s (Trainer %.1f in phase 11), "
+            "peak %.0f MB above base (Trainer %.0f)"
+            % (result["module_fit"]["img_s_b32"], trainer_img_s,
+               result["module_fit"]["peak_mb_above_base"],
+               result["trainer_peak_mb_above_base"]))
+        result["f64_parity"] = _module_f64_parity(net, tmpdir)
+        torch.cuda.empty_cache()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            batches = [(xs[i * 32:(i + 1) * 32], ys[i * 32:(i + 1) * 32])
+                       for i in range(2)]
+            result["resume"] = _module_resume((sym, arg, aux), batches,
+                                              tmpdir)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        launches = _all_launches()   # read just after the path
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    result["launches"] = launches
+    log(json.dumps(result))
+    check(result["f64_parity"]["within"], "Module vs TrainStep float64 step: "
+          "%s" % result["f64_parity"])
+    check(result["resume"]["bitexact"], "Module resume differs at %s"
+          % result["resume"]["mismatches"])
     return result
 
 
@@ -2330,9 +3054,11 @@ def main():
     direct, tensors = phase_rtc_direct()
     rtc_entries = phase_rtc_kernels(card, tensors)
     ckpt = phase_checkpoint_served()
-    phase_resnet_trainer(card_line)
+    trainer = phase_resnet_trainer(card_line)
     attn_trainer, attn_trainer_ms = phase_attention_trainer(card_line)
     pipeline = phase_input_pipeline(card_line, synthetic)
+    ckpt_path = phase_checkpoint(card_line)
+    module = phase_module(card_line, trainer["fp32"]["img_s_b32"])
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -2362,15 +3088,18 @@ def main():
                                      "resnet50_trainer": 0}
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
-    # The input pipeline's path (phase 13) launches none of them.
-    read = pipeline["launches"]
-    for entry, n in zip([fwd, dkv, dq] + rtc_list,
-                        list(read["k1_k2_k3"]) + [read["rtc"],
-                                                  read["bn_relu"],
-                                                  read["scale_add"],
-                                                  read["relu"]]):
-        entry.setdefault("launches_by_path", {})["input_pipeline"] = n
-        entry["launches"] += n
+    # The input pipeline's (phase 13), the checkpoint's (14) and the
+    # Module's (15) paths launch none of them.
+    for path, read in (("input_pipeline", pipeline["launches"]),
+                       ("checkpoint", ckpt_path["launches"]),
+                       ("module", module["launches"])):
+        for entry, n in zip([fwd, dkv, dq] + rtc_list,
+                            list(read["k1_k2_k3"]) + [read["rtc"],
+                                                      read["bn_relu"],
+                                                      read["scale_add"],
+                                                      read["relu"]]):
+            entry.setdefault("launches_by_path", {})[path] = n
+            entry["launches"] += n
     for entry in [fwd, dkv, dq] + rtc_list:
         entry["card"] = card_line
     log(json.dumps({"kernels": [fwd, dkv, dq] + rtc_list,

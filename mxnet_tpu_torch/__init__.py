@@ -60,6 +60,10 @@ _LAZY = {
     "img": ".image",
     "data": ".data",
     "log": ".log",
+    "profiler": ".profiler",
+    "checkpoint": ".checkpoint",
+    "module": ".module",
+    "mod": ".module",
 }
 
 

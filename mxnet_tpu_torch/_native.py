@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 
+from .base import atomic_write
+
 __all__ = ["SOURCES", "build", "load", "build_log"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -74,7 +76,7 @@ def build(names=SOURCES):
         failed = []
         for name, (proc, tmp) in procs.items():
             log, _ = proc.communicate()
-            with open(targets[name][:-3] + ".log", "w") as f:
+            with atomic_write(targets[name][:-3] + ".log", "w") as f:
                 f.write(log)
             if proc.returncode != 0:
                 failed.append("%s:\n%s" % (name, log))

@@ -3,12 +3,11 @@ do_checkpoint, ProgressBar, LogValidationMetricsCallback; invoked by
 module/base_module.py:fit per batch / per epoch).
 
 Counterpart of ``mxnet_tpu/callback.py``. ``do_checkpoint`` writes
-through the port's ``model.save_checkpoint``; ``TelemetryCallback``
-records into the port's ``telemetry.REGISTRY`` and drives any
-``monitor``/ticker object it is given. ``module_checkpoint`` raises:
-``Module`` is ROADMAP Queue 1 item 6. A ``manager=``
-(``checkpoint.CheckpointManager``) raises: the checkpoint package is
-ROADMAP Queue 1 item 5.
+through the port's ``model.save_checkpoint`` or, with ``manager=``, a
+``checkpoint.CheckpointManager``; ``module_checkpoint`` saves a
+``Module`` either way. ``TelemetryCallback`` records into the port's
+``telemetry.REGISTRY`` and drives any ``monitor``/ticker object it is
+given.
 """
 from __future__ import annotations
 
@@ -24,19 +23,28 @@ __all__ = ["Speedometer", "ProgressBar", "TelemetryCallback",
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False,
                       manager=None):
     """Epoch-end callback checkpointing a module (reference
-    callback.py:module_checkpoint). ``Module`` is not ported yet, so
-    this raises."""
-    raise NotImplementedError(
-        "callback.module_checkpoint needs Module, which the port does not "
-        "have yet (ROADMAP Queue 1 item 6); use do_checkpoint or "
-        "gluon.Trainer.save_states")
+    callback.py:module_checkpoint).
 
+    With ``manager`` (a ``checkpoint.CheckpointManager``), saves go
+    through the fault-tolerant async path instead of blocking file
+    writes: params (+ optimizer states when requested) are copied at the
+    epoch boundary and committed atomically off the critical path;
+    `prefix` is unused. Restore with ``manager.restore()`` +
+    ``checkpoint.load_state_dict(mod, state)``."""
+    period = int(max(1, period))
 
-def _no_manager(manager):
-    if manager is not None:
-        raise NotImplementedError(
-            "checkpoint.CheckpointManager is not ported yet (ROADMAP "
-            "Queue 1 item 5); call do_checkpoint without manager=")
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period != 0:
+            return
+        if manager is not None:
+            from .checkpoint import module_state
+
+            manager.save(iter_no + 1, module_state(
+                mod, include_optimizer=save_optimizer_states))
+        else:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+
+    return _callback
 
 
 def do_checkpoint(prefix, period=1, manager=None):
@@ -44,9 +52,9 @@ def do_checkpoint(prefix, period=1, manager=None):
     `prefix-%04d.params` (reference callback.py:do_checkpoint →
     model.save_checkpoint).
 
-    ``manager`` (a ``checkpoint.CheckpointManager`` in the JAX package)
-    raises: ROADMAP Queue 1 item 5."""
-    _no_manager(manager)
+    With ``manager`` (a ``checkpoint.CheckpointManager``), the symbol
+    JSON + arg/aux params are committed atomically by the async manager
+    instead of written inline; `prefix` is unused."""
     period = int(max(1, period))
 
     def _callback(iter_no, sym, arg, aux):
@@ -54,7 +62,12 @@ def do_checkpoint(prefix, period=1, manager=None):
 
         if (iter_no + 1) % period != 0:
             return
-        save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+        if manager is not None:
+            manager.save(iter_no + 1, {
+                "symbol": sym.tojson() if sym is not None else "",
+                "arg": dict(arg or {}), "aux": dict(aux or {})})
+        else:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
 
     return _callback
 

@@ -8,9 +8,10 @@ node by node, on torch tensors: there is no jit and no compile cache.
 The backward is torch.autograd over the recorded forward: a
 ``forward(is_train=True)`` with gradients requested records the graph
 from leaves of the arguments that want a gradient, and ``backward``
-differentiates it. After an eval-mode forward, ``backward`` records a
-train-mode forward first, as the JAX package's vjp re-runs the forward
-in train mode.
+differentiates it, freeing the saved activations as it goes. After an
+eval-mode forward, or a second ``backward`` of one forward, ``backward``
+records a train-mode forward first, as the JAX package's vjp re-runs the
+forward in train mode.
 
 ``forward`` writes fed values into the bound argument arrays in place;
 BatchNorm's train-mode moving statistics go to the aux arrays.
@@ -181,6 +182,10 @@ class Executor:
                 raise MXNetError("unknown argument %r" % name)
             self.arg_arrays[self.arg_names.index(name)][:] = val
         record = bool(is_train) and bool(self._grad_names())
+        # Drop the previous forward's graph first: kept, it would hold a
+        # second set of activations through this forward (Module.fit
+        # calls forward/backward on one executor every batch).
+        self._recorded = None
         outs, aux_writes, leaves = self._run(is_train, record)
         for n, arr in zip(self.aux_names, self.aux_arrays):
             new = aux_writes.get(n)
@@ -205,12 +210,17 @@ class Executor:
         if not grad_names:
             return
         if self._recorded is None:
-            # The last forward ran in eval mode (or recorded nothing):
-            # record a train-mode forward; its aux writes are dropped, as
-            # the JAX package's vjp drops them.
+            # The last forward ran in eval mode, recorded nothing, or its
+            # graph was spent by an earlier backward: record a train-mode
+            # forward; its aux writes are dropped, as the JAX package's
+            # vjp drops them.
             outs, _, leaves = self._run(True, True)
         else:
             leaves, outs = self._recorded
+            # The graph is spent here: backward frees its saved
+            # activations as it goes, as loss.backward() does, instead
+            # of holding them all to its end.
+            self._recorded = None
         if out_grads is None:
             heads = [torch.ones_like(o) for o in outs]
         else:
@@ -227,7 +237,7 @@ class Executor:
             got = torch.autograd.grad([o for o, _ in pairs],
                                       [leaves[n] for n in names],
                                       [h for _, h in pairs],
-                                      retain_graph=True, allow_unused=True)
+                                      allow_unused=True)
         grads = dict(zip(names, got))
         for i, n in enumerate(self.arg_names):
             req = self.grad_req.get(n, "null")
@@ -332,9 +342,12 @@ def _topo(out_syms):
 def _compile(out_syms, training):
     """The DAG as a flat plan, built once per executor and mode: values
     live in numbered slots; each step is (fn, input slots, attrs, output
-    slots, aux names, fragment), run by :func:`_execute`. Train-aware
-    ops get ``training`` in their attrs, as the JAX package injects the
-    current mode (executor.py:204-205 there)."""
+    slots, aux names, fragment, slots to free), run by :func:`_execute`.
+    A value's slot is freed after its last consumer (or at once, when it
+    has none and is not an output), so a forward holds no more than the
+    values still to be read and what autograd saved for the backward.
+    Train-aware ops get ``training`` in their attrs, as the JAX package
+    injects the current mode (executor.py:204-205 there)."""
     slots = {}
 
     def slot(node, index):
@@ -361,6 +374,15 @@ def _compile(out_syms, training):
                     if i._op is None and i._is_aux)
         steps.append((op.fn, ins, attrs, outs, aux, None))
     heads = [slot(s, s._out_index) for s in out_syms]
+    last = {}
+    for k, step in enumerate(steps):
+        for i in list(step[1]) + list(step[3]):
+            last[i] = k
+    frees = [[] for _ in steps]
+    for i, k in last.items():
+        if i not in heads:
+            frees[k].append(i)
+    steps = [step + (tuple(free),) for step, free in zip(steps, frees)]
     return variables, steps, heads, len(slots)
 
 
@@ -386,7 +408,7 @@ def _execute(plan, env):
         vals[s] = env[name]
     aux_writes = {}
     ops = 0
-    for fn, ins, attrs, outs, aux, fragment in steps:
+    for fn, ins, attrs, outs, aux, fragment, free in steps:
         raw = fn(*[vals[i] for i in ins], **attrs)
         if fragment is not None:
             got = raw if isinstance(raw, (list, tuple)) else [raw]
@@ -407,5 +429,7 @@ def _execute(plan, env):
             got = (raw,)
         for s, v in zip(outs, got):
             vals[s] = v
+        for s in free:
+            vals[s] = None
     _registry.DISPATCHES[0] += ops
     return [vals[s] for s in heads], aux_writes

@@ -120,6 +120,61 @@ class Block:
         for p in self.collect_params().values():
             p.cast(dtype)
 
+    def _collect_params_with_prefix(self, prefix=""):
+        """{attribute path: Parameter}, e.g. ``"0.weight"``: the names
+        of ``save_parameters`` files, portable across prefixes."""
+        ret = {}
+        for name, p in self._reg_params.items():
+            ret[prefix + name] = p
+        for cname, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + cname + "."))
+        return ret
+
+    def save_parameters(self, filename):
+        """Structured param file (reference: block.py:save_parameters —
+        flat attribute-path names). The JAX package's bytes for the same
+        weights: bfloat16 is written as float32, as ``nd.save`` does."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {name: p.data() for name, p in params.items()
+                           if p._data is not None})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False):
+        """Load a :meth:`save_parameters` file of either package.
+        ``cast_dtype`` casts each loaded array to its parameter's dtype
+        (a bfloat16 net loads the float32 words of a file); without it
+        the loaded dtype is installed, as in the JAX package."""
+        from ..context import cpu
+
+        loaded = nd.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not isinstance(loaded, dict):
+            raise ValueError("%s is not a parameter file" % filename)
+        for name, p in params.items():
+            if name in loaded:
+                value = loaded[name]
+                if p.shape is None or p._data is None:
+                    p.shape = value.shape
+                    p.initialize(ctx=ctx)
+                if cast_dtype:
+                    value = value.astype(p.data()._data.dtype)
+                p.set_data(value)
+            elif not allow_missing:
+                raise ValueError("Parameter %s missing in %s"
+                                 % (name, filename))
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise ValueError("Extra parameters in %s: %s"
+                                 % (filename, extra))
+
+    # legacy aliases (the reference keeps both save_params/save_parameters)
+    def save_params(self, filename):
+        self.save_parameters(filename)
+
+    def load_params(self, filename, ctx=None, **kwargs):
+        self.load_parameters(filename, ctx=ctx, **kwargs)
+
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
             child.hybridize(active, **kwargs)

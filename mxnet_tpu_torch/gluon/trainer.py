@@ -37,6 +37,7 @@ import torch
 
 from .. import env as _env
 from .. import optimizer as opt
+from ..checkpoint import guard as _guard
 from ..ops import optimizer_ops as _oo
 from ..telemetry import metrics as _tm
 from ..telemetry import trace as _trace
@@ -226,8 +227,10 @@ class Trainer:
             # Exactly 1.0 below the limit: an exact multiply.
             scale = min(1.0,
                         self._global_norm_clip / (math.sqrt(total) + 1e-8))
+        # The update writes weights and states in place, one chunk or
+        # parameter at a time: no snapshot may see it half done.
         with _trace.span("trainer::update", fused=self._fused,
-                         params=len(work)):
+                         params=len(work)), _guard.updating():
             if self._fused and work:
                 pending = self._applier.apply(work, grad_scale=scale)
             else:
@@ -254,7 +257,13 @@ class Trainer:
         imported). Each state lands on its parameter's context, in the
         dtype the optimizer gives it there."""
         with open(fname, "rb") as f:
-            payload = f.read()
+            self._set_states(f.read())
+
+    def _set_states(self, payload):
+        """Install an updater-state pickle of either package (also what
+        ``checkpoint.load_trainer_state`` restores). The FusedApplier
+        sees the replaced state entries and re-flattens its chunks from
+        them at the next step."""
         states = self._updater.states
         for i, p in enumerate(self._params):
             if p._grad_req != "null" and p._data is not None and \

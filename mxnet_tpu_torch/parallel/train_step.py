@@ -42,8 +42,20 @@ formula: Adam's bias-corrected step size ``lr * sqrt(1 - beta2**t) /
 it in fp32 inside its traced step), and SGLD draws its noise from the
 port's per-device generator (``random.generator``).
 
+Checkpointing (``state_dict``/``load_state_dict`` for
+``mxnet_tpu_torch.checkpoint``, ``save_checkpoint``/``load_checkpoint``
+in the ``.params`` wire format) keeps the JAX package's keys. The
+update loop writes the masters and states in place, one tensor at a
+time, so it runs inside ``checkpoint.guard.updating()`` with the step
+counter's bump: a snapshot raises there instead of mixing two steps.
+The RNG entry holds the port's own position (root seed, host counter
+and every device generator's state, ``random.get_state``); the JAX
+package's counter means nothing to a ``torch.Generator``, so a state of
+the other package restores everything but its RNG entry, which is
+ignored with a warning.
+
 Not ported in this slice (ROADMAP Queue 1): meshes over more than one
-device (item 7), ``state_dict``/checkpointing (item 5), the telemetry hooks
+device (item 7), sharded ``state_dict`` saves (item 7), the telemetry hooks
 other than the ``train_step::data_put``/``train_step::step`` spans and
 ``mx_train_step_seconds``, which the input pipeline's ``stall_fraction``
 and decode autoscaler read (the watchdog lane, health-plane readiness,
@@ -52,12 +64,15 @@ compile cache (item 10) and ``deterministic_reduction``.
 """
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
 import torch
 
 from .. import autograd
+from .. import random as _random
+from ..checkpoint import guard as _guard
 from ..telemetry import metrics as _tm
 from ..telemetry import trace as _trace
 from ..base import torch_dtype
@@ -436,7 +451,9 @@ class TrainStep:
             y = y.to(self._device, non_blocking=True)
         t = self.num_update + 1
         loss, grads, new_aux = self._loss_and_grads(x, y)
-        with torch.no_grad():
+        # In place from here to the counter's bump: a snapshot taken in
+        # between would mix two steps (checkpoint.guard).
+        with torch.no_grad(), _guard.updating():
             for name, p in self._param_vals.items():
                 g = grads[name].to(torch.float32)
                 new_p, new_s = self._opt_update(p, g, self._opt_state[name],
@@ -447,7 +464,7 @@ class TrainStep:
             for name, v in new_aux.items():
                 # Running stats keep their stored (fp32) dtype.
                 self._aux_vals[name].copy_(v)
-        self.num_update = t
+            self.num_update = t
         t_end = time.perf_counter()
         _trace.complete("train_step::step", t_start, t_end, step=t)
         _step_seconds.observe(t_end - t_start)
@@ -466,6 +483,182 @@ class TrainStep:
                 {n: tuple(host(s) for s in st)
                  for n, st in self._opt_state.items()},
                 {n: host(v) for n, v in self._aux_vals.items()})
+
+    # -- checkpoint state (mxnet_tpu_torch.checkpoint) ------------------------
+
+    def _rng_entry(self):
+        """The port's RNG position: root seed, host counter and every
+        device generator's state (the step's own device always among
+        them), each as bytes."""
+        _random.generator(self.mesh.context)
+        seed, counter, gens = _random.get_state()
+        return {"seed": int(seed), "counter": int(counter),
+                "generators": {d: bytes(g.numpy().tobytes())
+                               for d, g in gens.items()}}
+
+    def state_dict(self, sharded=None):
+        """Checkpointable state as a nested dict: params, optimizer
+        state, aux (BN stats), step counter and RNG position, the keys
+        of the JAX package's ``TrainStep.state_dict``.
+
+        The arrays are copies on the step's device (the manager copies
+        them to the host at ``save``), so the dict is a snapshot later
+        steps do not change. Inside the update loop this raises
+        ``checkpoint.StepInProgressError`` (``checkpoint/guard.py``).
+        ``sharded=True`` gives each array as a ``checkpoint.Shard`` of
+        one chunk, the whole array: one device holds all of it (sharded
+        meshes are ROADMAP Queue 1 item 7). Restore with
+        :meth:`load_state_dict`."""
+        if not self._materialized:
+            raise RuntimeError(
+                "run one step before state_dict so there is state to "
+                "snapshot")
+        _guard.check("TrainStep")
+        if sharded:
+            from ..checkpoint.manager import Shard
+
+            def conv(t):
+                return Shard(t.shape, t.dtype,
+                             [(tuple((0, d) for d in t.shape), t)])
+        else:
+            def conv(t):
+                return t.detach().clone()
+        with torch.no_grad():
+            return {
+                "params": {n: conv(v) for n, v in self._param_vals.items()},
+                "opt": {n: {str(i): conv(sv) for i, sv in enumerate(st)}
+                        for n, st in self._opt_state.items()},
+                "aux": {n: conv(v) for n, v in self._aux_vals.items()},
+                "num_update": int(self.num_update),
+                "rng": self._rng_entry(),
+            }
+
+    def _install(self, params, opt, aux, num_update, rng):
+        """Copy a restored state into the step's tensors, in their live
+        dtypes. Everything is converted and shape-checked before the
+        first write, so a mismatched state raises cleanly instead of
+        leaving a half-loaded step."""
+        from ..checkpoint.state import to_tensor
+
+        dev = self._device
+
+        def conv(value, like, name):
+            t = to_tensor(value, dev, like.dtype)
+            if tuple(t.shape) != tuple(like.shape):
+                raise ValueError("%s: checkpoint shape %s, step holds %s"
+                                 % (name, tuple(t.shape), tuple(like.shape)))
+            return t
+
+        writes = []
+        for n, v in self._param_vals.items():
+            writes.append((v, conv(params[n], v, n)))
+            for i, sv in enumerate(self._opt_state[n]):
+                writes.append((sv, conv(opt(n, i), sv, n)))
+        for n, v in self._aux_vals.items():
+            writes.append((v, conv(aux[n], v, n)))
+        gens = None
+        if rng is not None and rng.get("generators") is not None:
+            gens = {d: torch.frombuffer(bytearray(b), dtype=torch.uint8)
+                    for d, b in rng["generators"].items()
+                    if torch.device(d).type == "cpu"
+                    or torch.cuda.is_available()}
+        elif rng is not None:
+            logging.warning(
+                "TrainStep: the checkpoint's RNG entry holds no torch "
+                "generator states (a state of the JAX package); it is "
+                "ignored and the port's RNG position is kept")
+        with torch.no_grad(), _guard.updating():
+            for live, new in writes:
+                live.copy_(new)
+            self.num_update = int(num_update)
+        if gens is not None:
+            _random.set_state(int(rng["seed"]), int(rng["counter"]), gens)
+
+    def _materialize_for_restore(self):
+        if self._materialized:
+            return
+        if any(p._data is None and p._deferred_init is not None
+               for p in self.net.collect_params().values()):
+            raise RuntimeError(
+                "net has deferred-init parameters; run one step (or a "
+                "forward) before restoring so shapes exist")
+        self._materialize(None)
+
+    def load_state_dict(self, state):
+        """Restore a :meth:`state_dict` snapshot (of either package).
+        Resume is bit-exact: params, optimizer state, step counter and
+        the RNG position all continue as the uninterrupted run would.
+        Empty sections (stateless optimizer, no BN aux) drop out of a
+        flattened checkpoint: absent means empty here."""
+        self._materialize_for_restore()
+        opt = state.get("opt", {})
+        self._install(state.get("params", {}),
+                      lambda n, i: opt.get(n, {})[str(i)],
+                      state.get("aux", {}), state["num_update"],
+                      state.get("rng"))
+
+    def save_checkpoint(self, path):
+        """Write params + optimizer state + aux + step counter in the
+        binary ``.params`` wire format (reference
+        save_checkpoint/save_optimizer_states, model.py:383-413), with
+        the JAX package's keys: ``step:num_update``, ``step:rng`` (root
+        seed and host counter), ``arg:<name>``, ``opt:<i>:<name>`` and
+        ``aux:<name>``; the device generators' states follow as
+        ``step:rng_state:<device>`` (uint8), which the JAX package does
+        not read. Returns the filename."""
+        from .. import ndarray as nd
+        from ..context import cpu
+
+        if not self._materialized:
+            raise RuntimeError(
+                "run one step before save_checkpoint so there is state "
+                "to save")
+        state = self.state_dict()
+        host = cpu()
+        rng = state["rng"]
+        flat = {"step:num_update": np.asarray(state["num_update"],
+                                              np.int64),
+                "step:rng": np.asarray([rng["seed"], rng["counter"]],
+                                       np.int64)}
+        for d, b in sorted(rng["generators"].items()):
+            flat["step:rng_state:" + d] = np.frombuffer(b, np.uint8)
+        for n, v in state["params"].items():
+            flat["arg:" + n] = v
+        for n, st in state["opt"].items():
+            for i in range(len(st)):
+                flat["opt:%d:%s" % (i, n)] = st[str(i)]
+        for n, v in state["aux"].items():
+            flat["aux:" + n] = v
+        nd.save(path, {k: NDArray(v.cpu(), ctx=host)
+                       if isinstance(v, torch.Tensor)
+                       else nd.array(v, ctx=host, dtype=v.dtype)
+                       for k, v in flat.items()})
+        return path
+
+    def load_checkpoint(self, path):
+        """Restore a :meth:`save_checkpoint` file of either package."""
+        from .. import ndarray as nd
+        from ..context import cpu
+
+        self._materialize_for_restore()
+        blob = nd.load(path, ctx=cpu())
+
+        def entry(key):
+            return blob[key]._data
+
+        rng = None
+        if "step:rng" in blob:
+            seed, counter = blob["step:rng"].asnumpy().ravel()
+            prefix = "step:rng_state:"
+            gens = {k[len(prefix):]: entry(k).numpy().tobytes()
+                    for k in blob if k.startswith(prefix)}
+            rng = {"seed": int(seed), "counter": int(counter),
+                   "generators": gens or None}
+        self._install({n: entry("arg:" + n) for n in self._param_vals},
+                      lambda n, i: entry("opt:%d:%s" % (i, n)),
+                      {n: entry("aux:" + n) for n in self._aux_vals},
+                      int(blob["step:num_update"].asnumpy().ravel()[0]),
+                      rng)
 
     def sync_to_net(self):
         """Copy the step's parameter and aux values back into the net's

@@ -451,7 +451,8 @@ class Symbol:
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     group2ctx=None, shared_exec=None, **kwargs):
         """Allocate zero arrays of the inferred shapes and bind
-        (reference symbol.py:simple_bind)."""
+        (reference symbol.py:simple_bind). ``type_dict`` gives an
+        argument's or aux state's dtype by name (default float32)."""
         from . import ndarray as nd
         from .executor import Executor
 
@@ -459,11 +460,18 @@ class Symbol:
         if any(s is None for s in arg_shapes):
             raise MXNetError("simple_bind: could not infer all shapes "
                              "from %s" % kwargs)
-        args = [nd.zeros(s, ctx=ctx) for s in arg_shapes]
+        types = dict(type_dict or {})
+
+        def zeros(names, shapes):
+            return [nd.zeros(s, ctx=ctx, dtype=types.get(n))
+                    for n, s in zip(names, shapes)]
+
+        arg_names = self.list_arguments()
+        args = zeros(arg_names, arg_shapes)
         grad_arrays = None
         if grad_req != "null":
-            grad_arrays = [nd.zeros(s, ctx=ctx) for s in arg_shapes]
-        aux = [nd.zeros(s, ctx=ctx) for s in aux_shapes]
+            grad_arrays = zeros(arg_names, arg_shapes)
+        aux = zeros(self.list_auxiliary_states(), aux_shapes)
         return Executor(self, ctx, args, grad_arrays, grad_req, aux,
                         group2ctx=group2ctx, shared_exec=shared_exec)
 

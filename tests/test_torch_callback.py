@@ -1,8 +1,10 @@
 """Training callbacks of mxnet_tpu_torch against the JAX package's:
 Speedometer and TelemetryCallback log lines and counters, do_checkpoint
 files (byte-identical ``-symbol.json`` and ``.params``), the metric
-loggers, and the raises of what waits for a later slice.
+loggers, the checkpoint-manager and Module callbacks, and the raises of
+what waits for a later slice.
 """
+import json
 import logging
 import types
 
@@ -112,7 +114,40 @@ def test_telemetry_callback_feeds_the_port_registry():
 
 
 def test_module_checkpoint_and_manager_name_the_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        mx.callback.module_checkpoint(None, str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        mx.callback.do_checkpoint(str(tmp_path / "m"), manager=object())
+    """Since the checkpoint and Module slice, module_checkpoint and
+    do_checkpoint(manager=) work (they raised naming ROADMAP Queue 1
+    items 5 and 6 before): the manager path commits what the JAX
+    package's commits, the same arrays under the same keys. A Module
+    over several contexts still names its roadmap item (7)."""
+    from mxnet_tpu import checkpoint as jck
+    from mxnet_tpu_torch import checkpoint as ck
+
+    arg = np.arange(4, dtype=np.float32)
+    for pkg, mod, tag in ((jmx, jck, "jax"), (mx, ck, "port")):
+        with pkg.cpu():
+            sym = pkg.sym.Variable("data") * 2
+            m = mod.CheckpointManager(str(tmp_path / tag))
+            cb = pkg.callback.do_checkpoint("unused", manager=m)
+            cb(0, sym, {"w": pkg.nd.array(arg)}, {})
+            m.wait()
+    manifests = [json.loads((tmp_path / tag / "step-00000001" /
+                             "manifest.json").read_bytes())
+                 for tag in ("jax", "port")]
+    for m in manifests:
+        # The symbol JSON (node naming differs between the packages)
+        # comes first in the shard and moves the weight's offset.
+        m["arrays"].pop("symbol")
+        m["arrays"]["arg/w"]["chunks"][0].pop("offset")
+    assert manifests[0] == manifests[1]
+    with mx.cpu():
+        sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=2, name="fc"),
+            name="softmax")
+        mod = mx.mod.Module(sym, context=mx.cpu())
+        mod.bind(data_shapes=[("data", (4, 3))],
+                 label_shapes=[("softmax_label", (4,))])
+        mod.init_params()
+        mx.callback.module_checkpoint(mod, str(tmp_path / "m"))(0)
+        assert (tmp_path / "m-0001.params").exists()
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            mx.mod.Module(sym, context=[mx.cpu(0), mx.cpu(1)])

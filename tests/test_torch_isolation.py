@@ -86,7 +86,13 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.log, "
         "mxnet_tpu_torch.telemetry.watchdog, "
         "mxnet_tpu_torch.telemetry.healthplane, "
-        "mxnet_tpu_torch.examples.gluon_image_classification\n"
+        "mxnet_tpu_torch.examples.gluon_image_classification, "
+        "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.checkpoint.manager, "
+        "mxnet_tpu_torch.checkpoint.preempt, "
+        "mxnet_tpu_torch.checkpoint.state, mxnet_tpu_torch.checkpoint.guard, "
+        "mxnet_tpu_torch.module, mxnet_tpu_torch.model, "
+        "mxnet_tpu_torch.profiler, mxnet_tpu_torch.examples.train_resume, "
+        "mxnet_tpu_torch.examples.train_mnist\n"
         "import mxnet_tpu_torch.data as d\n"
         "d.DataPipeline, d.DecodePool, d.DevicePrefetcher, d.RecordDataset, "
         "d.DecodeAutoscaler, d.stall_fraction\n"
