@@ -131,7 +131,28 @@ phase falls back to the host or to a plain version):
    ``Module.load`` and ``fit(begin_epoch=1)`` equal to the uninterrupted
    two epochs bit for bit.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15) is driven with every
+16. recurrent: the bucketed LSTM language model of the reference's
+   lstm_bucketing.py at its widths (vocabulary 10 000, embedding 200,
+   two LSTM layers of 200, batch 32, buckets 10-60; ``LM``) on the
+   port's synthetic corpus from SEED: ``BucketingModule.fit`` over
+   ``BucketSentenceIter`` (adam lr 0.01, wd 1e-5, ``Perplexity(
+   ignore_label=0)``), perplexity scored before and after and held to
+   fall by ``LM_PPL_FACTOR``; samples/s and tokens/s overall and per
+   bucket; for one b32 batch at T 60 the operator dispatches, CUDA
+   launches, device ms and idle share (torch.profiler); one SGD step at
+   batch 8, bucket 10, from the trained weights in float64 and fp32 on
+   card and host (PARITY_LIMITS' float64 terms, ``LM_PARITY``); the
+   gluon path (Embedding, ``gluon.rnn.LSTM`` with dropout 0.2, Dense,
+   hybridized, ``gluon.Trainer``) at b32 T35, its loss falling over 10
+   steps; ``nd.contrib.foreach`` over an ``LSTMCell(200)`` against a
+   one-layer ``LSTM`` with the same weights (outputs and gradients,
+   ``RNN_TOL``); a ``sym.contrib`` while_loop and cond bound on card and
+   host; the RNN op timed forward and forward + backward at T 35 and 60
+   beside ``torch.nn.LSTM`` (cuDNN) with the same weights, whose outputs
+   are held to the op's. The loop predicates read on the host are
+   counted. No kernel of the port lies on this path.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16) is driven with every
 launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -3040,6 +3061,500 @@ def phase_module(card_line, trainer_img_s):
     return result
 
 
+# -- slice 10: the recurrent path ---------------------------------------------
+
+# The bucketed LSTM LM of the reference's lstm_bucketing.py: PTB's
+# vocabulary, embedding 200, two LSTM layers of 200, batch 32, buckets
+# 10-60, adam lr 0.01 wd 1e-5; the port's synthetic corpus from SEED.
+LM = {"vocab": 10000, "embed": 200, "hidden": 200, "layers": 2,
+      "batch": 32, "buckets": (10, 20, 30, 40, 50, 60), "sentences": 3200,
+      "epochs": 4, "optimizer": "adam", "lr": 0.01, "wd": 1e-5}
+# The gate: after LM["epochs"] epochs the perplexity that Module.score
+# reads over the corpus is at most 1/5 of the perplexity it reads at
+# initialization.
+LM_PPL_FACTOR = 5.0
+# fp32 (TF32 off) comparisons of two computations of one function in
+# another summation order (a foreach over LSTMCell against the fused op;
+# cuDNN's LSTM against the op): values within rtol 1e-4 / atol 1e-5,
+# gradients within rtol 1e-4 and 1e-4 of the tensor's largest entry.
+RNN_TOL = {"rtol": 1e-4, "atol": 1e-5, "grad_atol_rel": 1e-4}
+# The card's fp32 LM step against float64, as the host's fp32 step is:
+# per tensor at most 4x the host's error plus 1e-3 of the step's
+# largest entry, and over the net (relative L2) at most 4x.
+LM_PARITY = {"fp32_update_ratio": 4.0, "fp32_update_floor": 1e-3,
+             "fp32_update_l2_ratio": 4.0}
+
+
+class _BatchClock:
+    """Batch-end callback of Module.fit: the host time at the end of each
+    batch (the metric has read the batch's outputs, so the card has
+    finished it), the batch's bucket and the epoch's running metric."""
+
+    def __init__(self):
+        self.marks = []
+        self.metric = {}
+
+    def __call__(self, param):
+        self.marks.append((param.epoch, time.perf_counter(),
+                           param.locals["data_batch"].bucket_key))
+        self.metric[param.epoch] = param.eval_metric.get()[1]
+
+
+def _lm_sym_gen():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.train_rnn_lm import sym_gen_factory
+
+    return sym_gen_factory(mx, LM["layers"], LM["hidden"], LM["embed"],
+                           LM["vocab"])
+
+
+def _lm_corpus():
+    from mxnet_tpu_torch.examples.train_rnn_lm import synthetic_corpus
+
+    return synthetic_corpus(LM["vocab"], LM["sentences"], LM["buckets"],
+                            seed=SEED)
+
+
+def _lm_bucketing():
+    """BucketingModule.fit over BucketSentenceIter, perplexity scored
+    before and after; samples/s and tokens/s overall and per bucket."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(SEED)
+    it = mx.rnn.BucketSentenceIter(_lm_corpus(), batch_size=LM["batch"],
+                                   buckets=list(LM["buckets"]),
+                                   invalid_label=0, seed=SEED,
+                                   ctx=mx.gpu(0))
+    mod = mx.mod.BucketingModule(_lm_sym_gen(),
+                                 default_bucket_key=max(LM["buckets"]),
+                                 context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier())
+    t0 = time.perf_counter()
+    ppl0 = mod.score(it, mx.metric.Perplexity(ignore_label=0))[0][1]
+    score_s = time.perf_counter() - t0
+    it.reset()
+    clock = _BatchClock()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=LM["epochs"],
+            eval_metric=mx.metric.Perplexity(ignore_label=0),
+            optimizer=LM["optimizer"],
+            optimizer_params={"learning_rate": LM["lr"], "wd": LM["wd"]},
+            batch_end_callback=clock)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ppl1 = mod.score(it, mx.metric.Perplexity(ignore_label=0))[0][1]
+    per_bucket = {}
+    for (e0, t_0, _), (e1, t_1, key) in zip(clock.marks, clock.marks[1:]):
+        if e0 == e1:
+            per_bucket.setdefault(key, []).append(t_1 - t_0)
+    batches = len(clock.marks)
+    tokens = sum(LM["batch"] * key for _, _, key in clock.marks)
+    reading = {
+        "config": LM, "batches": batches, "fit_seconds": fit_s,
+        "score_seconds": score_s,
+        "samples_s": batches * LM["batch"] / fit_s,
+        "tokens_s": tokens / fit_s,
+        "per_bucket": {str(k): {
+            "batches": len(v), "batch_ms_median": 1e3 * float(np.median(v)),
+            "samples_s": LM["batch"] / float(np.median(v)),
+            "tokens_s": LM["batch"] * k / float(np.median(v))}
+            for k, v in sorted(per_bucket.items())},
+        "train_perplexity_by_epoch": [clock.metric[e]
+                                      for e in sorted(clock.metric)],
+        "perplexity_before": ppl0, "perplexity_after": ppl1,
+        "factor_limit": LM_PPL_FACTOR}
+    log("phase 16: LM %d batches in %.1f s, %.1f samples/s, %.0f tokens/s; "
+        "perplexity %.1f -> %.1f" % (batches, fit_s, reading["samples_s"],
+                                     reading["tokens_s"], ppl0, ppl1))
+    reading["profile_t60"] = _lm_profile(mod)
+    arg, _ = mod.get_params()
+    return reading, {n: a.asnumpy() for n, a in arg.items()}
+
+
+def _lm_batch(mx, key, batch, ctx, seed, dtype="float32"):
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+
+    rng = np.random.default_rng(seed)
+    data = rng.integers(1, LM["vocab"], (batch, key)).astype(np.float32)
+    label = np.roll(data, -1, axis=1)
+    label[:, -1] = 0
+    return DataBatch(
+        data=[mx.nd.array(data, ctx=ctx, dtype=dtype)],
+        label=[mx.nd.array(label, ctx=ctx)], bucket_key=key,
+        provide_data=[DataDesc("data", data.shape, np.dtype(dtype))],
+        provide_label=[DataDesc("softmax_label", label.shape)])
+
+
+def _lm_profile(mod, iters=5):
+    """One b32 batch at T 60 (forward, backward, update): operator
+    dispatches through the registry, CUDA kernel launches and device ms
+    (torch.profiler), wall ms, idle share."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    batch = _lm_batch(mx, 60, LM["batch"], mx.gpu(0), SEED + 1)
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    step()
+    torch.cuda.synchronize()
+    d0, t0 = registry.DISPATCHES[0], time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    dispatches = (registry.DISPATCHES[0] - d0) / iters
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    kernels, count = {}, 0
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + \
+                evt.self_device_time_total
+            count += evt.count
+    device_ms = sum(kernels.values()) / 1e3 / iters
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"batch": LM["batch"], "seq_len": 60, "wall_ms": wall,
+            "dispatches_per_batch": dispatches,
+            "launches_per_batch": count / iters,
+            "device_ms": device_ms if kernels else None,
+            "idle_share": 1 - device_ms / wall if kernels else None,
+            "top_kernels": [[k[:80], v / 1e3 / iters] for k, v in top]}
+
+
+def _lm_step(ctx, w0, dtype):
+    """One SGD-momentum step of the LM at bucket 10, batch 8, from `w0`
+    on `ctx` in `dtype`: (softmax outputs, weights, momentum)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import DataDesc
+
+    sym, _, _ = _lm_sym_gen()(10)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[DataDesc("data", (PARITY_BATCH, 10),
+                                   np.dtype(dtype))],
+             label_shapes=[DataDesc("softmax_label", (PARITY_BATCH, 10))])
+    mod.init_params(arg_params={n: mx.nd.array(v, ctx=ctx)
+                                for n, v in w0.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAINER_OPT))
+    mod.forward(_lm_batch(mx, 10, PARITY_BATCH, ctx, SEED + 2, dtype),
+                is_train=True)
+    out = mod.get_outputs()[0].asnumpy().astype(np.float64)
+    mod.backward()
+    mod.update()
+    arg, _ = mod.get_params()
+    mom = {mod._param_names[i]: s.asnumpy().astype(np.float64)
+           for i, s in mod._updater.states.items()}
+    return out, {n: a.asnumpy().astype(np.float64)
+                 for n, a in arg.items()}, mom
+
+
+def _lm_parity(w0):
+    """The LM step on card and host, float64 and fp32, from the trained
+    weights. SGD, not the training's adam: adam's first step is about
+    lr * sign(gradient), so fp32 rounding flips whole steps wherever a
+    gradient is near zero; SGD's momentum holds the gradient itself."""
+    import mxnet_tpu_torch as mx
+
+    lim = PARITY_LIMITS
+    runs = {}
+    for tag, ctx, dtype in (("card_f64", mx.gpu(0), "float64"),
+                            ("host_f64", mx.cpu(), "float64"),
+                            ("card_fp32", mx.gpu(0), "float32"),
+                            ("host_fp32", mx.cpu(), "float32")):
+        t0 = time.perf_counter()
+        runs[tag] = _lm_step(ctx, w0, dtype)
+        log("phase 16: LM parity step %s %.2f s"
+            % (tag, time.perf_counter() - t0))
+    ref, host = runs["card_f64"], runs["host_f64"]
+    failed = []
+
+    def hold(name, value, limit):
+        if not value <= limit:
+            failed.append("%s %g > %g" % (name, value, limit))
+
+    w0 = {n: v.astype(np.float64) for n, v in w0.items()}
+    out_err = float(np.abs(ref[0] - host[0]).max())
+    mom = _rel_max(ref[2], host[2])
+    weight_excess = max(
+        float((np.abs(ref[1][n] - w) - lim["f64_weight_rtol"]
+               * np.abs(w)).max()) / max(float(np.abs(w - w0[n]).max()),
+                                         1e-30)
+        for n, w in host[1].items())
+    reading = {"batch": PARITY_BATCH, "bucket": 10,
+               "card_f64_vs_host_f64": {
+                   "output_abs_max": out_err,
+                   "momentum_rel_max": max(mom.values()),
+                   "weight_excess_over_step": weight_excess}}
+    hold("f64 outputs", out_err, lim["f64_loss"])
+    hold("f64 momentum", max(mom.values()), lim["f64_momentum"])
+    hold("f64 weights", weight_excess, lim["f64_weight_step"])
+    errs = {tag: _rel_max(runs[tag][2], ref[2])
+            for tag in ("card_fp32", "host_fp32")}
+    for tag in errs:
+        reading[tag + "_vs_card_f64"] = {
+            "momentum_rel_max_by_tensor": errs[tag],
+            "momentum_rel_l2": _rel_l2(runs[tag][2], ref[2])}
+    for n in errs["card_fp32"]:
+        hold("fp32 update of %s over %g x host's" % (
+            n, LM_PARITY["fp32_update_ratio"]),
+            errs["card_fp32"][n] - LM_PARITY["fp32_update_ratio"]
+            * errs["host_fp32"][n], LM_PARITY["fp32_update_floor"])
+    hold("fp32 update over the net against host's",
+         reading["card_fp32_vs_card_f64"]["momentum_rel_l2"]
+         / reading["host_fp32_vs_card_f64"]["momentum_rel_l2"],
+         LM_PARITY["fp32_update_l2_ratio"])
+    reading["limits"] = {**{k: lim[k] for k in (
+        "f64_loss", "f64_momentum", "f64_weight_rtol", "f64_weight_step")},
+        **LM_PARITY}
+    reading["failed"] = failed
+    reading["within"] = not failed
+    return reading
+
+
+def _gluon_lm(steps=10, seq_len=35):
+    """Embedding -> gluon.rnn.LSTM(200, 2 layers, dropout 0.2) -> Dense,
+    hybridized, through gluon.Trainer on one fixed b32 T35 batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    mx.random.seed(SEED)
+    ctx = mx.gpu(0)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Embedding(LM["vocab"], LM["embed"]),
+            gluon.rnn.LSTM(LM["hidden"], num_layers=LM["layers"],
+                           dropout=0.2),
+            gluon.nn.Dense(LM["vocab"], flatten=False))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), LM["optimizer"],
+                            {"learning_rate": LM["lr"], "wd": LM["wd"]})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.default_rng(SEED + 3)
+    tokens = rng.integers(1, LM["vocab"], (seq_len + 1, LM["batch"]))
+    x = mx.nd.array(tokens[:-1].astype(np.float32), ctx=ctx)
+    y = mx.nd.array(tokens[1:].astype(np.float32), ctx=ctx)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(LM["batch"])
+        losses.append(float(loss.mean().asscalar()))
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times[2:]))
+    return {"batch": LM["batch"], "seq_len": seq_len, "steps": steps,
+            "losses": losses, "step_ms_median": step_s * 1e3,
+            "tokens_s": LM["batch"] * seq_len / step_s}
+
+
+def _close_reading(got, want, atol_rel=None):
+    got = got.astype(np.float64)
+    want = want.astype(np.float64)
+    atol = RNN_TOL["atol"] if atol_rel is None else \
+        atol_rel * float(np.abs(want).max())
+    return max_violation(torch.from_numpy(got), torch.from_numpy(want),
+                         RNN_TOL["rtol"], atol)
+
+
+def _foreach_vs_lstm(seq_len=35):
+    """nd.contrib.foreach over a gluon LSTMCell(200) at T35 b32 against a
+    one-layer gluon LSTM with the same weights: outputs and weight
+    gradients (max violation of RNN_TOL; <= 0 is within)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    ctx, h = mx.gpu(0), LM["hidden"]
+    rng = np.random.default_rng(SEED + 4)
+    x = mx.nd.array(rng.standard_normal((seq_len, LM["batch"], h),
+                                        dtype=np.float32), ctx=ctx)
+    head = mx.nd.array(rng.standard_normal((seq_len, LM["batch"], h),
+                                           dtype=np.float32), ctx=ctx)
+    cell = gluon.rnn.LSTMCell(h, input_size=h)
+    layer = gluon.rnn.LSTM(h, input_size=h)
+    cell.initialize(mx.init.Xavier(), ctx=ctx)
+    layer.initialize(ctx=ctx)
+    for name in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        value = rng.standard_normal(getattr(cell, name).shape,
+                                    dtype=np.float32) * 0.1
+        getattr(cell, name).set_data(mx.nd.array(value, ctx=ctx))
+        getattr(layer, "l0_" + name).set_data(mx.nd.array(value, ctx=ctx))
+    states = cell.begin_state(LM["batch"], ctx=ctx)
+    with autograd.record():
+        outs, _ = mx.nd.contrib.foreach(lambda xt, s: cell(xt, s), x, states)
+        (outs * head).sum().backward()
+    with autograd.record():
+        want = layer(x)
+        (want * head).sum().backward()
+    reading = {"seq_len": seq_len, "batch": LM["batch"],
+               "output_violation": _close_reading(outs.asnumpy(),
+                                                  want.asnumpy())}
+    for name in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        reading[name + "_grad_violation"] = _close_reading(
+            getattr(cell, name).grad().asnumpy(),
+            getattr(layer, "l0_" + name).grad().asnumpy(),
+            RNN_TOL["grad_atol_rel"])
+    reading["within"] = all(v <= 0 for k, v in reading.items()
+                            if k.endswith("violation"))
+    return reading
+
+
+def _control_flow_graphs(mx, h=200):
+    """A while_loop (s <- tanh(dot(s, w)) while the counter is below 8,
+    at most 10 steps) and a cond (dot(a, w) or 2a by the sign of sum(a)),
+    grouped."""
+    i, s, w, a = (mx.sym.var(n) for n in ("i", "s", "w", "a"))
+    outs, finals = mx.sym.contrib.while_loop(
+        lambda i_, s_: i_ < 8,
+        lambda i_, s_: (s_, [i_ + 1, mx.sym.tanh(mx.sym.dot(s_, w))]),
+        [i, s], max_iterations=10)
+    branch = mx.sym.contrib.cond(lambda: mx.sym.sum(a) > 0,
+                                 lambda: mx.sym.dot(a, w), lambda: a * 2)
+    return mx.sym.Group([outs] + finals + [branch])
+
+
+def _control_flow_card_vs_host(h=200):
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.default_rng(SEED + 5)
+    values = {"i": np.zeros((1,), np.float32),
+              "s": rng.standard_normal((4, h), dtype=np.float32),
+              "w": rng.standard_normal((h, h), dtype=np.float32) * 0.1,
+              "a": np.abs(rng.standard_normal((4, h), dtype=np.float32))}
+    res = {}
+    for tag, ctx in (("host", mx.cpu()), ("card", mx.gpu(0))):
+        sym = _control_flow_graphs(mx, h)
+        ex = sym.bind(ctx, {n: mx.nd.array(v, ctx=ctx)
+                            for n, v in values.items()},
+                      args_grad={"w": mx.nd.zeros((h, h), ctx=ctx)},
+                      grad_req={"i": "null", "s": "null", "w": "write",
+                                "a": "null"})
+        outs = ex.forward(is_train=True)
+        ex.backward(out_grads=[mx.nd.ones(o.shape, ctx=ctx) for o in outs])
+        res[tag] = [o.asnumpy() for o in outs] + \
+            [ex.grad_dict["w"].asnumpy()]
+    reading = {"shapes": [list(o.shape) for o in res["card"]],
+               "violations": [_close_reading(c, hst) for c, hst in
+                              zip(res["card"][:-1], res["host"][:-1])],
+               "w_grad_violation": _close_reading(
+                   res["card"][-1], res["host"][-1],
+                   RNN_TOL["grad_atol_rel"])}
+    reading["while_loop_rows_valid"] = int((np.abs(res["card"][0]).sum(
+        axis=(1, 2)) > 0).sum())
+    reading["within"] = all(v <= 0 for v in reading["violations"]) \
+        and reading["w_grad_violation"] <= 0 \
+        and reading["shapes"][0] == [10, 4, h] \
+        and reading["while_loop_rows_valid"] == 8
+    return reading
+
+
+def _rnn_op_vs_cudnn(seq_len):
+    """The port's RNN op (2 LSTM layers, 200 -> 200, N 32) forward and
+    forward + backward, beside torch.nn.LSTM (cuDNN) with the same
+    weights, whose outputs are held to the op's."""
+    from mxnet_tpu_torch.ops import registry, rnn_ops
+
+    h, n, layers = LM["hidden"], LM["batch"], LM["layers"]
+    rng = np.random.default_rng(SEED + 6)
+    size = rnn_ops.rnn_param_size(layers, h, h, "lstm")
+    flat = torch.from_numpy(rng.uniform(-0.07, 0.07, size).astype(
+        np.float32)).cuda().requires_grad_(True)
+    x = torch.from_numpy(rng.standard_normal((seq_len, n, h), dtype=
+                                             np.float32)).cuda()
+    x.requires_grad_(True)
+    h0, c0 = x.new_zeros(layers, n, h), x.new_zeros(layers, n, h)
+    rnn = registry.get("RNN").fn
+    attrs = {"state_size": h, "num_layers": layers, "mode": "lstm",
+             "state_outputs": True}
+
+    def port_fwd():
+        with torch.no_grad():
+            return rnn(x, flat, h0, c0, **attrs)
+
+    def port_fwd_bwd():
+        out = rnn(x, flat, h0, c0, **attrs)[0]
+        out.sum().backward()
+
+    lstm = torch.nn.LSTM(h, h, num_layers=layers).cuda()
+    with torch.no_grad():
+        for name, shape, off in rnn_ops.rnn_param_layout(layers, h, h,
+                                                         "lstm"):
+            # l<k>_i2h_weight -> weight_ih_l<k>, l<k>_h2h_bias -> bias_hh_l<k>
+            part, what = name[3:].split("_")
+            param = getattr(lstm, "%s_%s_l%s" % (what, part.replace("2", ""),
+                                                 name[1]))
+            param.copy_(flat[off:off + param.numel()].view(param.shape))
+    lstm.flatten_parameters()
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return lstm(x, (h0, c0))
+
+    def cudnn_fwd_bwd():
+        out = lstm(x, (h0, c0))[0]
+        out.sum().backward()
+
+    got = port_fwd()
+    want_out, (want_h, want_c) = cudnn_fwd()
+    violation = max(max_violation(g, w, RNN_TOL["rtol"], RNN_TOL["atol"])
+                    for g, w in zip(got, (want_out, want_h, want_c)))
+    return {"seq_len": seq_len, "batch": n, "hidden": h, "layers": layers,
+            "port_fwd_ms": time_ms(port_fwd, iters=10),
+            "port_fwd_bwd_ms": time_ms(port_fwd_bwd, iters=10),
+            "cudnn_fwd_ms": time_ms(cudnn_fwd, iters=10),
+            "cudnn_fwd_bwd_ms": time_ms(cudnn_fwd_bwd, iters=10),
+            "cudnn_vs_op_violation": violation}
+
+
+def phase_recurrent(card_line):
+    """Phase 16: the recurrent path at full width (see the module
+    docstring)."""
+    from mxnet_tpu_torch.ops import control_flow
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t_phase = time.perf_counter()
+    result = {"phase": "recurrent", "card": card_line}
+    _reset_all_launches()   # the main path starts here
+    reads0 = control_flow.PREDICATE_READS[0]
+    result["lm"], weights = _lm_bucketing()
+    result["lm_parity"] = _lm_parity(weights)
+    result["gluon_lm"] = _gluon_lm()
+    result["foreach_vs_lstm"] = _foreach_vs_lstm()
+    result["control_flow_card_vs_host"] = _control_flow_card_vs_host()
+    result["rnn_op"] = [_rnn_op_vs_cudnn(t) for t in (35, 60)]
+    launches = _all_launches()   # read just after the path
+    result["predicate_reads"] = control_flow.PREDICATE_READS[0] - reads0
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(result))
+    lm = result["lm"]
+    check(lm["perplexity_after"] * LM_PPL_FACTOR <= lm["perplexity_before"],
+          "LM perplexity fell from %.1f to %.1f, not by %gx"
+          % (lm["perplexity_before"], lm["perplexity_after"],
+             LM_PPL_FACTOR))
+    check(result["lm_parity"]["within"], "LM step card vs host: %s"
+          % result["lm_parity"]["failed"])
+    g = result["gluon_lm"]["losses"]
+    check(g[-1] < g[0], "gluon LSTM LM loss did not fall: %s" % g)
+    check(result["foreach_vs_lstm"]["within"], "foreach over LSTMCell vs "
+          "LSTM: %s" % result["foreach_vs_lstm"])
+    check(result["control_flow_card_vs_host"]["within"], "control flow "
+          "card vs host: %s" % result["control_flow_card_vs_host"])
+    for r in result["rnn_op"]:
+        check(r["cudnn_vs_op_violation"] <= 0, "cuDNN LSTM vs the RNN op "
+              "at T %d: %g" % (r["seq_len"], r["cudnn_vs_op_violation"]))
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -3059,6 +3574,7 @@ def main():
     pipeline = phase_input_pipeline(card_line, synthetic)
     ckpt_path = phase_checkpoint(card_line)
     module = phase_module(card_line, trainer["fp32"]["img_s_b32"])
+    recurrent = phase_recurrent(card_line)
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -3088,11 +3604,12 @@ def main():
                                      "resnet50_trainer": 0}
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
-    # The input pipeline's (phase 13), the checkpoint's (14) and the
-    # Module's (15) paths launch none of them.
+    # The input pipeline's (phase 13), the checkpoint's (14), the
+    # Module's (15) and the recurrent (16) paths launch none of them.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
-                       ("module", module["launches"])):
+                       ("module", module["launches"]),
+                       ("recurrent", recurrent["launches"])):
         for entry, n in zip([fwd, dkv, dq] + rtc_list,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

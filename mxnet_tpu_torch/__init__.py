@@ -64,6 +64,7 @@ _LAZY = {
     "checkpoint": ".checkpoint",
     "module": ".module",
     "mod": ".module",
+    "rnn": ".rnn",
 }
 
 

@@ -15,12 +15,23 @@ call does (``mxnet_tpu/cached_op.py``). ``inference()`` builds no graph.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import autograd
 from .ndarray.ndarray import NDArray
 
-__all__ = ["CachedOp"]
+__all__ = ["CachedOp", "in_cached_call"]
+
+_calls = threading.local()
+
+
+def in_cached_call():
+    """Whether this thread is inside a CachedOp call: where the JAX
+    package traces, so ``nd.contrib.while_loop`` pads its outputs to
+    ``max_iterations`` rows there, as the traced JAX op does."""
+    return getattr(_calls, "depth", 0) > 0
 
 
 class CachedOp:
@@ -50,7 +61,11 @@ class CachedOp:
         if sig not in self._signatures:
             self._signatures.add(sig)
             self.num_traces += 1
-        return self._fn(*args)
+        _calls.depth = getattr(_calls, "depth", 0) + 1
+        try:
+            return self._fn(*args)
+        finally:
+            _calls.depth -= 1
 
     def __call__(self, *args):
         """Forward in the current train/eval mode; recorded when the

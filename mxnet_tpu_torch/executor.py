@@ -18,7 +18,11 @@ BatchNorm's train-mode moving statistics go to the aux arrays.
 ``_subgraph`` nodes (``subgraph.partition``) run their backend function
 or, when it is None, their embedded sub-DAG. The graph is flattened
 once per executor and mode into a plan of numbered value slots, so a
-forward costs one Python call per node. With
+forward costs one Python call per node. That plan (:func:`_compile`,
+:func:`_execute`) is the port's one graph interpreter: ``SymbolBlock``
+runs it on its parameters' tensors, under ``autograd.record()`` too,
+and the control-flow operators run their sub-graphs through it
+(``ops/control_flow.SymSubgraph``). With
 ``MXNET_SUBGRAPH_BACKEND`` naming a registered backend, the graph is
 partitioned at bind, as in the JAX package and the reference.
 
@@ -342,7 +346,8 @@ def _topo(out_syms):
 def _compile(out_syms, training):
     """The DAG as a flat plan, built once per executor and mode: values
     live in numbered slots; each step is (fn, input slots, attrs, output
-    slots, aux names, fragment, slots to free), run by :func:`_execute`.
+    slots, aux names, fragment, draws random numbers, slots to free), run
+    by :func:`_execute`.
     A value's slot is freed after its last consumer (or at once, when it
     has none and is not an output), so a forward holds no more than the
     values still to be read and what autograd saved for the backward.
@@ -364,15 +369,17 @@ def _compile(out_syms, training):
             fn = getattr(node, "_sub_fn", None)
             if fn is None:
                 fn = _subdag_fn(node, training)
-            steps.append((fn, ins, {}, outs, (), node))
+            steps.append((fn, ins, {}, outs, (), node, False))
             continue
         op = _registry.get(node._attrs.get("_op_name", node._op))
         attrs = node._clean_attrs()
+        aux = ()
         if op.train_aware:
             attrs["training"] = training
-        aux = tuple(i._name for i in node._inputs
-                    if i._op is None and i._is_aux)
-        steps.append((op.fn, ins, attrs, outs, aux, None))
+            # Only a train-aware op (BatchNorm) returns new aux values.
+            aux = tuple(i._name for i in node._inputs
+                        if i._op is None and i._is_aux)
+        steps.append((op.fn, ins, attrs, outs, aux, None, op.needs_rng))
     heads = [slot(s, s._out_index) for s in out_syms]
     last = {}
     for k, step in enumerate(steps):
@@ -408,8 +415,11 @@ def _execute(plan, env):
         vals[s] = env[name]
     aux_writes = {}
     ops = 0
-    for fn, ins, attrs, outs, aux, fragment, free in steps:
-        raw = fn(*[vals[i] for i in ins], **attrs)
+    for fn, ins, attrs, outs, aux, fragment, rng, free in steps:
+        args = [vals[i] for i in ins]
+        if rng:
+            attrs = dict(attrs, **_registry.rng_attrs(args))
+        raw = fn(*args, **attrs)
         if fragment is not None:
             got = raw if isinstance(raw, (list, tuple)) else [raw]
             if len(got) < fragment._num_outputs:

@@ -5,6 +5,7 @@ from .parameter import Parameter, ParameterDict
 from . import block
 from .block import Block, HybridBlock, SymbolBlock
 from . import nn
+from . import rnn
 from . import utils
 from . import loss
 from . import model_zoo

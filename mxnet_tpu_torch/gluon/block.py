@@ -18,9 +18,11 @@ Symbolic re-trace: called on a :class:`~mxnet_tpu_torch.symbol.Symbol`,
 a block's parameters become named variables and ``hybrid_forward`` runs
 with ``F = symbol``. ``export`` writes that graph and the weights in the
 reference's checkpoint format; :class:`SymbolBlock` (``imports``) runs
-such a checkpoint through the symbolic Executor.
+such a checkpoint through the Executor's plan.
 """
 from __future__ import annotations
+
+import torch
 
 from .. import autograd
 from .. import ndarray as nd
@@ -323,11 +325,12 @@ class HybridBlock(Block):
 
 class SymbolBlock(HybridBlock):
     """A block over a symbol graph (reference block.py:SymbolBlock).
-    The forward binds an eval Executor per input signature, with the
-    block's parameters as arguments and aux states (by reference, so
-    ``set_data`` is seen by later calls). Under ``autograd.record()`` it
-    walks the graph through the imperative ops instead, so an imported
-    model trains like any block."""
+    The forward runs the Executor's plan (``executor._compile``, one per
+    training mode) on the block's parameters, under
+    ``autograd.record()`` too, so an imported model trains like any
+    block; in training, BatchNorm's new moving statistics go to the aux
+    parameters (through ``set_data``, which a hybridized call captures
+    and commits after the call)."""
 
     def __init__(self, outputs, inputs, params=None):
         super().__init__(prefix="", params=None)
@@ -336,7 +339,7 @@ class SymbolBlock(HybridBlock):
         self._outputs = outputs
         self._inputs = inputs if isinstance(inputs, (list, tuple)) \
             else [inputs]
-        self._executors = {}
+        self._plans = {}
         input_names = {i.name for i in self._inputs}
         params = params or {}
         aux_set = set(outputs.list_auxiliary_states())
@@ -381,69 +384,41 @@ class SymbolBlock(HybridBlock):
                     % (param_file, sorted(missing)))
         return SymbolBlock(sym, inputs, params=params)
 
-    def _forward_imperative(self, data):
-        """Walk the DAG through the imperative ops, so autograd records
-        every node; BatchNorm's train-mode statistics go to the aux
-        parameters, as the Executor routes them."""
-        from ..ndarray.ndarray import _invoke
-        from ..ops import registry as _reg
+    def _plan(self, training, graph):
+        """The plan per (training mode, building a graph). A forward that
+        builds no graph binds the graph as ``Symbol.bind`` would, so
+        ``MXNET_SUBGRAPH_BACKEND`` partitions it there."""
+        from ..executor import _auto_partition, _compile
 
-        cache = {}
-
-        def value_of(node, out_index):
-            key = (node._uid, out_index or 0)
-            if key in cache:
-                return cache[key]
-            if node._op is None:
-                v = data.get(node._name)
-                if v is None:
-                    v = self._params[node._name].data()
-                cache[key] = v
-                return v
-            op_name = node._attrs.get("_op_name", node._op)
-            in_vals = [value_of(i, i._out_index or 0) for i in node._inputs]
-            attrs = node._clean_attrs()
-            if _reg.get(op_name).train_aware:
-                # dispatch injects the current train mode
-                attrs.pop("training", None)
-            res = _invoke(op_name, in_vals, **attrs)
-            outs = res if isinstance(res, (tuple, list)) else (res,)
-            aux_inputs = [i for i in node._inputs
-                          if i._op is None and i._is_aux]
-            if aux_inputs and len(outs) == 1 + len(aux_inputs):
-                if autograd.is_training():
-                    for a, v in zip(aux_inputs, outs[1:]):
-                        if a._name in self._params:
-                            self._params[a._name].set_data(v.detach())
-                outs = outs[:1]
-            for i, o in enumerate(outs):
-                cache[(node._uid, i)] = o
-            return cache[(node._uid, out_index or 0)]
-
-        outs = [value_of(s, s._out_index or 0)
-                for s in self._outputs.outputs]
-        return outs[0] if len(outs) == 1 else outs
+        key = (training, graph)
+        plan = self._plans.get(key)
+        if plan is None:
+            sym = self._outputs if graph else _auto_partition(self._outputs)
+            plan = self._plans[key] = _compile(sym.outputs, training)
+        return plan
 
     def forward(self, *args):
+        from ..executor import _execute
+
         data = {inp.name: val if isinstance(val, NDArray) else nd.array(val)
                 for inp, val in zip(self._inputs, args)}
-        if autograd.is_recording():
-            return self._forward_imperative(data)
-        sig = tuple(sorted((k, v.shape, str(v.dtype), str(v.context))
-                           for k, v in data.items()))
-        ex = self._executors.get(sig)
-        if ex is None:
-            # Data binds as copies (forward writes fed values into the
-            # bound arrays); parameters bind by reference.
-            args_map = {k: v.copy() for k, v in data.items()}
-            for n in self._outputs.list_arguments():
-                if n not in args_map:
-                    args_map[n] = self._params[n].data()
-            aux_map = {n: self._params[n].data()
-                       for n in self._outputs.list_auxiliary_states()}
-            ctx = next(iter(data.values())).context if data else None
-            ex = self._outputs.bind(ctx, args=args_map, aux_states=aux_map,
-                                    grad_req="null")
-            self._executors[sig] = ex
-        outs = ex.forward(is_train=autograd.is_training(), **data)
-        return outs[0] if len(outs) == 1 else list(outs)
+        ctx = next(iter(data.values())).context if data else None
+        training = autograd.is_training()
+        graph = autograd.builds_graph()
+        if graph and autograd.is_recording():
+            for v in data.values():
+                autograd._make_leaf(v)
+        plan = self._plan(training, graph)
+        env = {n: data[n]._data if n in data
+               else self._params[n].data(ctx)._data
+               for _, n in plan[0]}
+        with torch.set_grad_enabled(graph):
+            outs, aux_writes = _execute(plan, env)
+        if training:
+            for n, v in aux_writes.items():
+                if n in self._params:
+                    self._params[n].set_data(NDArray(v.detach(), ctx=ctx))
+        outs = [NDArray(o, ctx=ctx) for o in outs]
+        for o in outs:
+            o._recorded = graph
+        return outs[0] if len(outs) == 1 else outs

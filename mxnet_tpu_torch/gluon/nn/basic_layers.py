@@ -1,8 +1,8 @@
-"""Basic layers: Sequential, HybridSequential, Dense, BatchNorm,
-Activation, Flatten.
+"""Basic layers: Sequential, HybridSequential, Dense, Dropout, BatchNorm,
+Embedding, Activation, Flatten.
 
 Counterpart of the subset of ``mxnet_tpu/gluon/nn/basic_layers.py`` that
-ResNet uses. Note the BatchNorm layer's defaults differ from the op's:
+ResNet and the language models use. Note the BatchNorm layer's defaults differ from the op's:
 the layer passes ``epsilon=1e-5`` and ``fix_gamma=not scale``, the op
 defaults to ``eps=1e-3, fix_gamma=True``.
 """
@@ -12,8 +12,8 @@ import numpy as np
 
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm", "Flatten",
-           "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "Embedding", "Flatten", "Activation"]
 
 
 class _SequentialMixin:
@@ -78,6 +78,21 @@ class Dense(HybridBlock):
         return out
 
 
+class Dropout(HybridBlock):
+    """Dropout of rate `rate` in training, shared along `axes`; the
+    identity in eval mode."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = tuple(axes)
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization; the running stats are parameters that train
     mode updates (captured and committed by a hybridized call)."""
@@ -135,6 +150,25 @@ class BatchNorm(HybridBlock):
             self.running_mean.set_data(new_mean)
             self.running_var.set_data(new_var)
         return out
+
+
+class Embedding(HybridBlock):
+    """Rows of an (input_dim, output_dim) weight at integer indices
+    (clipped into range, as the op clips them)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim), init=weight_initializer,
+            dtype=dtype, grad_stype="row_sparse" if sparse_grad
+            else "default")
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
 
 
 class Flatten(HybridBlock):

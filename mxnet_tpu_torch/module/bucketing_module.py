@@ -31,6 +31,7 @@ class BucketingModule(BaseModule):
         self._curr_module = None
         self._curr_bucket_key = None
         self._params_dirty = False
+        self._optimizer_module = None
 
     @property
     def default_bucket_key(self):
@@ -131,11 +132,7 @@ class BucketingModule(BaseModule):
             module.init_params(arg_params=arg_params, aux_params=aux_params,
                                allow_missing=False, force_init=True)
         if self.optimizer_initialized and not module.optimizer_initialized:
-            module._optimizer = default._optimizer
-            module._updater = default._updater
-            module._kvstore = default._kvstore
-            module._update_on_kvstore = default._update_on_kvstore
-            module.optimizer_initialized = True
+            self._borrow_optimizer(module)
         self._curr_module = module
         self._curr_bucket_key = bucket_key
 
@@ -147,7 +144,24 @@ class BucketingModule(BaseModule):
             return
         self._curr_module.init_optimizer(kvstore, optimizer, optimizer_params,
                                          force_init=force_init)
+        self._optimizer_module = self._curr_module
+        for module in self._buckets.values():
+            if module is not self._curr_module and module.binded:
+                self._borrow_optimizer(module)
         self.optimizer_initialized = True
+
+    def _borrow_optimizer(self, module):
+        """Share the optimizer and updater of the module that ran
+        init_optimizer, whichever bucket was current then (a score
+        before fit leaves another bucket current than the default; the
+        JAX package borrows from the default bucket's module and then
+        finds no updater, ROADMAP Queue 3)."""
+        source = self._optimizer_module
+        module._optimizer = source._optimizer
+        module._updater = source._updater
+        module._kvstore = source._kvstore
+        module._update_on_kvstore = source._update_on_kvstore
+        module.optimizer_initialized = True
 
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized

@@ -290,6 +290,22 @@ class NDArray:
     def __neg__(self):
         return _invoke("negative", [self])
 
+    # Ordering comparisons give 0/1 arrays (a loop predicate's form).
+    # == and != stay Python identity, which containers rely on.
+    def __lt__(self, other):
+        return _binary("broadcast_lesser", "_lesser_scalar", self, other)
+
+    def __le__(self, other):
+        return _binary("broadcast_lesser_equal", "_lesser_equal_scalar",
+                       self, other)
+
+    def __gt__(self, other):
+        return _binary("broadcast_greater", "_greater_scalar", self, other)
+
+    def __ge__(self, other):
+        return _binary("broadcast_greater_equal", "_greater_equal_scalar",
+                       self, other)
+
     def __hash__(self):
         return id(self)
 

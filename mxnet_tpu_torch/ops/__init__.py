@@ -2,6 +2,6 @@
 operator (counterpart of ``mxnet_tpu/ops/``)."""
 from . import registry
 from . import (elementwise, matrix, reduce, nn, optimizer_ops,  # noqa: F401
-               flash_attention)
+               flash_attention, sequence, rnn_ops, control_flow)
 
 __all__ = ["registry"]

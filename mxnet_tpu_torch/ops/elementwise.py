@@ -1,9 +1,10 @@
 """Elementwise binary, scalar and unary operators.
 
 Counterpart of the subset of ``mxnet_tpu/ops/elementwise.py`` that the
-served models and the losses use. Broadcast and elemwise variants share one
-implementation, as in the JAX package. Scalars keep the array's dtype
-(a Python number does not promote a torch tensor).
+served models, the losses and the recurrent cells use. Broadcast and
+elemwise variants share one implementation, as in the JAX package.
+Scalars keep the array's dtype (a Python number does not promote a
+torch tensor).
 """
 from __future__ import annotations
 
@@ -65,6 +66,8 @@ _UNARY = {
     "exp": torch.exp,
     "log": torch.log,
     "sign": torch.sign,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
 }
 for _name, _fn in _UNARY.items():
     register(_name)(_fn)
@@ -78,3 +81,9 @@ def _cast(a, dtype="float32"):
 @register("clip")
 def _clip(a, a_min=None, a_max=None):
     return torch.clamp(a, a_min, a_max)
+
+
+@register("where")
+def _where(cond, x, y):
+    """x where `cond` is non-zero, else y; `cond` gets no gradient."""
+    return torch.where(cond != 0, x, y)

@@ -1,7 +1,8 @@
-"""Shape-manipulation operators, ``dot`` and ``pick``.
+"""Shape-manipulation operators, ``dot``, ``pick`` and ``take``.
 
 Counterpart of the subset of ``mxnet_tpu/ops/matrix.py`` that the
-served models and the losses use, with MXNet's reshape special codes.
+served models, the losses and the recurrent cells use, with MXNet's
+reshape special codes.
 """
 from __future__ import annotations
 
@@ -91,3 +92,81 @@ def _pick(a, index, axis=-1, keepdims=False, mode="clip"):
     idx = torch.clamp(index.to(torch.int64), 0, a.shape[axis] - 1)
     out = torch.take_along_dim(a, idx.unsqueeze(axis), dim=axis)
     return out if keepdims else out.squeeze(axis)
+
+
+# -- the shape ops the recurrent cells compose (mxnet_tpu/ops/matrix.py
+# :106-352) -----------------------------------------------------------------
+
+@register("expand_dims")
+def _expand_dims(a, axis=0):
+    return a.unsqueeze(axis)
+
+
+@register("broadcast_axis", aliases=("broadcast_axes",))
+def _broadcast_axis(a, axis=(), size=()):
+    if isinstance(axis, int):
+        axis, size = (axis,), (size,)
+    target = list(a.shape)
+    for ax, s in zip(axis, size):
+        target[ax] = s
+    return a.expand(*target)
+
+
+@register("concat", aliases=("Concat",))
+def _concat(*arrays, dim=1, num_args=None):
+    return torch.cat(arrays, dim=dim)
+
+
+@register("stack")
+def _stack(*arrays, axis=0, num_args=None):
+    return torch.stack(arrays, dim=axis)
+
+
+@register("split", aliases=("SliceChannel", "slice_channel"))
+def _split(a, num_outputs=1, axis=1, squeeze_axis=False):
+    """`num_outputs` equal parts along `axis`; one part comes back as an
+    array, several as a tuple (the JAX op's convention)."""
+    n = int(num_outputs)
+    if a.shape[axis] % n:
+        raise ValueError("split: axis %d of size %d does not divide into %d"
+                         % (axis, a.shape[axis], n))
+    outs = torch.chunk(a, n, dim=axis)
+    if squeeze_axis:
+        outs = [o.squeeze(axis) for o in outs]
+    return tuple(outs) if n > 1 else outs[0]
+
+
+@register("slice_axis")
+def _slice_axis(a, axis=0, begin=0, end=None):
+    return a.narrow(axis, *_span(a.shape[axis], begin, end))
+
+
+def _span(n, begin, end):
+    """(start, length) of Python's slice(begin, end) over n items."""
+    start, stop, _ = slice(begin, end).indices(n)
+    return start, max(stop - start, 0)
+
+
+@register("take")
+def _take(a, indices, axis=0, mode="clip"):
+    """Rows of `a` along `axis` at `indices`, clipped into range (or
+    wrapped with ``mode="wrap"``): an index out of range never reaches
+    the device as such."""
+    idx = indices.to(torch.int64)
+    if mode == "wrap":
+        idx = torch.remainder(idx, a.shape[axis])
+    else:
+        idx = torch.clamp(idx, 0, a.shape[axis] - 1)
+    out = torch.index_select(a, axis, idx.reshape(-1))
+    axis = axis % a.ndim
+    return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+
+
+@register("zeros_like")
+def _zeros_like(a):
+    return torch.zeros_like(a)
+
+
+@register("ones_like")
+def _ones_like(a):
+    return torch.ones_like(a)

@@ -1,8 +1,9 @@
 """Neural-network operators on the served path.
 
-Counterpart of the subset of ``mxnet_tpu/ops/nn.py`` that ResNet and the
-served functions use: FullyConnected, Convolution, Pooling, BatchNorm,
-Activation, softmax, log_softmax and the SoftmaxOutput loss head.
+Counterpart of the subset of ``mxnet_tpu/ops/nn.py`` that ResNet, the
+served functions and the language models use: FullyConnected,
+Convolution, Pooling, BatchNorm, Activation, softmax, log_softmax, the
+SoftmaxOutput loss head, Dropout and Embedding.
 Convolution and the dense layer go to PyTorch's library calls, as the
 JAX package leaves them to XLA.
 
@@ -269,3 +270,31 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                                 float(ignore_label), bool(multi_output),
                                 bool(use_ignore), str(normalization),
                                 float(smooth_alpha))
+
+
+@register("Dropout", aliases=("dropout",), train_aware=True, needs_rng=True)
+def _dropout(data, p=0.5, mode="training", axes=(), training=False,
+             generator=None):
+    """Inverted dropout: in training (or ``mode="always"``) each element
+    is kept with probability 1 - p and scaled by 1 / (1 - p); `axes`
+    share one draw along the axes named. The draw comes from
+    `generator`, the device's (mxnet_tpu/ops/nn.py:510)."""
+    if not training and mode != "always":
+        return data
+    keep = 1.0 - float(p)
+    shape = tuple(1 if i in tuple(axes) else n
+                  for i, n in enumerate(data.shape))
+    mask = torch.empty(shape, dtype=data.dtype, device=data.device)
+    mask.bernoulli_(keep, generator=generator)
+    return data * (mask / keep)
+
+
+@register("Embedding", aliases=("embedding",))
+def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
+               sparse_grad=False):
+    """Rows of `weight` at the indices `data` (any float or integer
+    dtype), clipped into [0, input_dim) as the JAX op clips them: an
+    index out of range reads the nearest row and never reaches the card
+    as a device-side assert."""
+    idx = torch.clamp(data.to(torch.int64), 0, weight.shape[0] - 1)
+    return F.embedding(idx, weight)

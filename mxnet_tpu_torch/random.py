@@ -18,8 +18,8 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "advance", "host_seed", "get_state",
-           "set_state"]
+__all__ = ["seed", "generator", "for_device", "advance", "host_seed",
+           "get_state", "set_state"]
 
 _lock = threading.Lock()
 _root_seed = 0
@@ -58,6 +58,13 @@ def generator(ctx=None):
     device = (ctx if ctx is not None else current_context()).torch_device
     with _lock:
         return _generator_locked(device)
+
+
+def for_device(device):
+    """The torch.Generator of a ``torch.device`` (the RNG operators'
+    draw, on the device their inputs live on)."""
+    with _lock:
+        return _generator_locked(torch.device(device))
 
 
 def advance():

@@ -22,7 +22,10 @@ propagate, no memory is touched. An operator that reads a value on the
 host or allocates on a fixed device cannot run there and needs a shape
 rule of its own.
 
-``sym.contrib`` (the control-flow operators) is not ported yet.
+``sym.contrib`` (``symbol_contrib.py``) composes the control-flow
+operators. Their sub-graphs are node attrs that ``tojson()`` writes as
+opaque strings, as the JAX package does: such a graph binds and runs,
+but does not round-trip through JSON.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ _OP_PARAM_INPUTS = {
     "Convolution": [("weight", False, None), ("bias", False, "no_bias")],
     "BatchNorm": [("gamma", False, None), ("beta", False, None),
                   ("moving_mean", True, None), ("moving_var", True, None)],
+    "Embedding": [("weight", False, None)],
+    "RNN": [("parameters", False, None)],
     # Loss heads auto-create their label input, named <name>_label.
     "SoftmaxOutput": [("label", False, None)],
 }
@@ -52,10 +57,9 @@ _OP_PARAM_INPUTS = {
 # Ops that have an auto-parameter rule in the JAX package but no port
 # yet (mxnet_tpu/symbol.py:35-149).
 _UNPORTED_RULE_OPS = frozenset((
-    "Deconvolution", "LayerNorm", "InstanceNorm", "Embedding", "RNN",
-    "LinearRegressionOutput", "LogisticRegressionOutput",
-    "MAERegressionOutput", "_contrib_quantized_conv",
-    "_contrib_quantized_fully_connected"))
+    "Deconvolution", "LayerNorm", "InstanceNorm", "LinearRegressionOutput",
+    "LogisticRegressionOutput", "MAERegressionOutput",
+    "_contrib_quantized_conv", "_contrib_quantized_fully_connected"))
 
 
 def _fc_shapes(attrs, dshape):
@@ -84,6 +88,24 @@ def _bn_shapes(attrs, dshape):
             "moving_var": (c,)}
 
 
+def _embedding_shapes(attrs, dshape):
+    return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
+
+
+def _rnn_shapes(attrs, dshape):
+    """dshape (T, N, input): the flat parameter vector and the states."""
+    from .ops.rnn_ops import rnn_param_size
+
+    num_layers = int(attrs["num_layers"])
+    state_size = int(attrs["state_size"])
+    bidir = bool(attrs.get("bidirectional", False))
+    state = (num_layers * (2 if bidir else 1), dshape[1], state_size)
+    return {"parameters": (rnn_param_size(num_layers, state_size, dshape[2],
+                                          attrs.get("mode", "lstm"),
+                                          bidir),),
+            "state": state, "state_cell": state}
+
+
 def _softmax_out_shapes(attrs, dshape):
     if attrs.get("multi_output", False):
         return {"label": (dshape[0],) + tuple(dshape[2:])}
@@ -96,7 +118,18 @@ _PARAM_SHAPE_RULES = {
     "FullyConnected": _fc_shapes,
     "Convolution": _conv_shapes,
     "BatchNorm": _bn_shapes,
+    "Embedding": _embedding_shapes,
+    "RNN": _rnn_shapes,
     "SoftmaxOutput": _softmax_out_shapes,
+}
+
+# Ops whose output count depends on attrs (mxnet_tpu/symbol.py:640-647).
+_NUM_OUTPUT_RULES = {
+    "split": lambda a: int(a.get("num_outputs", 1)),
+    "SliceChannel": lambda a: int(a.get("num_outputs", 1)),
+    "slice_channel": lambda a: int(a.get("num_outputs", 1)),
+    "RNN": lambda a: (3 if a.get("mode", "lstm") == "lstm" else 2)
+    if a.get("state_outputs") else 1,
 }
 
 
@@ -586,6 +619,11 @@ def _invoke_sym(op_name, lhs, rhs):
 _SYM_FUNC_CACHE = {}
 
 
+def _num_outputs(op_name, attrs):
+    rule = _NUM_OUTPUT_RULES.get(op_name)
+    return rule(attrs) if rule else 1
+
+
 def _scoped_attrs(attrs, attr):
     from .attribute import current_attrs
 
@@ -607,7 +645,8 @@ def _make_symbol_op(op_name):
     op = _op(op_name)
     try:
         sig = inspect.signature(op.fn)
-        sig_params = list(sig.parameters)
+        # An RNG op's generator is passed at run time, never composed.
+        sig_params = [p for p in sig.parameters if p != "generator"]
         has_varargs = any(p.kind == inspect.Parameter.VAR_POSITIONAL
                           for p in sig.parameters.values())
     except (TypeError, ValueError):
@@ -633,7 +672,8 @@ def _make_symbol_op(op_name):
                     attrs_v[k] = v
             attrs_v["_op_name"] = op_name
             return Symbol(op_name, attrs=_scoped_attrs(attrs_v, attr),
-                          inputs=inputs_v, name=name_)
+                          inputs=inputs_v, name=name_,
+                          num_outputs=_num_outputs(op_name, attrs_v))
         inputs = {}
         attrs = {}
         pos = 0
@@ -674,7 +714,8 @@ def _make_symbol_op(op_name):
         extra = [v for k, v in inputs.items() if k not in sig_params]
         attrs["_op_name"] = op_name
         return Symbol(op_name, attrs=_scoped_attrs(attrs, attr),
-                      inputs=ordered + extra, name=name_)
+                      inputs=ordered + extra, name=name_,
+                      num_outputs=_num_outputs(op_name, attrs))
 
     sym_op.__name__ = op_name
     _SYM_FUNC_CACHE[op_name] = sym_op
@@ -685,8 +726,7 @@ def __getattr__(name):
     if name.startswith("__"):
         raise AttributeError(name)
     if name == "contrib":
-        raise NotImplementedError(
-            "sym.contrib (the control-flow operators of "
-            "mxnet_tpu/symbol_contrib.py) is not ported yet (ROADMAP "
-            "Queue 1 item 6)")
+        from . import symbol_contrib
+
+        return symbol_contrib
     return _make_symbol_op(name)

@@ -168,7 +168,8 @@ def test_unported_ops_raise():
     data = mx.sym.var("data")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         mx.sym.LayerNorm(data)
-    with pytest.raises(NotImplementedError, match="symbol_contrib"):
-        mx.sym.contrib
+    # Ported since: sym.contrib's control flow, Embedding and RNN.
+    assert callable(mx.sym.contrib.while_loop)
+    mx.sym.Embedding(data, input_dim=4, output_dim=2)
     with pytest.raises(AttributeError):
         mx.sym.NoSuchOp(data)
