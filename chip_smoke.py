@@ -22,7 +22,8 @@ phase falls back to the host or to a plain version):
    library call that computes the same function, and its bound: the
    forward (K1) at the serving shape, the backward (K2 dK/dV, K3 dQ) at
    the training shape, with the backward's peak memory held below one
-   fp32 score matrix.
+   fp32 score matrix; the fp32 (FFMA) route of each at the same shape,
+   beside its fp32 bound and SDPA's fp32 call (the rows' ``fp32``).
 4. attention served: ``InferenceServer`` over
    ``nd.contrib.flash_attention`` (16 heads x 64, T 2048, causal, bf16).
 5. ResNet-50 v1 served at full width (224x224, 1000 classes, buckets
@@ -152,8 +153,34 @@ phase falls back to the host or to a plain version):
    are held to the op's. The loop predicates read on the host are
    counted. No kernel of the port lies on this path.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16) is driven with every
-launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
+17. core surface: the operators of ``mxnet_tpu/ops/{elementwise,matrix,
+   reduce,nn,random_ops}.py`` that the core surface's first half registers
+   (``CORE_SURFACE_NAMES``: 186 names, 130 operators), at the widths of
+   the port's models (``SURFACE``): (a) each deterministic operator
+   forward, and backward where it has a gradient, on the card against
+   the same operator on the host in float64 (the first, the last and one
+   row drawn from the seed where the op acts on rows independently), per
+   family within ``SURFACE_TOL``
+   (exact for data movement, orderings and indices; the indices of an
+   ordering on untied rows), one line per family with its count, worst
+   share of its limit and the device ms of its largest operator; the
+   accumulating operators twice under ``torch.use_deterministic_
+   algorithms`` (set, then restored) with equal bits; (b) every RNG
+   operator draws 10^6 values on the card, held to its law (KS or
+   chi-square, p > ``P_LAW``), and a reseed replays them bit for bit;
+   the operators run must be exactly those registered; (c) ResNet-50 v1
+   (224x224, 1000 classes, b32, fp32, TF32 off) built under
+   ``name_scope`` and initialized with ``MSRAPrelu``, trained 20 steps
+   on one batch placed by ``gluon.utils.split_and_load``, with random
+   crops (``nd.random.uniform`` offsets, ``nd.slice``) and mirrors
+   (``nd.flip``), ``gluon.utils.clip_global_norm``, ``gluon.Trainer``
+   (SGD) and ``TopKAccuracy(5)``: the norm equals the host's float64
+   norm of the same gradients within 1e-5, ``nd.topk`` of the logits
+   equals ``torch.topk``, the loss is finite and falls; its img/s
+   beside phase 11's (a reading).
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17) is driven with
+every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
 ``library_ms`` are CUDA-event medians of 20 single calls after warmup
@@ -166,6 +193,7 @@ median of back-to-back calls.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -529,10 +557,22 @@ def phase_kernels(card):
     bound_ms, bound_by, flops, nbytes = attention_bound(
         card, b, h, t, t, d, True, dt)
     # The fp32 (FFMA) kernel at the same shape: the design every dtype
-    # ran before the tensor-core kernel.
+    # ran before the tensor-core kernel; read beside its fp32 bound and
+    # SDPA's fp32 forward (TF32 off), with no gate.
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    fp32_ms = time_ms(lambda: fa.flash_attention_forward(q32, k32, v32,
-                                                         causal=True))
+
+    def kernel32():
+        return fa.flash_attention_forward(q32, k32, v32, causal=True)
+
+    def library32():
+        return F.scaled_dot_product_attention(q32, k32, v32, is_causal=True)
+
+    fp32_ms = time_ms(kernel32)
+    fp32 = fp32_row(card, fp32_ms, time_queued(kernel32),
+                    attention_bound(card, b, h, t, t, d, True,
+                                    torch.float32),
+                    time_ms(library32), time_queued(library32),
+                    "F.scaled_dot_product_attention, fp32")
     del q32, k32, v32
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -543,13 +583,28 @@ def phase_kernels(card):
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_device_ms": library_device_ms,
         "design": DESIGN["flash_attention_fwd"],
-        "fp32_ms": fp32_ms,
+        "fp32_ms": fp32_ms, "fp32": fp32,
         "bound_share": bound_ms / kernel_ms,
         "max_abs_err_by_dtype": by_dtype,
         "shape": [b, h, t, d], "dtype": "bfloat16", "causal": True,
         "flops": flops, "bytes": nbytes,
         "achieved_tflops": flops / kernel_ms / 1e9,
     }
+
+
+def fp32_row(card, ms, device_ms, bound, library_ms, library_device_ms,
+             library_call):
+    """The reading of an attention kernel's fp32 (FFMA) route: its time
+    one call at a time and on the device, its bound (operations over
+    the fp32 peak or bytes over the memory rate, the larger), and the
+    library call's times at the same shape."""
+    bound_ms, bound_by, flops, nbytes = bound
+    return {"ms": ms, "device_ms": device_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / device_ms,
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
+            "library_call": library_call, "flops": flops, "bytes": nbytes,
+            "achieved_tflops": flops / device_ms / 1e9}
 
 
 def _fold_error(by_dtype, dtype, got, want, rtol, atol):
@@ -696,14 +751,35 @@ def phase_backward_kernels(card):
                                    retain_graph=True)
 
     library_ms, library_device_ms = time_ms(library), time_queued(library)
-    # The fp32 (FFMA) kernels at the same shape, as for K1.
+    # The fp32 (FFMA) kernels at the same shape, as for K1, from an fp32
+    # forward's LSE and delta, beside their fp32 bounds and SDPA's fp32
+    # backward (TF32 off).
     q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
-    fp32_ms = {
-        "dkv": time_ms(lambda: fa.launch_bwd_dkv(
-            q32, k32, v32, g32, lse, delta, True, d ** -0.5)),
-        "dq": time_ms(lambda: fa.launch_bwd_dq(
-            q32, k32, v32, g32, lse, delta, True, d ** -0.5))}
-    del q32, k32, v32, g32
+    out32, lse32 = fa.flash_attention_forward(q32, k32, v32, causal=True)
+    delta32 = (g32 * out32).sum(-1).contiguous()
+    kernels32 = {
+        "dkv": lambda: fa.launch_bwd_dkv(q32, k32, v32, g32, lse32, delta32,
+                                         True, d ** -0.5),
+        "dq": lambda: fa.launch_bwd_dq(q32, k32, v32, g32, lse32, delta32,
+                                       True, d ** -0.5)}
+    fp32_ms = {w: time_ms(fn) for w, fn in kernels32.items()}
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q32, k32,
+                                                                  v32))
+    lib_out32 = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+    def library32():
+        return torch.autograd.grad(lib_out32, (lq, lk, lv), g32,
+                                   retain_graph=True)
+
+    lib32_ms, lib32_device_ms = time_ms(library32), time_queued(library32)
+    fp32 = {w: fp32_row(card, fp32_ms[w], time_queued(fn),
+                        backward_bound(card, b, h, t, t, d, True,
+                                       torch.float32, w),
+                        lib32_ms, lib32_device_ms,
+                        "backward of F.scaled_dot_product_attention, fp32 "
+                        "(dq, dk and dv together)")
+            for w, fn in kernels32.items()}
+    del q32, k32, v32, g32, out32, lse32, delta32, lq, lk, lv, lib_out32
     entries = []
     for name, which, ms, plain_ms, replaces in (
             ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_dkv_ms,
@@ -724,6 +800,7 @@ def phase_backward_kernels(card):
             "library_call": "backward of F.scaled_dot_product_attention "
                             "(dq, dk and dv together)",
             "design": DESIGN[name], "fp32_ms": fp32_ms[which],
+            "fp32": fp32[which],
             "bound_share": bound_ms / ms,
             "max_abs_err_by_dtype": by_dtype[which],
             "shape": [b, h, t, d], "dtype": "bfloat16", "causal": True,
@@ -1696,7 +1773,7 @@ def phase_checkpoint_served():
     return result
 
 
-# -- slice 7: the imperative trainer (gluon.Trainer) ---------------------------
+# -- slice 7: the imperative trainer (gluon.Trainer) --------------------------
 
 TRAINER_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 RESNET50_TRAINABLE = 161
@@ -3555,6 +3632,825 @@ def phase_recurrent(card_line):
     return result
 
 
+# -- phase 17: the core surface -----------------------------------------------
+
+# The operator names of mxnet_tpu/ops/{elementwise,matrix,reduce,nn,
+# random_ops}.py that the core surface's first half registers in the port
+# (130 operators; "identity" gains two aliases).
+CORE_SURFACE_NAMES = (
+    "BilinearSampler", "BlockGrad", "Deconvolution", "GridGenerator",
+    "InstanceNorm", "L2Normalization", "LRN", "LayerNorm", "LeakyReLU",
+    "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput", "MakeLoss", "Pad", "SoftmaxActivation",
+    "SpatialTransformer", "SwapAxis", "UpSampling", "_arange", "_arctan2",
+    "_copy", "_full", "_hypot", "_index", "_logical_and", "_logical_or",
+    "_logical_xor", "_maximum", "_maximum_scalar", "_minimum",
+    "_minimum_scalar", "_mod", "_mod_scalar", "_ones", "_random_exponential",
+    "_random_gamma", "_random_generalized_negative_binomial",
+    "_random_negative_binomial", "_random_normal", "_random_poisson",
+    "_random_randint", "_random_uniform", "_rmod_scalar", "_rpower_scalar",
+    "_sample_exponential", "_sample_gamma", "_sample_multinomial",
+    "_sample_normal", "_sample_poisson", "_sample_uniform",
+    "_sample_unique_zipfian", "_scatter_nd_add", "_scatter_set_nd",
+    "_shuffle", "_zeros", "arange", "arccos", "arccosh", "arcsin", "arcsinh",
+    "arctan", "arctan2", "arctanh", "argmax", "argmax_channel", "argmin",
+    "argsort", "batch_dot", "batch_take", "bilinear_sampler",
+    "broadcast_hypot", "broadcast_like", "broadcast_logical_and",
+    "broadcast_logical_or", "broadcast_logical_xor", "broadcast_maximum",
+    "broadcast_minimum", "broadcast_mod", "broadcast_to", "cbrt", "ceil",
+    "cos", "cosh", "crop", "cumsum", "deconvolution", "degrees",
+    "depth_to_space", "diag", "erf", "erfinv", "expm1", "fix", "flip",
+    "floor", "full", "gamma", "gammaln", "gather_nd", "grid_generator",
+    "histogram", "identity_with_attr_like_rhs", "instance_norm", "isinf",
+    "isnan", "l2_normalization", "layer_norm", "leaky_relu",
+    "linear_regression_output", "log10", "log1p", "log2", "logical_not",
+    "logistic_regression_output", "lrn", "mae_regression_output", "make_loss",
+    "make_loss_grad_block", "max", "maximum", "min", "minimum", "moveaxis",
+    "multinomial", "nanprod", "nansum", "normal", "normal_like", "one_hot",
+    "ones", "pad", "prod", "radians", "randint", "random_exponential",
+    "random_gamma", "random_generalized_negative_binomial",
+    "random_negative_binomial", "random_normal", "random_poisson",
+    "random_randint", "random_uniform", "ravel_multi_index", "rcbrt",
+    "reciprocal", "repeat", "reshape_like", "reverse", "rint", "round",
+    "rsqrt", "sample_exponential", "sample_gamma", "sample_multinomial",
+    "sample_normal", "sample_poisson", "sample_uniform", "scatter_nd",
+    "shape_array", "shuffle", "sin", "sinh", "size_array", "slice",
+    "slice_like", "smooth_l1", "softmax_activation", "softmax_cross_entropy",
+    "softmin", "softsign", "sort", "space_to_depth", "spatial_transformer",
+    "squeeze", "stop_gradient", "sum_axis", "sum_mid_internal", "swapaxes",
+    "tan", "tile", "topk", "trunc", "uniform", "unravel_index", "upsampling",
+    "zeros",
+)
+
+# Model widths the sweep runs at: ResNet-50's stage-1 activation, the
+# ImageNet logits, the LM's 32 x 60 tokens over a 10 000-word vocabulary,
+# a Gram product, the LM's and BERT-base's LayerNorm inputs, an FCN's
+# 21-class score map, STN input images.
+SURFACE = {"act": (32, 256, 56, 56), "logits": (32, 1000),
+           "lm": (32 * 60, 10000), "tokens": (32, 60), "gram": (1, 512, 4096),
+           "ln_lm": (32, 35, 200), "ln_bert": (32, 128, 768),
+           "score": (32, 21, 7, 7), "image": (32, 3, 224, 224),
+           "lrn": (32, 96, 55, 55), "draws": 1_000_000}
+
+# (rtol, atol as a share of max |want|) per family: the card in fp32
+# against the host in float64 (forward and gradients). "exact" ops (data
+# movement, orderings, creation, indices) are held bit for bit.
+SURFACE_TOL = {"elementwise": (1e-5, 1e-6), "reduce": (1e-4, 1e-5),
+               "ordering": (0.0, 0.0), "matrix": (0.0, 0.0),
+               "linalg": (1e-4, 1e-5), "nn": (1e-4, 1e-5),
+               "resampling": (1e-4, 1e-4)}
+SURFACE_GRAD_TOL = (1e-4, 1e-5)
+
+
+class _Case:
+    """One run of an operator in the sweep: `make(gen, dev)` gives
+    (input tensors, attrs); `grad` is None (forward only), "head" (a
+    random head gradient), "compose" (the gradient of op(x) * x),
+    "loss" (a head of ones); `wrt` the inputs differentiated; `rows`
+    True where the op acts on rows independently, so that the host
+    computes only the rows of `_host_rows` (None: all rows);
+    `host_dtype` the host's float dtype."""
+
+    def __init__(self, op, family, make, grad="head", wrt=None, rows=True,
+                 host_dtype=torch.float64):
+        self.op, self.family, self.make = op, family, make
+        self.grad, self.wrt, self.rows = grad, wrt, rows
+        self.host_dtype = host_dtype
+
+
+def _host_rows(batch):
+    """The rows of a batch the host recomputes: the first, the last and
+    one between them drawn from the seed, so that a fault that depends
+    on the row index shows."""
+    middle = np.random.default_rng(SEED + batch).integers(1, batch - 1) \
+        if batch > 2 else 0
+    return sorted({0, int(middle), batch - 1})
+
+
+def _rand(gen, dev, shape, lo=-1.0, hi=1.0):
+    return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+
+def _away(gen, dev, shape, scale=1.0):
+    """Uniform in [-scale, scale] at least 0.15 scale from 0."""
+    x = _rand(gen, dev, shape)
+    return torch.where(x.abs() < 0.15, x + 0.3, x) * scale
+
+
+def _mod_pair(gen, dev, shape, b=None):
+    """(a, b) with a / b at least 0.05 from an integer, so fp32's floor
+    of a / b agrees with float64's: a = (k + f) b."""
+    if b is None:
+        b = _rand(gen, dev, shape, 0.5, 2.0)
+    k = torch.randint(-5, 5, shape, generator=gen, device=dev).float()
+    return (k + _rand(gen, dev, shape, 0.05, 0.95)) * b, b
+
+
+def _with_nan(gen, dev, shape, lo=-1.0, hi=1.0):
+    x = _rand(gen, dev, shape, lo, hi)
+    return torch.where(_rand(gen, dev, shape, 0, 1) < 0.05,
+                       torch.full_like(x, float("nan")), x)
+
+
+def _idx(gen, dev, n, high):
+    return torch.randint(0, high, (n,), generator=gen, device=dev).float()
+
+
+def _surface_cases():
+    """Every deterministic operator of CORE_SURFACE_NAMES at a model's
+    width; orderings and one_hot at two widths."""
+    S = SURFACE
+    act, lm, logits = S["act"], S["lm"], S["logits"]
+    pooled = act[:2] + (1, 1)
+    cases = []
+
+    def add(op, family, make, **kw):
+        cases.append(_Case(op, family, make, **kw))
+
+    def unary(op, lo=-1.0, hi=1.0, **kw):
+        add(op, "elementwise",
+            lambda g, d: ([_rand(g, d, act, lo, hi)], {}), **kw)
+
+    for op in ("identity", "expm1", "sin", "cos", "arctan", "degrees",
+               "radians", "sinh", "arcsinh", "erf", "softsign"):
+        unary(op)
+    unary("cosh", -3.0, 3.0)
+    unary("tan", -1.2, 1.2)
+    for op in ("reciprocal", "rsqrt", "log10", "log2", "log1p"):
+        unary(op, 0.2, 4.0)
+    for op in ("arcsin", "arccos", "arctanh"):
+        unary(op, -0.9, 0.9)
+    unary("erfinv", -0.95, 0.95)
+    unary("arccosh", 1.1, 4.0)
+    for op in ("gamma", "gammaln"):
+        unary(op, 0.2, 6.0)
+    for op in ("cbrt", "rcbrt"):
+        add(op, "elementwise", lambda g, d: ([_away(g, d, act, 3.0)], {}))
+    add("smooth_l1", "elementwise",
+        lambda g, d: ([_away(g, d, act, 2.0)], {"scalar": 1.0}))
+    for op in ("round", "rint", "ceil", "floor", "trunc", "fix"):
+        unary(op, -4.0, 4.0, grad=None)
+    add("logical_not", "elementwise",
+        lambda g, d: ([torch.round(_rand(g, d, act))], {}), grad=None)
+    for op in ("isnan", "isinf"):
+        add(op, "elementwise", lambda g, d: ([torch.where(
+            _rand(g, d, act, 0, 1) < 0.05, torch.tensor(
+                [float("nan"), float("inf")], device=d)[
+                torch.randint(0, 2, act, generator=g, device=d)],
+            _rand(g, d, act))], {}), grad=None)
+    add("stop_gradient", "elementwise",
+        lambda g, d: ([_rand(g, d, act)], {}), grad="compose")
+    # Binary: a channel-broadcast operand (its gradient sums over the
+    # batch: the host takes every row), then full operands.
+    for op in ("broadcast_maximum", "broadcast_hypot"):
+        add(op, "elementwise", lambda g, d: (
+            [_away(g, d, act), _away(g, d, pooled) + 0.05], {}), rows=None)
+    for op in ("broadcast_minimum", "arctan2"):
+        add(op, "elementwise", lambda g, d: (
+            [_away(g, d, act), _away(g, d, act) + 0.05], {}))
+    add("broadcast_mod", "elementwise",
+        lambda g, d: (list(_mod_pair(g, d, act)), {}))
+    for op in ("broadcast_logical_and", "broadcast_logical_or",
+               "broadcast_logical_xor"):
+        add(op, "elementwise", lambda g, d: (
+            [torch.round(_rand(g, d, act)), torch.round(_rand(g, d, act))],
+            {}), grad=None)
+    for op in ("_maximum_scalar", "_minimum_scalar"):
+        add(op, "elementwise",
+            lambda g, d: ([_away(g, d, act)], {"scalar": 0.0}))
+    add("_mod_scalar", "elementwise", lambda g, d: (
+        [_mod_pair(g, d, act, torch.full(act, 1.7, device=d))[0]],
+        {"scalar": 1.7}))
+    add("_rmod_scalar", "elementwise", lambda g, d: (
+        [2.3 / (torch.randint(1, 4, act, generator=g, device=d).float()
+                + _rand(g, d, act, 0.05, 0.95))], {"scalar": 2.3}))
+    add("_rpower_scalar", "elementwise",
+        lambda g, d: ([_rand(g, d, act, -3, 3)], {"scalar": 1.7}))
+
+    # Reductions over the spatial axes (rows independent).
+    for op in ("max", "min"):
+        add(op, "reduce", lambda g, d: ([_rand(g, d, act)],
+                                        {"axis": (2, 3)}))
+    add("prod", "reduce",
+        lambda g, d: ([_rand(g, d, act, 0.99, 1.01)], {"axis": (2, 3)}))
+    add("nansum", "reduce",
+        lambda g, d: ([_with_nan(g, d, act)], {"axis": (2, 3)}))
+    add("nanprod", "reduce", lambda g, d: (
+        [_with_nan(g, d, act, 0.99, 1.01)], {"axis": (2, 3)}))
+    add("sum_axis", "reduce",
+        lambda g, d: ([_rand(g, d, act)], {"axis": 1}))
+    add("cumsum", "reduce", lambda g, d: ([_rand(g, d, act)], {"axis": 3}))
+    add("_scatter_nd_add", "reduce", lambda g, d: (
+        [_rand(g, d, (2 * lm[0],)),
+         torch.stack([_idx(g, d, 2 * lm[0], lm[0]),
+                      _idx(g, d, 2 * lm[0], lm[1])])],
+        {"shape": lm}), wrt=(0,), rows=None)
+
+    # Orderings, exact, at the logits' and the LM's widths.
+    for shape in (logits, lm):
+        for op in ("argmax", "argmin"):
+            add(op, "ordering", lambda g, d, s=shape: (
+                [_rand(g, d, s)], {"axis": 1}), grad=None)
+        add("sort", "ordering",
+            lambda g, d, s=shape: ([_rand(g, d, s)], {"axis": 1,
+                                                      "is_ascend": False}))
+        add("argsort", "ordering",
+            lambda g, d, s=shape: ([_rand(g, d, s)], {"axis": 1}), grad=None)
+        add("topk", "ordering", lambda g, d, s=shape: (
+            [_rand(g, d, s)], {"axis": 1, "k": 5, "ret_typ": "both"}),
+            grad=None)
+        add("one_hot", "matrix", lambda g, d, s=shape: (
+            [_idx(g, d, s[0], s[1])], {"depth": s[1]}), grad=None)
+    add("argmax_channel", "ordering",
+        lambda g, d: ([_rand(g, d, logits)], {}), grad=None)
+    add("histogram", "ordering", lambda g, d: (
+        [torch.randn(act, generator=g, device=d)],
+        {"bin_cnt": 20, "range": (-3.0, 3.0)}), grad=None, rows=None,
+        host_dtype=torch.float32)
+
+    # Shape, indexing and creation: exact.
+    def shaped(op, attrs, **kw):
+        add(op, "matrix", lambda g, d: ([_rand(g, d, act)], dict(attrs)),
+            **kw)
+
+    shaped("_index", {"key": (slice(None), slice(0, 128),
+                              slice(None, None, 2))})
+    shaped("slice", {"begin": (None, 0, 4, None), "end": (None, 128, 52,
+                                                          None),
+                     "step": (None, 2, 1, -1)})
+    shaped("tile", {"reps": (1, 1, 2, 1)})
+    shaped("repeat", {"repeats": 2, "axis": 3})
+    for mode in ("constant", "edge", "reflect"):
+        shaped("pad", {"mode": mode, "pad_width": (0, 0, 0, 0, 1, 1, 1, 1),
+                       "constant_value": 0.5})
+    shaped("flip", {"axis": 3})
+    shaped("swapaxes", {"dim1": 1, "dim2": 3})
+    shaped("moveaxis", {"source": 1, "destination": 3})
+    shaped("depth_to_space", {"block_size": 2})
+    shaped("space_to_depth", {"block_size": 2})
+    shaped("shape_array", {}, grad=None, rows=None,
+           host_dtype=torch.float32)
+    shaped("size_array", {}, grad=None, rows=None, host_dtype=torch.float32)
+    add("slice_like", "matrix", lambda g, d: (
+        [_rand(g, d, act), _rand(g, d, act[:2] + (act[2] // 2,) * 2)], {}),
+        wrt=(0,))
+    add("reshape_like", "matrix", lambda g, d: (
+        [_rand(g, d, act), _rand(g, d, (act[0], act[1] * act[2] * act[3]))],
+        {}), wrt=(0,))
+    add("squeeze", "matrix",
+        lambda g, d: ([_rand(g, d, pooled)], {"axis": (2, 3)}))
+    add("broadcast_to", "matrix",
+        lambda g, d: ([_rand(g, d, pooled)], {"shape": (0,) + act[1:]}))
+    add("broadcast_like", "matrix", lambda g, d: (
+        [_rand(g, d, pooled), _rand(g, d, act)], {}), wrt=(0,))
+    add("batch_take", "matrix", lambda g, d: (
+        [_rand(g, d, lm), _idx(g, d, lm[0], lm[1])], {}), wrt=(0,))
+    rows_cols = (lambda g, d: torch.stack([
+        torch.arange(lm[0], device=d).float(), _idx(g, d, lm[0], lm[1])]))
+    add("gather_nd", "matrix", lambda g, d: (
+        [_rand(g, d, lm), rows_cols(g, d)], {}), wrt=(0,), rows=None)
+    add("scatter_nd", "matrix", lambda g, d: (
+        [_rand(g, d, (lm[0],)), rows_cols(g, d)], {"shape": lm}), wrt=(0,),
+        rows=None)
+    add("_scatter_set_nd", "matrix", lambda g, d: (
+        [_rand(g, d, lm), rows_cols(g, d).long()], {"value": 0.5}),
+        grad=None, rows=None)
+    add("ravel_multi_index", "matrix", lambda g, d: (
+        [rows_cols(g, d)], {"shape": lm}), grad=None, rows=None)
+    add("unravel_index", "matrix", lambda g, d: (
+        [_idx(g, d, lm[0], lm[0] * lm[1])], {"shape": lm}), grad=None,
+        rows=None)
+    add("diag", "matrix", lambda g, d: ([_rand(g, d, S["gram"][1:2] * 2)],
+                                        {}), rows=None)
+    add("arange", "matrix", lambda g, d: (
+        [], {"start": 0.0, "stop": float(lm[1]), "step": 1.0}), grad=None,
+        rows=None)
+    add("zeros", "matrix", lambda g, d: ([], {"shape": act}), grad=None,
+        rows=None)
+    add("ones", "matrix", lambda g, d: ([], {"shape": act}), grad=None,
+        rows=None)
+    add("full", "matrix", lambda g, d: ([], {"shape": act, "value": 2.5}),
+        grad=None, rows=None)
+
+    add("batch_dot", "linalg", lambda g, d: (
+        [_rand(g, d, S["gram"]), _rand(g, d, S["gram"])],
+        {"transpose_b": True}), rows=None)
+
+    # Normalization, activations, losses.
+    for shape in (S["ln_lm"], S["ln_bert"]):
+        add("LayerNorm", "nn", lambda g, d, s=shape: (
+            [_rand(g, d, s), _rand(g, d, s[-1:], 0.5, 1.5),
+             _rand(g, d, s[-1:])], {}), rows=None)
+    add("InstanceNorm", "nn", lambda g, d: (
+        [_rand(g, d, act), _rand(g, d, act[1:2], 0.5, 1.5),
+         _rand(g, d, act[1:2])], {"eps": 1e-5}), rows=None)
+    add("L2Normalization", "nn",
+        lambda g, d: ([_rand(g, d, act)], {"mode": "instance"}))
+    add("LRN", "nn", lambda g, d: ([_rand(g, d, S["lrn"], 0, 1)],
+                                   {"nsize": 5}))
+    for act_type in ("leaky", "elu", "selu", "gelu", "rrelu"):
+        add("LeakyReLU", "nn", lambda g, d, t=act_type: (
+            [_away(g, d, act, 3.0)], {"act_type": t, "slope": 0.2}))
+    add("LeakyReLU", "nn", lambda g, d: (
+        [_away(g, d, act, 3.0), _rand(g, d, act[1:2], 0, 0.5)],
+        {"act_type": "prelu"}), wrt=(0,))
+    add("SoftmaxActivation", "nn",
+        lambda g, d: ([_rand(g, d, logits, -5, 5)], {}), rows=None)
+    add("SoftmaxActivation", "nn",
+        lambda g, d: ([_rand(g, d, act, -5, 5)], {"mode": "channel"}))
+    add("softmin", "nn", lambda g, d: ([_rand(g, d, logits, -5, 5)], {}),
+        rows=None)
+    add("softmax_cross_entropy", "nn", lambda g, d: (
+        [_rand(g, d, logits, -5, 5), _idx(g, d, logits[0], logits[1])], {}),
+        wrt=(0,), rows=None)
+    for op in ("LinearRegressionOutput", "LogisticRegressionOutput",
+               "MAERegressionOutput"):
+        add(op, "nn", lambda g, d: (
+            [_rand(g, d, logits), _rand(g, d, logits, 0, 1)],
+            {"grad_scale": 0.5}), wrt=(0,), rows=None)
+    add("make_loss", "nn", lambda g, d: (
+        [_rand(g, d, (logits[0],), 0, 2)],
+        {"grad_scale": 0.5, "normalization": "valid", "valid_thresh": 0.5}),
+        grad="loss", rows=None)
+
+    # Resampling: an FCN's 21-class scores upsampled x2 and x32, STN
+    # sampling of 224 x 224 images.
+    score = S["score"]
+    for k, stride, pad in ((4, 2, 1), (64, 32, 16)):
+        add("Deconvolution", "resampling", lambda g, d, k=k, st=stride,
+            p=pad: ([_rand(g, d, score), _rand(g, d, (score[1], 1, k, k))],
+                    {"kernel": (k, k), "stride": (st, st), "pad": (p, p),
+                     "num_filter": score[1], "num_group": score[1],
+                     "no_bias": True}), rows=None)
+    for scale in (2, 32):
+        add("UpSampling", "resampling", lambda g, d, sc=scale: (
+            [_rand(g, d, score)], {"scale": sc, "sample_type": "nearest"}))
+    add("UpSampling", "resampling", lambda g, d: (
+        [_rand(g, d, score)], {"scale": 2, "sample_type": "bilinear"}))
+    image = S["image"]
+
+    def theta(g, d):
+        eye = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=d)
+        return eye + 0.1 * _rand(g, d, (image[0], 6))
+
+    add("GridGenerator", "resampling", lambda g, d: (
+        [theta(g, d)], {"transform_type": "affine",
+                        "target_shape": image[2:]}), rows=None)
+    def grid(g, d):
+        """Sampling points k + f pixels from the corner, f in [0.05,
+        0.95], some beyond the edges: the gradient to the grid jumps
+        where a point crosses a pixel, so none lies within rounding of
+        one."""
+        shape = (image[0], 2) + image[2:]
+        side = torch.tensor([image[3], image[2]], device=d).view(1, 2, 1, 1)
+        k = torch.floor(_rand(g, d, shape, 0.0, 1.0) * (side + 3)) - 2
+        pix = k + _rand(g, d, shape, 0.05, 0.95)
+        return 2 * pix / (side - 1) - 1
+
+    add("BilinearSampler", "resampling", lambda g, d: (
+        [_rand(g, d, image), grid(g, d)], {}))
+    # The gradient to `loc` sums that jumping gradient over every
+    # sampled pixel: held through BilinearSampler's grid above instead.
+    add("SpatialTransformer", "resampling", lambda g, d: (
+        [_rand(g, d, image), theta(g, d)],
+        {"target_shape": image[2:]}), wrt=(0,))
+    return cases
+
+
+def _to_host(t, dtype):
+    t = t.detach().cpu()
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def _run_case(mx, case, inputs, attrs, ctx, head_fn):
+    """Forward (and gradients) of one case on `ctx`'s tensors `inputs`."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray, _invoke
+
+    arrays = [NDArray(t, ctx=ctx) for t in inputs]
+    if case.grad is None:
+        with ctx:
+            out = _invoke(case.op, arrays, **attrs)
+        return (out if isinstance(out, tuple) else (out,)), []
+    wrt = range(len(arrays)) if case.wrt is None else case.wrt
+    for i in wrt:
+        arrays[i].attach_grad()
+    with autograd.record():
+        out = _invoke(case.op, arrays, **attrs)
+        outs = out if isinstance(out, tuple) else (out,)
+        head_of = outs[0] * arrays[0] if case.grad == "compose" else outs[0]
+    head_of.backward(NDArray(head_fn(head_of.shape, head_of._data), ctx=ctx))
+    return outs, [arrays[i].grad for i in wrt]
+
+
+def _share(got, want, rtol, atol_rel):
+    """max |got - want| / (atol + rtol |want|), atol = atol_rel max|want|;
+    NaN where both are NaN counts as equal, and any other NaN fails."""
+    got, want = got.double(), want.double()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    got = torch.where(both_nan, torch.zeros_like(got), got)
+    want = torch.where(both_nan, torch.zeros_like(want), want)
+    finite = torch.isfinite(want)
+    if not bool((torch.isfinite(got) == finite).all()) or not bool(
+            (got[~finite] == want[~finite]).all()):
+        return float("inf")
+    if not bool(finite.any()):
+        return 0.0
+    got, want = got[finite], want[finite]
+    err = (got - want).abs()
+    if rtol == 0 and atol_rel == 0:
+        return 0.0 if bool((err == 0).all()) else float("inf")
+    limit = atol_rel * float(want.abs().max()) + rtol * want.abs()
+    return float((err / torch.clamp(limit, min=1e-300)).max())
+
+
+def _compare_case(case, got, want, host_inputs, rows):
+    """Worst share of the limit over a case's outputs and gradients, the
+    card's taken at `rows` where the host computed only those. The
+    index output of argsort and topk is compared on the rows whose
+    input holds no tie."""
+    rtol, atol_rel = SURFACE_TOL[case.family]
+    worst = 0.0
+    outs_got, grads_got = got
+    outs_want, grads_want = want
+    for k, (g, w) in enumerate(zip(outs_got, outs_want)):
+        g = _to_host(g._data, torch.float64)
+        w = _to_host(w._data, torch.float64)
+        if rows:
+            g = g[rows]
+        check(tuple(g.shape) == tuple(w.shape), "%s: shape %s on the card, "
+              "%s on the host" % (case.op, tuple(g.shape), tuple(w.shape)))
+        if case.op in ("topk", "argsort") and k == len(outs_got) - 1:
+            row = torch.sort(host_inputs[0], dim=1).values
+            untied = (row.diff(dim=1) != 0).all(dim=1)
+            g, w = g[untied], w[untied]
+        worst = max(worst, _share(g, w, rtol, atol_rel))
+    grtol = max(rtol, SURFACE_GRAD_TOL[0])
+    gatol = max(atol_rel, SURFACE_GRAD_TOL[1])
+    for g, w in zip(grads_got, grads_want):
+        g = _to_host(g._data, torch.float64)
+        w = _to_host(w._data, torch.float64)
+        if rows:
+            g = g[rows]
+        worst = max(worst, _share(g, w, grtol, gatol))
+    return worst
+
+
+def _short(attrs):
+    text = str(attrs)
+    return text if len(text) < 200 else text[:200] + "..."
+
+
+def _op_bytes(inputs, outs):
+    return sum(t.numel() * t.element_size() for t in inputs) + sum(
+        o._data.numel() * o._data.element_size() for o in outs)
+
+
+def _core_sweep(mx, dev, card_ctx):
+    """(a): every deterministic operator of the core surface on the card
+    against the host in float64."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray, _invoke
+
+    cases = _surface_cases()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    families = {}
+    ran = set()
+    for case in cases:
+        inputs, attrs = case.make(gen, dev)
+        heads = []
+
+        def card_head(shape, like):
+            h = torch.ones(shape, dtype=like.dtype, device=like.device) \
+                if case.grad == "loss" else torch.empty(
+                    shape, dtype=like.dtype, device=like.device).uniform_(
+                        0.5, 1.5, generator=gen)
+            heads.append(h)
+            return h
+
+        batch = inputs[0].shape[0] if inputs and inputs[0].dim() else None
+        rows = _host_rows(batch) if case.rows and batch else None
+
+        def host_head(shape, like):
+            return _to_host(heads[0][rows] if rows else heads[0],
+                            like.dtype).reshape(shape)
+
+        got = _run_case(mx, case, inputs, attrs, card_ctx, card_head)
+        # Rows: the host takes those rows of every input that has the
+        # first input's rows.
+        host_in = [_to_host(t[rows] if rows and t.dim()
+                            and t.shape[0] == batch else t,
+                            case.host_dtype) for t in inputs]
+        with mx.cpu():
+            want = _run_case(mx, case, host_in, attrs, mx.cpu(), host_head)
+        share = _compare_case(case, got, want, host_in, rows)
+        check(share <= 1.0, "core surface: %s %s on the card vs the host: "
+              "%.3g of its limit" % (case.op, _short(attrs), share))
+        fam = families.setdefault(case.family, {
+            "ops": set(), "runs": 0, "worst_share": 0.0, "largest": None})
+        fam["ops"].add(case.op)
+        fam["runs"] += 1
+        fam["worst_share"] = max(fam["worst_share"], share)
+        nbytes = _op_bytes(inputs, got[0])
+        if fam["largest"] is None or nbytes > fam["largest"][0]:
+            fam["largest"] = (nbytes, case, inputs, attrs)
+        ran.add(case.op)
+        del got, want, inputs, host_in
+    lines = {}
+    for name, fam in sorted(families.items()):
+        nbytes, case, inputs, attrs = fam["largest"]
+        arrays = [NDArray(t, ctx=card_ctx) for t in inputs]
+        with card_ctx:
+            ms = time_queued(lambda: _invoke(case.op, arrays, **attrs),
+                             reps=5, iters=3) if dev == "cuda" else None
+        lines[name] = {"ops": len(fam["ops"]), "runs": fam["runs"],
+                       "worst_share_of_limit": fam["worst_share"],
+                       "tolerance": SURFACE_TOL[name],
+                       "largest_op": case.op, "largest_op_bytes": nbytes,
+                       "largest_op_device_ms": ms}
+        log(json.dumps({"check": "core surface family", "family": name,
+                        **lines[name]}))
+    return ran, lines
+
+
+def _determinism(mx, dev, card_ctx):
+    """The accumulating operators under torch.use_deterministic_algorithms
+    (set here, restored after): they run, and twice give the same
+    bits."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray, _invoke
+
+    lm = SURFACE["lm"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    data = NDArray(_rand(gen, dev, (2 * lm[0],)), ctx=card_ctx)
+    idx = NDArray(torch.stack([_idx(gen, dev, 2 * lm[0], lm[0]),
+                               _idx(gen, dev, 2 * lm[0], lm[1])]),
+                  ctx=card_ctx)
+    x = NDArray(torch.randn(SURFACE["act"], generator=gen, device=dev),
+                ctx=card_ctx)
+    runs = {"_scatter_nd_add": lambda: _invoke("_scatter_nd_add",
+                                               [data, idx], shape=lm),
+            "histogram": lambda: _invoke("histogram", [x], bin_cnt=20,
+                                         range=(-3.0, 3.0))[0],
+            "cumsum": lambda: _invoke("cumsum", [x], axis=3),
+            "topk": lambda: _invoke("topk", [x], axis=3, k=5)}
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, fn in runs.items():
+            check(torch.equal(fn()._data, fn()._data),
+                  "%s differs between two runs under deterministic "
+                  "algorithms" % name)
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic = was[1]
+    return sorted(runs)
+
+
+def _law_cases():
+    """(op, inputs maker, attrs, law) for every RNG operator of the core
+    surface; a law is ("ks", scipy distribution) or ("chi2", pmf,
+    support), applied per row where the op draws rows."""
+    import scipy.stats as st
+
+    n = SURFACE["draws"]
+    lm_rows = np.array([0.6, 4.0], np.float32)
+
+    def rows(*vals):
+        return lambda d: [torch.tensor(v, dtype=torch.float32, device=d)
+                          for v in vals]
+
+    def none(d):
+        return []
+
+    zipf = 100
+    return [
+        ("_random_uniform", none, {"low": -2.0, "high": 3.0, "shape": (n,)},
+         [("ks", st.uniform(-2.0, 5.0))]),
+        ("_random_normal", none, {"loc": 1.0, "scale": 2.0, "shape": (n,)},
+         [("ks", st.norm(1.0, 2.0))]),
+        ("normal_like", lambda d: [torch.zeros((n,), device=d)],
+         {"loc": -1.0, "scale": 0.5}, [("ks", st.norm(-1.0, 0.5))]),
+        ("_random_gamma", none, {"alpha": 0.3, "beta": 2.0, "shape": (n,)},
+         [("ks", st.gamma(0.3, scale=2.0))]),
+        ("_random_exponential", none, {"lam": 2.0, "shape": (n,)},
+         [("ks", st.expon(scale=0.5))]),
+        ("_random_poisson", none, {"lam": 3.0, "shape": (n,)},
+         [("chi2", st.poisson(3.0).pmf, np.arange(20))]),
+        ("_random_negative_binomial", none, {"k": 3, "p": 0.4,
+                                             "shape": (n,)},
+         [("chi2", st.nbinom(3, 0.4).pmf, np.arange(40))]),
+        ("_random_generalized_negative_binomial", none,
+         {"mu": 2.0, "alpha": 0.5, "shape": (n,)},
+         [("chi2", st.nbinom(2.0, 0.5).pmf, np.arange(30))]),
+        ("_random_randint", none, {"low": -3, "high": 7, "shape": (n,)},
+         [("chi2", lambda k: 0.1, np.arange(-3, 7))]),
+        ("sample_multinomial",
+         rows(np.array([0.1, 0.2, 0.3, 0.4], np.float32)), {"shape": n},
+         [("chi2", lambda k: (k + 1) / 10.0, np.arange(4))]),
+        ("_sample_unique_zipfian", none, {"range_max": zipf, "shape": (n,)},
+         [("chi2", lambda k: math.log((k + 2) / (k + 1))
+           / math.log(zipf + 1), np.arange(zipf))]),
+        ("_shuffle", lambda d: [torch.arange(n, dtype=torch.float32,
+                                             device=d)], {},
+         [("permutation", st.uniform(0, n))]),
+        ("_sample_uniform", rows(lm_rows, lm_rows * 3), {"shape": (n // 2,)},
+         [("ks", st.uniform(v, 2 * v)) for v in lm_rows]),
+        ("_sample_normal", rows(lm_rows, lm_rows), {"shape": (n // 2,)},
+         [("ks", st.norm(v, v)) for v in lm_rows]),
+        ("_sample_gamma", rows(lm_rows, 1 / lm_rows), {"shape": (n // 2,)},
+         [("ks", st.gamma(v, scale=1 / v)) for v in lm_rows]),
+        ("_sample_exponential", rows(lm_rows), {"shape": (n // 2,)},
+         [("ks", st.expon(scale=1 / v)) for v in lm_rows]),
+        ("_sample_poisson", rows(lm_rows * 5), {"shape": (n // 2,)},
+         [("chi2", st.poisson(v).pmf, np.arange(60))
+          for v in lm_rows * 5]),
+    ]
+
+
+P_LAW = 1e-4
+
+
+def _hold_law(op, x, law):
+    """The p-value of `x` (float64 numpy) under `law`; fails below
+    P_LAW."""
+    import scipy.stats as st
+
+    kind = law[0]
+    if kind == "ks":
+        p = st.kstest(x, law[1].cdf).pvalue
+    elif kind == "permutation":
+        check(np.array_equal(np.sort(x), np.arange(x.size)),
+              "%s is not a permutation" % op)
+        # Where the smallest tenth landed: uniform over the positions.
+        pos = np.argsort(x)[:x.size // 10].astype(np.float64)
+        p = st.kstest(pos, law[1].cdf).pvalue
+    else:
+        pmf, support = law[1], law[2]
+        counts = np.array([np.sum(x == k) for k in support]
+                          + [np.sum(~np.isin(x, support))], np.float64)
+        probs = np.array([pmf(k) for k in support], np.float64)
+        probs = np.append(probs, max(1.0 - probs.sum(), 0.0))
+        keep = probs * x.size > 5
+        f_obs = np.append(counts[keep], counts[~keep].sum())
+        f_exp = np.append(probs[keep], probs[~keep].sum()) * x.size
+        if f_exp[-1] == 0:
+            f_obs, f_exp = f_obs[:-1], f_exp[:-1]
+        p = st.chisquare(f_obs, f_exp * f_obs.sum() / f_exp.sum()).pvalue
+    check(p > P_LAW, "%s: its draws fail their law (p = %.3g)" % (op, p))
+    return float(p)
+
+
+def _core_rng(mx, dev, card_ctx):
+    """(b): every RNG operator draws 10^6 values on the card, held to its
+    law; a reseed replays them bit for bit."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray, _invoke
+
+    out = {}
+    for op, make, attrs, laws in _law_cases():
+        def draw():
+            mx.random.seed(SEED + 7)
+            with card_ctx:
+                r = _invoke(op, [NDArray(t, ctx=card_ctx)
+                                 for t in make(dev)], **attrs)
+            return r if not isinstance(r, tuple) else r[0]
+
+        first = draw()
+        check(first.context == card_ctx, "%s drew off the card" % op)
+        again = draw()
+        check(torch.equal(first._data, again._data), "%s: a reseed did "
+              "not replay its draws" % op)
+        x = first.asnumpy().astype(np.float64)
+        x = x.reshape(len(laws), -1)
+        ps = [_hold_law(op, x[i], law) for i, law in enumerate(laws)]
+        out[op] = {"draws": int(first.size), "min_p": min(ps)}
+    log(json.dumps({"check": "core surface RNG", "p_min": P_LAW,
+                    "ops": out}))
+    return out
+
+
+# Phase 17's training loop: the stored batch's side, the crop, the
+# batch size and the network.
+CORE_RESNET = {"side": 256, "crop": 224, "batch": 32,
+               "network": "resnet50_v1"}
+
+
+def _core_resnet(mx, steps=20, warmup=2):
+    """(c): ResNet-50 v1 through the reference's Gluon image-classification
+    loop, on the core surface (module docstring, phase 17)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    gpu = mx.gpu(0)
+    side, crop, b = (CORE_RESNET[k] for k in ("side", "crop", "batch"))
+    mx.random.seed(SEED)
+    net = gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(getattr(vision, CORE_RESNET["network"])(classes=1000))
+    net.initialize(mx.init.MSRAPrelu(), ctx=gpu)
+    net.hybridize()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    trainer = gluon.Trainer(net.collect_params(), "sgd", TRAINER_OPT)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    top5 = mx.metric.TopKAccuracy(5)
+    rng = np.random.default_rng(SEED)
+    # Each image a colour of its own under noise, so that crops and
+    # mirrors keep what identifies it.
+    batch = (rng.random((b, 3, side, side), dtype=np.float32) * 0.5
+             + rng.random((b, 3, 1, 1), dtype=np.float32) * 2)
+    labels = rng.integers(0, 1000, b).astype(np.float32)
+    (data,) = gluon.utils.split_and_load(batch, [gpu])
+    y = nd.array(labels, ctx=gpu)
+    max_norm = 20.0
+    losses, norms, clipped, crops = [], [], 0, []
+    norm_check = topk_check = None
+    t0 = None
+    for step in range(steps):
+        if step == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        span = side - crop + 1
+        off = nd.random.uniform(0, span, shape=(3,), ctx=gpu).asnumpy()
+        oy, ox, mirror = int(off[0]), int(off[1]), off[2] < span / 2
+        x = nd.slice(data, begin=(None, None, oy, ox),
+                     end=(None, None, oy + crop, ox + crop))
+        if mirror:
+            x = nd.flip(x, axis=3)
+        crops.append([oy, ox, bool(mirror)])
+        with autograd.record():
+            out = net(x)
+            loss = ce(out, y)
+        loss.backward()
+        grads = [p.grad(gpu) for p in params]
+        if step == 0:
+            host = math.sqrt(sum(float((g.asnumpy().astype(np.float64) ** 2)
+                                       .sum()) for g in grads))
+        norm = gluon.utils.clip_global_norm(grads, max_norm)
+        if step == 0:
+            norm_check = {"clip_global_norm": norm, "host_float64": host,
+                          "rel_err": abs(norm - host) / host}
+            check(norm_check["rel_err"] <= 1e-5, "clip_global_norm's norm "
+                  "%r vs the host's float64 %r" % (norm, host))
+            got = nd.topk(out, k=5)._data.long()
+            want = torch.topk(out._data, 5, dim=1).indices
+            vals = torch.sort(out._data, dim=1, descending=True).values
+            untied = (vals[:, :6].diff(dim=1) != 0).all(dim=1)
+            topk_check = {"rows": int(untied.sum()),
+                          "equal": bool(torch.equal(got[untied],
+                                                    want[untied]))}
+            check(topk_check["equal"], "nd.topk differs from torch.topk")
+        clipped += norm > max_norm
+        norms.append(norm)
+        trainer.step(b)
+        top5.update([y], [out])
+        losses.append(float(loss.mean().asscalar()))
+    torch.cuda.synchronize()
+    img_s = b * (steps - warmup) / (time.perf_counter() - t0)
+    result = {"steps": steps, "batch": b, "losses": losses,
+              "grad_norms": norms, "max_norm": max_norm,
+              "clipped_steps": int(clipped), "crops": crops,
+              "norm_check": norm_check, "topk_check": topk_check,
+              "top5": top5.get()[1], "img_s": img_s,
+              "names_under_name_scope": list(net.collect_params())[:2]}
+    check(all(np.isfinite(losses)), "non-finite loss: %s" % losses)
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not "
+          "fall: %s" % losses)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_core_surface(card_line, trainer_img_s):
+    """Phase 17: the core surface (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t_phase = time.perf_counter()
+    result = {"phase": "core_surface", "card": card_line}
+    ops = {registry.get(n).name for n in CORE_SURFACE_NAMES}
+    rng_ops = {o for o in ops if registry.get(o).needs_rng}
+    _reset_all_launches()   # the main path starts here
+    ran, result["families"] = _core_sweep(mx, "cuda", mx.gpu(0))
+    result["deterministic_reruns"] = _determinism(mx, "cuda", mx.gpu(0))
+    result["rng"] = _core_rng(mx, "cuda", mx.gpu(0))
+    result["resnet50_loop"] = _core_resnet(mx)
+    launches = _all_launches()   # read just after the path
+    result["launches"] = launches
+    ran |= set(result["rng"])
+    result["canonical_ops"] = {"registered": len(ops), "ran": len(ran),
+                               "rng": len(rng_ops)}
+    result["resnet50_loop"]["trainer_img_s_phase11"] = trainer_img_s
+    result["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(result))
+    check(ran == ops, "core surface: ops not run %s, run but not "
+          "registered by the surface %s" % (sorted(ops - ran),
+                                            sorted(ran - ops)))
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -3575,6 +4471,7 @@ def main():
     ckpt_path = phase_checkpoint(card_line)
     module = phase_module(card_line, trainer["fp32"]["img_s_b32"])
     recurrent = phase_recurrent(card_line)
+    core = phase_core_surface(card_line, trainer["fp32"]["img_s_b32"])
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -3605,11 +4502,13 @@ def main():
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
     # The input pipeline's (phase 13), the checkpoint's (14), the
-    # Module's (15) and the recurrent (16) paths launch none of them.
+    # Module's (15), the recurrent (16) and the core surface's (17)
+    # paths launch none of them.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
-                       ("recurrent", recurrent["launches"])):
+                       ("recurrent", recurrent["launches"]),
+                       ("core_surface", core["launches"])):
         for entry, n in zip([fwd, dkv, dq] + rtc_list,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

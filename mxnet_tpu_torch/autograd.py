@@ -39,8 +39,9 @@ __all__ = [
 
 _state = threading.local()
 
-# Every NDArray marked by mark_variables/attach_grad while it lives.
-_VARIABLES = weakref.WeakSet()
+# Every NDArray marked by mark_variables/attach_grad while it lives, by
+# id: NDArray's == is elementwise, so it cannot key a set itself.
+_VARIABLES = weakref.WeakValueDictionary()
 _VARIABLES_LOCK = threading.Lock()
 
 
@@ -187,7 +188,7 @@ def mark_variables(variables, gradients, grad_reqs="write", grad_req=None):
             # drops a marked array's tape node.
             v._data = t.detach().requires_grad_(True)
         with _VARIABLES_LOCK:
-            _VARIABLES.add(v)
+            _VARIABLES[id(v)] = v
 
 
 def _head_tensors(heads, head_grads):
@@ -242,7 +243,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     imperative.cc:270): ``"write"`` overwrites, ``"add"`` accumulates,
     and a variable no head depends on keeps its gradient."""
     with _VARIABLES_LOCK:
-        marked = [v for v in _VARIABLES
+        marked = [v for v in _VARIABLES.values()
                   if v._grad is not None and v._grad_req != "null"]
     sums = _gradients(heads, head_grads, marked, bool(retain_graph))
     with torch.no_grad():

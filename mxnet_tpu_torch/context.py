@@ -81,6 +81,14 @@ class Context:
     def __exit__(self, *args):
         _context_stack.stack.pop()
 
+    def empty_cache(self):
+        """Return this card's cached, unused memory to CUDA
+        (``torch.cuda.empty_cache`` on its device; reference
+        Context::empty_cache). The host has no such cache."""
+        if self.device_type == "gpu":
+            with torch.cuda.device(self.torch_device):
+                torch.cuda.empty_cache()
+
     @classmethod
     def default_ctx(cls):
         stack = getattr(_context_stack, "stack", None)

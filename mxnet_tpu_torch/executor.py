@@ -346,8 +346,9 @@ def _topo(out_syms):
 def _compile(out_syms, training):
     """The DAG as a flat plan, built once per executor and mode: values
     live in numbered slots; each step is (fn, input slots, attrs, output
-    slots, aux names, fragment, draws random numbers, slots to free), run
-    by :func:`_execute`.
+    slots, aux names, fragment, the operator when dispatch owes it a
+    ``device=`` or ``generator=`` keyword, slots to free), run by
+    :func:`_execute`.
     A value's slot is freed after its last consumer (or at once, when it
     has none and is not an output), so a forward holds no more than the
     values still to be read and what autograd saved for the backward.
@@ -369,7 +370,7 @@ def _compile(out_syms, training):
             fn = getattr(node, "_sub_fn", None)
             if fn is None:
                 fn = _subdag_fn(node, training)
-            steps.append((fn, ins, {}, outs, (), node, False))
+            steps.append((fn, ins, {}, outs, (), node, None))
             continue
         op = _registry.get(node._attrs.get("_op_name", node._op))
         attrs = node._clean_attrs()
@@ -379,7 +380,8 @@ def _compile(out_syms, training):
             # Only a train-aware op (BatchNorm) returns new aux values.
             aux = tuple(i._name for i in node._inputs
                         if i._op is None and i._is_aux)
-        steps.append((op.fn, ins, attrs, outs, aux, None, op.needs_rng))
+        steps.append((op.fn, ins, attrs, outs, aux, None,
+                      op if op.needs_rng or op.creates else None))
     heads = [slot(s, s._out_index) for s in out_syms]
     last = {}
     for k, step in enumerate(steps):
@@ -408,17 +410,23 @@ def _execute(plan, env):
     """Run a plan on the tensors of `env` (variable name -> tensor).
     Returns (output tensors, aux writes): BatchNorm returns (out,
     new_mean, new_var), and the new statistics go to its aux inputs
-    (reference: the op mutates its aux states)."""
+    (reference: the op mutates its aux states). An op that makes a
+    tensor from attrs alone makes it on the device of the first tensor
+    of `env`, else on the current context's."""
+    device = next((v.device for v in env.values()
+                   if isinstance(v, torch.Tensor)), None)
     variables, steps, heads, n = plan
     vals = [None] * n
     for s, name in variables:
         vals[s] = env[name]
     aux_writes = {}
     ops = 0
-    for fn, ins, attrs, outs, aux, fragment, rng, free in steps:
+    for fn, ins, attrs, outs, aux, fragment, keyed, free in steps:
         args = [vals[i] for i in ins]
-        if rng:
-            attrs = dict(attrs, **_registry.rng_attrs(args))
+        if keyed is not None:
+            if device is None and keyed.creates:
+                device = current_context().torch_device
+            attrs = _registry.device_attrs(keyed, args, attrs, device)
         raw = fn(*args, **attrs)
         if fragment is not None:
             got = raw if isinstance(raw, (list, tuple)) else [raw]

@@ -1,7 +1,7 @@
 """Gluon — the imperative-first user API (counterpart of
 ``mxnet_tpu/gluon/``)."""
 from . import parameter
-from .parameter import Parameter, ParameterDict
+from .parameter import Parameter, Constant, ParameterDict
 from . import block
 from .block import Block, HybridBlock, SymbolBlock
 from . import nn

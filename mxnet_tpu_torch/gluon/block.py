@@ -22,6 +22,8 @@ such a checkpoint through the Executor's plan.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .. import autograd
@@ -80,6 +82,11 @@ class Block:
     @property
     def params(self):
         return self._params
+
+    def name_scope(self):
+        """A null context, as in the JAX package: children are named by
+        the per-class counters whether or not they are made inside it."""
+        return contextlib.nullcontext()
 
     def __setattr__(self, name, value):
         if isinstance(value, Block):

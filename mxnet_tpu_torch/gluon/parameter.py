@@ -30,11 +30,11 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, numpy_dtype
-from ..context import Context, current_context
+from ..context import Context, current_context, cpu
 from .. import ndarray as nd
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Parameter", "ParameterDict",
+__all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "override", "tracing_overrides"]
 
 _tls = threading.local()
@@ -222,6 +222,22 @@ class Parameter:
             if self._grad_req != "null":
                 self._init_grad()
 
+    def reset_ctx(self, ctx):
+        """Move the data to `ctx` (a Context or a list): contexts kept
+        keep their arrays, new ones get a copy, gradient buffers are
+        made afresh."""
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self._data is not None:
+            data = next(iter(self._data.values()))
+            self._data = {c: self._data[c] if c in self._data
+                          else data.as_in_context(c).copy() for c in ctx}
+            if self._grad_req != "null":
+                self._init_grad()
+        elif self._deferred_init is not None:
+            init, _, specific = self._deferred_init
+            self._deferred_init = (init, list(ctx), specific)
+
     def grad(self, ctx=None):
         if self._grad is None:
             raise RuntimeError(
@@ -262,6 +278,20 @@ class Parameter:
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
                                                       self.dtype)
+
+
+class Constant(Parameter):
+    """A parameter that is never trained: `value` (an array-like or an
+    NDArray) through the Constant initializer, ``grad_req="null"``."""
+
+    def __init__(self, name, value):
+        value = np.asarray(value.asnumpy() if isinstance(value, NDArray)
+                           else value)
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype)
+        from .. import initializer as _initializer
+
+        self.init = _initializer.Constant(value)
 
 
 class ParameterDict:
@@ -309,6 +339,13 @@ class ParameterDict:
         self._params[full] = param
         return param
 
+    def get_constant(self, name, value=None):
+        """Get or create the Constant named prefix + name."""
+        full = self._prefix + name
+        if full not in self._params:
+            self._params[full] = Constant(full, value)
+        return self._params[full]
+
     def update(self, other):
         for k, v in other.items():
             self._params[k] = v
@@ -322,6 +359,47 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def save(self, fname, strip_prefix=""):
+        """Every parameter's data, named without `strip_prefix`, in the
+        ``.params`` format of ``nd.save`` (the JAX package's file, byte
+        for byte)."""
+        arg = {}
+        for name, p in self._params.items():
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arg[name] = p.data().as_in_context(cpu())
+        nd.save(fname, arg)
+
+    def load(self, fname, ctx=None, allow_missing=False, ignore_extra=False,
+             restore_prefix=""):
+        """Set the parameters from a file of :meth:`save` (names get
+        `restore_prefix`); an uninitialized parameter takes the file's
+        shape and is initialized on `ctx`."""
+        loaded = nd.load(fname, ctx=cpu())
+        if not isinstance(loaded, dict):
+            raise ValueError("%s does not contain a parameter dict" % fname)
+        if restore_prefix:
+            loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        for name, p in self._params.items():
+            if name not in loaded:
+                if not allow_missing:
+                    raise ValueError("Parameter %s missing in file %s"
+                                     % (name, fname))
+                continue
+            if p.shape is None or p._data is None:
+                p.shape = loaded[name].shape
+                p.initialize(ctx=ctx)
+            p.set_data(loaded[name])
+        if not ignore_extra:
+            extra = set(loaded) - set(self._params)
+            if extra:
+                raise ValueError("File %s has extra parameters %s"
+                                 % (fname, extra))
 
     def __repr__(self):
         return "ParameterDict(%s)" % ", ".join(self._params)

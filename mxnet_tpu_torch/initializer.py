@@ -1,8 +1,8 @@
 """Weight initializers.
 
-Counterpart of ``mxnet_tpu/initializer.py`` for the initializers gluon
-uses by default (Uniform; One and Zero by name), Xavier, and the
-recurrent ones (LSTMBias, FusedRNN), with the reference's name-suffix
+Counterpart of ``mxnet_tpu/initializer.py``: Uniform, Normal, Xavier,
+MSRAPrelu, Orthogonal, Bilinear, One, Zero, Constant, the recurrent
+ones (LSTMBias, FusedRNN) and Mixed, with the reference's name-suffix
 dispatch (``*_weight``,
 ``*_bias``, ``*_gamma``, ``*_beta``, and BatchNorm's
 ``*_running_mean``/``*_running_var`` moving stats). Initializers fill
@@ -15,13 +15,15 @@ the form a symbol variable's ``__init__`` attr holds, and
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 
 from . import random as _random
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Xavier", "One", "Zero",
-           "LSTMBias", "FusedRNN", "register", "create"]
+__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier",
+           "MSRAPrelu", "Orthogonal", "Bilinear", "One", "Zero", "Constant",
+           "LSTMBias", "FusedRNN", "Mixed", "register", "create"]
 
 _REGISTRY: dict = {}
 
@@ -132,6 +134,17 @@ class Uniform(Initializer):
         return arr
 
 
+@register("normal")
+class Normal(Initializer):
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, desc, arr):
+        arr[...] = _rng().normal(0, self.sigma, arr.shape)
+        return arr
+
+
 @register("xavier")
 class Xavier(Initializer):
     """rnd_type uniform/gaussian, factor_type avg/in/out."""
@@ -160,21 +173,87 @@ class Xavier(Initializer):
         return arr
 
 
-@register("ones")
+@register("msra_prelu")
+class MSRAPrelu(Xavier):
+    """Gaussian Xavier with magnitude 2 / (1 + slope^2) (He et al.'s
+    initialization for PReLU nets)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register("orthogonal")
+class Orthogonal(Initializer):
+    """`scale` times an orthonormal basis (the SVD's U or V of a random
+    (out, in) matrix, whichever has its shape)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        rng = _rng()
+        if self.rand_type == "uniform":
+            tmp = rng.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = rng.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[...] = (self.scale * q).reshape(arr.shape)
+        return arr
+
+
+@register("bilinear")
+class Bilinear(Initializer):
+    """Bilinear upsampling kernels for a (C, 1, k, k) deconvolution."""
+
+    def _init_weight(self, desc, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(arr.size)
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        arr[...] = weight.reshape(shape)
+        return arr
+
+
+# dumps() writes "ones" and "zeros", the JAX package's names.
 @register("one")
+@register("ones")
 class One(Initializer):
     def _init_weight(self, desc, arr):
         arr[...] = 1.0
         return arr
 
 
-@register("zeros")
 @register("zero")
+@register("zeros")
 class Zero(Initializer):
     def _init_weight(self, desc, arr):
         arr[...] = 0.0
         return arr
 
+
+
+@register("constant")
+class Constant(Initializer):
+    """Every element `value` (a number, or an array that broadcasts)."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, desc, arr):
+        arr[...] = np.asarray(self.value.asnumpy()
+                              if hasattr(self.value, "asnumpy")
+                              else self.value)
+        return arr
 
 
 @register("lstmbias")
@@ -231,3 +310,18 @@ class FusedRNN(Initializer):
                 block[h:2 * h] = self._forget_bias
             flat[off:off + block.size] = block.reshape(-1)
         return arr
+
+
+class Mixed:
+    """The initializer of the first of `patterns` (regular expressions,
+    matched at the name's start) that the parameter's name matches."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, desc, arr):
+        for prog, init in self.map:
+            if prog.match(str(desc)):
+                return init(desc, arr)
+        raise ValueError("no initializer pattern matches %s" % desc)

@@ -5,8 +5,8 @@ python/mxnet/module/base_module.py — fit :409: bind, init_params,
 init_optimizer, per-batch forward_backward/update/update_metric; score
 :216; predict :321). The loop is the JAX package's, line for line;
 ``predict`` merges the batches' outputs with one ``torch.cat`` per
-output (the port has no ``Concat`` operator yet, ROADMAP Queue 1 item
-11).
+output, the ``Concat`` operator's body (``ops/matrix.py``) without a
+dispatch per output.
 """
 from __future__ import annotations
 

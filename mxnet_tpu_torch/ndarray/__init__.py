@@ -10,12 +10,15 @@ import inspect
 
 from .. import ops as _ops  # noqa: F401  (registers every operator)
 from ..ops import registry as _registry
-from .ndarray import NDArray, array, zeros, ones, full, waitall, _invoke
+from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
+                      linspace, eye, moveaxis, waitall, _invoke)
 from .utils import save, load, save_dict, load_dict
 from . import contrib  # noqa: F401
+from . import random  # noqa: F401
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall", "save",
-           "load", "save_dict", "load_dict"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "linspace", "eye", "moveaxis", "waitall", "save", "load",
+           "save_dict", "load_dict", "random"]
 
 _FUNC_CACHE = {}
 

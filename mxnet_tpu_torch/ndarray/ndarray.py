@@ -29,7 +29,8 @@ from ..base import mx_real_t, numpy_dtype, torch_dtype, dtype_name
 from ..context import Context, current_context
 from ..ops import registry as _reg
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "linspace", "eye", "moveaxis", "waitall"]
 
 
 def _producer_stream(tensor):
@@ -113,6 +114,14 @@ class NDArray:
 
     ctx = context
 
+    @property
+    def stype(self):
+        return "default"
+
+    @property
+    def T(self):
+        return self.transpose()
+
     # -- host transfer --------------------------------------------------------
 
     def asnumpy(self):
@@ -127,8 +136,14 @@ class NDArray:
             raise ValueError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
     def __float__(self):
         return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
 
     def __bool__(self):
         if self.size == 0:
@@ -172,6 +187,20 @@ class NDArray:
         if ctx == self._ctx:
             return self
         return self.copyto(ctx)
+
+    def as_in_ctx(self, ctx):
+        return self.as_in_context(ctx)
+
+    def as_nd_ndarray(self):
+        return self
+
+    def tostype(self, stype):
+        """Only ``"default"``: the port has no sparse NDArray (ROADMAP
+        Queue 1 item 11)."""
+        if stype != "default":
+            raise NotImplementedError("storage type %r needs the sparse "
+                                      "NDArray" % (stype,))
+        return self
 
     def detach(self):
         """The same values, cut out of the autograd graph."""
@@ -221,6 +250,56 @@ class NDArray:
     def flatten(self):
         return _invoke("flatten", [self])
 
+    def reshape_like(self, other):
+        return self.reshape(other.shape)
+
+    def squeeze(self, axis=None):
+        return _invoke("squeeze", [self], axis=axis)
+
+    def expand_dims(self, axis):
+        return _invoke("expand_dims", [self], axis=axis)
+
+    def broadcast_to(self, shape):
+        return _invoke("broadcast_to", [self], shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return self.broadcast_to(other.shape)
+
+    def swapaxes(self, dim1, dim2):
+        return _invoke("swapaxes", [self], dim1=dim1, dim2=dim2)
+
+    def flip(self, axis):
+        return _invoke("flip", [self], axis=axis)
+
+    def split(self, num_outputs, axis=0):
+        return _invoke("split", [self], num_outputs=num_outputs, axis=axis)
+
+    def slice_axis(self, axis, begin, end):
+        return _invoke("slice_axis", [self], axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return _invoke("take", [self, indices], axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0):
+        return _invoke("one_hot", [self], depth=depth, on_value=on_value,
+                       off_value=off_value)
+
+    def pick(self, index, axis=-1, keepdims=False):
+        return _invoke("pick", [self, index], axis=axis, keepdims=keepdims)
+
+    def tile(self, reps):
+        return _invoke("tile", [self], reps=tuple(reps))
+
+    def repeat(self, repeats, axis=None):
+        return _invoke("repeat", [self], repeats=repeats, axis=axis)
+
+    def pad(self, mode="constant", pad_width=None, constant_value=0):
+        return _invoke("pad", [self], mode=mode, pad_width=tuple(pad_width),
+                       constant_value=constant_value)
+
+    def clip(self, a_min=None, a_max=None):
+        return _invoke("clip", [self], a_min=a_min, a_max=a_max)
+
     def relu(self):
         return _invoke("relu", [self])
 
@@ -230,26 +309,29 @@ class NDArray:
     def log_softmax(self, axis=-1):
         return _invoke("log_softmax", [self], axis=axis)
 
-    def sum(self, axis=None, keepdims=False):
-        return _invoke("sum", [self], axis=axis, keepdims=keepdims)
-
-    def mean(self, axis=None, keepdims=False):
-        return _invoke("mean", [self], axis=axis, keepdims=keepdims)
-
     def dot(self, other):
         return _invoke("dot", [self, other])
+
+    # -- reductions and orderings ---------------------------------------------
 
     def norm(self, ord=2, axis=None, keepdims=False):
         return _invoke("norm", [self], ord=ord, axis=axis, keepdims=keepdims)
 
-    def clip(self, a_min=None, a_max=None):
-        return _invoke("clip", [self], a_min=a_min, a_max=a_max)
+    def argmax(self, axis=None, keepdims=False):
+        return _invoke("argmax", [self], axis=axis, keepdims=keepdims)
 
-    def square(self):
-        return _invoke("square", [self])
+    def argmin(self, axis=None, keepdims=False):
+        return _invoke("argmin", [self], axis=axis, keepdims=keepdims)
 
-    def sqrt(self):
-        return _invoke("sqrt", [self])
+    def argsort(self, axis=-1, is_ascend=True):
+        return _invoke("argsort", [self], axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return _invoke("topk", [self], axis=axis, k=k, ret_typ=ret_typ,
+                       is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return _invoke("sort", [self], axis=axis, is_ascend=is_ascend)
 
     # -- arithmetic -----------------------------------------------------------
 
@@ -287,11 +369,32 @@ class NDArray:
     def __itruediv__(self, other):
         return self._set_data(self.__truediv__(other)._data)
 
+    def __mod__(self, other):
+        return _binary("broadcast_mod", "_mod_scalar", self, other)
+
+    def __rmod__(self, other):
+        return _binary_r("broadcast_mod", "_rmod_scalar", self, other)
+
+    def __pow__(self, other):
+        return _binary("broadcast_power", "_power_scalar", self, other)
+
+    def __rpow__(self, other):
+        return _binary_r("broadcast_power", "_rpower_scalar", self, other)
+
     def __neg__(self):
         return _invoke("negative", [self])
 
-    # Ordering comparisons give 0/1 arrays (a loop predicate's form).
-    # == and != stay Python identity, which containers rely on.
+    # Comparisons give 0/1 arrays in the operands' dtype, == and != too
+    # (so ``(pred == label).sum()`` counts matches). NDArrays hash by
+    # identity; a container that must find one by identity keys it by
+    # id(), as ``list.index`` and ``in`` would compare elementwise.
+    def __eq__(self, other):
+        return _binary("broadcast_equal", "_equal_scalar", self, other)
+
+    def __ne__(self, other):
+        return _binary("broadcast_not_equal", "_not_equal_scalar", self,
+                       other)
+
     def __lt__(self, other):
         return _binary("broadcast_lesser", "_lesser_scalar", self, other)
 
@@ -347,6 +450,36 @@ class NDArray:
         self._stream = _producer_stream(self._data)
         self.version += 1
 
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def tobytes(self):
+        return self.asnumpy().tobytes()
+
+
+def _unary_method(op):
+    def method(self):
+        return _invoke(op, [self])
+
+    method.__name__ = op
+    return method
+
+
+def _reduce_method(op):
+    def method(self, axis=None, keepdims=False):
+        return _invoke(op, [self], axis=axis, keepdims=keepdims)
+
+    method.__name__ = op
+    return method
+
+
+for _op in ("abs", "sign", "round", "sqrt", "square", "exp", "log",
+            "sigmoid", "tanh"):
+    setattr(NDArray, _op, _unary_method(_op))
+for _op in ("sum", "mean", "max", "min", "prod"):
+    setattr(NDArray, _op, _reduce_method(_op))
+
 
 # ---------------------------------------------------------------------------
 # dispatch
@@ -393,11 +526,14 @@ def _invoke(name, inputs, out=None, _named=None, **attrs):
             tensors.append(array(x, ctx=ctx)._data)
         else:
             tensors.append(x)
+    device = ctx.torch_device if op.creates else None
     if graph == torch.is_grad_enabled():
-        raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()))
+        raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()),
+                              device)
     else:
         with torch.set_grad_enabled(graph):
-            raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()))
+            raw = _reg.invoke_raw(op, tensors, attrs, tuple(_named or ()),
+                                  device)
     return _wrap_outputs(raw, ctx, out=out, recorded=graph)
 
 
@@ -459,6 +595,47 @@ def zeros(shape, ctx=None, dtype=None, **kwargs):
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
     return full(shape, 1, ctx=ctx, dtype=dtype)
+
+
+def empty(shape, ctx=None, dtype=None):
+    """Zeros, as in the JAX package: no array is left undefined."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    """numpy's arange, made on the device by the ``arange`` operator,
+    each value repeated `repeat` times."""
+    with ctx if ctx is not None else current_context():
+        return _invoke("arange", [], start=start, stop=stop, step=step,
+                       repeat=repeat, dtype=dtype_name(dtype or mx_real_t))
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype=None):
+    """numpy's linspace, made on the device: start + i * step in float64,
+    the last value `stop` exactly, rounded once to `dtype`."""
+    ctx = ctx if ctx is not None else current_context()
+    div = (num - 1) if endpoint else num
+    step = (stop - start) / div if div > 0 else 0.0
+    t = torch.arange(num, dtype=torch.float64, device=ctx.torch_device) \
+        * step + start
+    if endpoint and num > 1:
+        t[-1] = stop
+    return NDArray(t.to(torch_dtype(dtype or mx_real_t)), ctx=ctx)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    """An N x M (M = N when 0) matrix with ones on diagonal `k`."""
+    ctx = ctx if ctx is not None else current_context()
+    m = M if M else N
+    rows = torch.arange(N, device=ctx.torch_device)[:, None]
+    cols = torch.arange(m, device=ctx.torch_device)[None, :]
+    return NDArray((cols - rows == k).to(torch_dtype(dtype or mx_real_t)),
+                   ctx=ctx)
+
+
+def moveaxis(tensor, source, destination):
+    return _invoke("moveaxis", [tensor], source=source,
+                   destination=destination)
 
 
 def waitall():

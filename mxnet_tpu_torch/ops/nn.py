@@ -1,11 +1,18 @@
-"""Neural-network operators on the served path.
+"""Neural-network operators.
 
-Counterpart of the subset of ``mxnet_tpu/ops/nn.py`` that ResNet, the
-served functions and the language models use: FullyConnected,
-Convolution, Pooling, BatchNorm, Activation, softmax, log_softmax, the
-SoftmaxOutput loss head, Dropout and Embedding.
-Convolution and the dense layer go to PyTorch's library calls, as the
-JAX package leaves them to XLA.
+Counterpart of ``mxnet_tpu/ops/nn.py``: dense, convolution and
+deconvolution, pooling, the normalizations, activations, the softmax
+family, the loss heads (SoftmaxOutput, the regression outputs,
+MakeLoss), Dropout, Embedding and the resampling ops (UpSampling,
+GridGenerator, BilinearSampler, SpatialTransformer). Convolution,
+deconvolution, the dense layer, bilinear resizing and sampling go to
+PyTorch's library calls, as the JAX package leaves them to XLA.
+The normalizations compute the variance as the mean of the squared
+centered values, the expression whose autodiff ``jnp.var`` gives.
+
+The loss heads are ``torch.autograd.Function``s whose backward is the
+loss's own gradient and ignores the head gradient (reference
+softmax_output-inl.h, regression_output-inl.h, make_loss-inl.h).
 
 Two semantics differ from what PyTorch's functional ops do by default,
 and are written out here:
@@ -298,3 +305,232 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     as a device-side assert."""
     idx = torch.clamp(data.to(torch.int64), 0, weight.shape[0] - 1)
     return F.embedding(idx, weight)
+
+
+# -- the rest of mxnet_tpu/ops/nn.py ------------------------------------------
+
+@register("Deconvolution", aliases=("deconvolution",))
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), num_filter=0, num_group=1, no_bias=False,
+                   target_shape=(), layout=None):
+    """Transposed convolution; `weight` is (C_in, C_out / group, *k) as
+    in the reference, `adj` pads the output's far side."""
+    if layout not in _CHANNEL_FIRST:
+        raise ValueError("Deconvolution supports channel-first layouts "
+                         "only (got %r)" % (layout,))
+    ndim = len(kernel) if kernel else weight.ndim - 2
+    conv = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+            3: F.conv_transpose3d}[ndim]
+    return conv(data, weight, None if no_bias else bias,
+                stride=tuple(stride) or 1, padding=tuple(pad) or 0,
+                output_padding=tuple(adj) or 0, groups=num_group,
+                dilation=tuple(dilate) or 1)
+
+
+def _moments(data, axes):
+    mean = torch.mean(data, dim=axes, keepdim=True)
+    centered = data - mean
+    return mean, centered, torch.mean(centered * centered, dim=axes,
+                                      keepdim=True)
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalized over `axis`; with `output_mean_var` also the mean and
+    the variance (the JAX package's second output is the variance)."""
+    ax = axis % data.ndim
+    mean, centered, var = _moments(data, (ax,))
+    shape = [1] * data.ndim
+    shape[ax] = data.shape[ax]
+    out = centered * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+    if output_mean_var:
+        return out, mean.squeeze(ax), var.squeeze(ax)
+    return out
+
+
+@register("InstanceNorm", aliases=("instance_norm",))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    _, centered, var = _moments(data, tuple(range(2, data.ndim)))
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return centered * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register("L2Normalization", aliases=("l2_normalization",))
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    axes = {"instance": tuple(range(1, data.ndim)), "channel": (1,),
+            "spatial": tuple(range(2, data.ndim))}.get(mode)
+    if axes is None:
+        raise ValueError(mode)
+    return data / torch.sqrt(torch.sum(data * data, dim=axes, keepdim=True)
+                             + eps)
+
+
+@register("LRN", aliases=("lrn",))
+def _lrn(data, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Across-channel normalization: each channel over the `nsize`
+    channels centred on it, zero beyond the edges."""
+    half = nsize // 2
+    sq = F.pad(data * data, (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    ssum = sum(sq[:, i:i + c] for i in range(nsize))
+    return data / ((knorm + alpha / nsize * ssum) ** beta)
+
+
+@register("LeakyReLU", aliases=("leaky_relu",))
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334):
+    """leaky, elu, prelu (learned `gamma`, per channel), selu, gelu (the
+    tanh form, jax.nn.gelu's default) and rrelu (the mean slope of its
+    range, as the JAX package draws none)."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 and data.ndim > 2 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "selu":
+        return F.selu(data)
+    if act_type == "gelu":
+        return F.gelu(data, approximate="tanh")
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, mid * data)
+    raise ValueError("unknown act_type %s" % act_type)
+
+
+@register("softmin")
+def _softmin(data, axis=-1):
+    return torch.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation", aliases=("softmax_activation",))
+def _softmax_activation(data, mode="instance"):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label):
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int64).unsqueeze(-1)
+    return -torch.sum(torch.take_along_dim(logp, lab, dim=-1))
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """identity (linear, mae) or sigmoid (logistic) forward; backward
+    ``(out - label)`` (linear, logistic) or ``sign(out - label)`` (mae)
+    times `grad_scale`, whatever the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape)
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        label_grad = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad * ctx.grad_scale, label_grad, None, None
+
+
+def _register_regression(name, alias, kind):
+    register(name, aliases=(alias,))(
+        lambda data, label, grad_scale=1.0: _RegressionOutput.apply(
+            data, label, kind, float(grad_scale)))
+
+
+_register_regression("LinearRegressionOutput", "linear_regression_output",
+                     "linear")
+_register_regression("LogisticRegressionOutput",
+                     "logistic_regression_output", "logistic")
+_register_regression("MAERegressionOutput", "mae_regression_output", "mae")
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; backward `grad_scale` per element whatever the
+    head gradient, divided by the batch size (``"batch"``) or by the
+    count of outputs above `valid_thresh`, at least 1 (``"valid"``), as
+    the reference's make_loss-inl.h does. With the defaults that is the
+    gradient of a loss summed over its elements."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, valid_thresh, normalization):
+        ctx.opts = (grad_scale, valid_thresh, normalization)
+        ctx.save_for_backward(data)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _head):
+        (data,) = ctx.saved_tensors
+        grad_scale, valid_thresh, normalization = ctx.opts
+        grad = torch.full_like(data, grad_scale)
+        if normalization == "batch":
+            grad = grad / data.shape[0]
+        elif normalization == "valid":
+            count = (data > valid_thresh).sum().to(data.dtype)
+            grad = grad / torch.clamp(count, min=1.0)
+        return grad, None, None, None
+
+
+@register("make_loss", aliases=("MakeLoss",))
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    return _MakeLoss.apply(data, float(grad_scale), float(valid_thresh),
+                           str(normalization))
+
+
+@register("UpSampling", aliases=("upsampling",))
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat"):
+    """The first input scaled by `scale`: nearest repeats pixels,
+    bilinear interpolates at half-pixel centres (jax.image.resize's
+    upsampling)."""
+    data = args[0]
+    if sample_type == "nearest":
+        return torch.repeat_interleave(
+            torch.repeat_interleave(data, scale, dim=2), scale, dim=3)
+    return F.interpolate(data, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+@register("GridGenerator", aliases=("grid_generator",))
+def _grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    """An affine transform's (N, 2, H, W) sampling grid over [-1, 1]^2;
+    any other transform_type returns `data`, as in the JAX package."""
+    if transform_type != "affine":
+        return data
+    h, w = target_shape
+    ys = torch.linspace(-1, 1, h, dtype=data.dtype, device=data.device)
+    xs = torch.linspace(-1, 1, w, dtype=data.dtype, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.ones_like(gx).reshape(-1)])
+    grid = torch.matmul(data.reshape(-1, 2, 3), base)
+    return grid.reshape(-1, 2, h, w)
+
+
+@register("BilinearSampler", aliases=("bilinear_sampler",))
+def _bilinear_sampler(data, grid, cudnn_off=False):
+    """`data` sampled at `grid` ((N, 2, H, W): x then y in [-1, 1], the
+    corners at the corner pixels' centres), zero outside."""
+    return F.grid_sample(data, grid.permute(0, 2, 3, 1), mode="bilinear",
+                         padding_mode="zeros", align_corners=True)
+
+
+@register("SpatialTransformer", aliases=("spatial_transformer",))
+def _spatial_transformer(data, loc, target_shape=(0, 0),
+                         transform_type="affine", sampler_type="bilinear",
+                         cudnn_off=False):
+    grid = _grid_generator(loc, transform_type="affine",
+                           target_shape=tuple(target_shape))
+    return _bilinear_sampler(data, grid)

@@ -7,10 +7,16 @@ runs it eagerly on the device its inputs live on: there is no jit cache
 and no traced-inline branch, because PyTorch has no trace to inline
 into.
 
-RNG operators (``needs_rng=True``, Dropout and RNN) take a keyword
-``generator``: dispatch passes the ``torch.Generator`` of the device the
-first input lives on (:func:`mxnet_tpu_torch.random.for_device`), where
-the JAX package prepends a fresh PRNG key.
+RNG operators (``needs_rng=True``: Dropout, RNN and the samplers of
+``random_ops``) take a keyword ``generator``: dispatch passes the
+``torch.Generator`` of the device the op runs on
+(:func:`mxnet_tpu_torch.random.for_device`), where the JAX package
+prepends a fresh PRNG key.
+
+Operators that make a tensor from attrs alone (``zeros``, ``arange``,
+``_random_uniform``; ``creates=True``) take a keyword ``device``:
+dispatch passes the device of the caller's context, where the JAX
+package places the result on its default device.
 """
 from __future__ import annotations
 
@@ -37,12 +43,13 @@ class Operator:
     num_inputs : fixed arity or None for variadic.
     aliases : extra registry names.
     train_aware : dispatch passes ``training=`` from the autograd mode.
-    needs_rng : dispatch passes ``generator=``, the inputs' device's.
+    needs_rng : dispatch passes ``generator=``, the op's device's.
+    creates : dispatch passes ``device=``, where the result is made.
     """
 
     def __init__(self, name: str, fn: Callable, *, differentiable=True,
                  num_inputs=None, aliases=(), train_aware=False,
-                 needs_rng=False):
+                 needs_rng=False, creates=False):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
@@ -50,19 +57,21 @@ class Operator:
         self.aliases = tuple(aliases)
         self.train_aware = train_aware
         self.needs_rng = needs_rng
+        self.creates = creates
 
     def __repr__(self):
         return "Operator(%s)" % self.name
 
 
 def register(name, *, differentiable=True, num_inputs=None, aliases=(),
-             train_aware=False, needs_rng=False):
+             train_aware=False, needs_rng=False, creates=False):
     """Decorator: register a torch FCompute under `name`."""
 
     def deco(fn):
         op = Operator(name, fn, differentiable=differentiable,
                       num_inputs=num_inputs, aliases=aliases,
-                      train_aware=train_aware, needs_rng=needs_rng)
+                      train_aware=train_aware, needs_rng=needs_rng,
+                      creates=creates)
         OP_REGISTRY[name] = op
         for a in aliases:
             OP_REGISTRY[a] = op
@@ -82,24 +91,39 @@ def list_all_ops():
     return sorted(OP_REGISTRY)
 
 
-def rng_attrs(tensors):
+def rng_attrs(tensors, device=None):
     """``{"generator": ...}`` for an RNG op on `tensors`: the generator of
-    the first tensor's device (none on ``meta``, where shapes are
-    inferred and nothing is drawn)."""
+    `device`, else of the first tensor's device (none on ``meta``, where
+    shapes are inferred and nothing is drawn)."""
     from .. import random as _random
 
-    device = next(t.device for t in tensors if hasattr(t, "device"))
+    if device is None:
+        device = next(t.device for t in tensors if hasattr(t, "device"))
     if device.type == "meta":
         return {"generator": None}
     return {"generator": _random.for_device(device)}
 
 
-def invoke_raw(op: Operator, tensors, attrs, named=()):
-    """Run `op` on torch tensors. Trailing `named` entries of `tensors`
-    are bound by keyword."""
-    DISPATCHES[0] += 1
+def device_attrs(op, tensors, attrs, default):
+    """`attrs` with the keywords dispatch owes `op`: ``device=`` for a
+    creating op (the first tensor's device, else `default`, the caller's
+    torch device), ``generator=`` for an RNG op."""
+    if op.creates and "device" not in attrs:
+        device = next((t.device for t in tensors if hasattr(t, "device")),
+                      default)
+        attrs = dict(attrs, device=device)
     if op.needs_rng and "generator" not in attrs:
-        attrs = dict(attrs, **rng_attrs(tensors))
+        attrs = dict(attrs, **rng_attrs(tensors, attrs.get("device")))
+    return attrs
+
+
+def invoke_raw(op: Operator, tensors, attrs, named=(), device=None):
+    """Run `op` on torch tensors. Trailing `named` entries of `tensors`
+    are bound by keyword; `device` places a creating op that has no
+    tensor input."""
+    DISPATCHES[0] += 1
+    if op.creates or op.needs_rng:
+        attrs = device_attrs(op, tensors, attrs, device)
     if named:
         n = len(tensors) - len(named)
         kw = dict(zip(named, tensors[n:]))

@@ -38,7 +38,8 @@ import torch
 from .base import MXNetError
 from .ops import registry as _registry
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "zeros", "ones", "arange"]
 
 # Per-op learnable/aux inputs that composition auto-creates when not
 # given (reference: each op's ListArguments/ListAuxiliaryStates), as
@@ -46,19 +47,23 @@ __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 _OP_PARAM_INPUTS = {
     "FullyConnected": [("weight", False, None), ("bias", False, "no_bias")],
     "Convolution": [("weight", False, None), ("bias", False, "no_bias")],
+    "Deconvolution": [("weight", False, None), ("bias", False, "no_bias")],
     "BatchNorm": [("gamma", False, None), ("beta", False, None),
                   ("moving_mean", True, None), ("moving_var", True, None)],
+    "LayerNorm": [("gamma", False, None), ("beta", False, None)],
+    "InstanceNorm": [("gamma", False, None), ("beta", False, None)],
     "Embedding": [("weight", False, None)],
     "RNN": [("parameters", False, None)],
     # Loss heads auto-create their label input, named <name>_label.
     "SoftmaxOutput": [("label", False, None)],
+    "LinearRegressionOutput": [("label", False, None)],
+    "LogisticRegressionOutput": [("label", False, None)],
+    "MAERegressionOutput": [("label", False, None)],
 }
 
 # Ops that have an auto-parameter rule in the JAX package but no port
 # yet (mxnet_tpu/symbol.py:35-149).
 _UNPORTED_RULE_OPS = frozenset((
-    "Deconvolution", "LayerNorm", "InstanceNorm", "LinearRegressionOutput",
-    "LogisticRegressionOutput", "MAERegressionOutput",
     "_contrib_quantized_conv", "_contrib_quantized_fully_connected"))
 
 
@@ -80,6 +85,29 @@ def _conv_shapes(attrs, dshape):
     if not attrs.get("no_bias", False):
         out["bias"] = (num_filter,)
     return out
+
+
+def _deconv_shapes(attrs, dshape):
+    kernel = tuple(attrs.get("kernel", ()))
+    num_filter = int(attrs.get("num_filter", 0))
+    num_group = int(attrs.get("num_group", 1))
+    out = {"weight": (dshape[1], num_filter // num_group) + kernel}
+    if not attrs.get("no_bias", False):
+        out["bias"] = (num_filter,)
+    return out
+
+
+def _ln_shapes(attrs, dshape):
+    c = dshape[int(attrs.get("axis", -1))]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+def _in_shapes(attrs, dshape):
+    return {"gamma": (dshape[1],), "beta": (dshape[1],)}
+
+
+def _regression_shapes(attrs, dshape):
+    return {"label": tuple(dshape)}
 
 
 def _bn_shapes(attrs, dshape):
@@ -117,10 +145,16 @@ def _softmax_out_shapes(attrs, dshape):
 _PARAM_SHAPE_RULES = {
     "FullyConnected": _fc_shapes,
     "Convolution": _conv_shapes,
+    "Deconvolution": _deconv_shapes,
     "BatchNorm": _bn_shapes,
+    "LayerNorm": _ln_shapes,
+    "InstanceNorm": _in_shapes,
     "Embedding": _embedding_shapes,
     "RNN": _rnn_shapes,
     "SoftmaxOutput": _softmax_out_shapes,
+    "LinearRegressionOutput": _regression_shapes,
+    "LogisticRegressionOutput": _regression_shapes,
+    "MAERegressionOutput": _regression_shapes,
 }
 
 # Ops whose output count depends on attrs (mxnet_tpu/symbol.py:640-647).
@@ -130,6 +164,9 @@ _NUM_OUTPUT_RULES = {
     "slice_channel": lambda a: int(a.get("num_outputs", 1)),
     "RNN": lambda a: (3 if a.get("mode", "lstm") == "lstm" else 2)
     if a.get("state_outputs") else 1,
+    "LayerNorm": lambda a: 3 if a.get("output_mean_var") else 1,
+    "layer_norm": lambda a: 3 if a.get("output_mean_var") else 1,
+    "topk": lambda a: 2 if a.get("ret_typ") == "both" else 1,
 }
 
 
@@ -418,9 +455,12 @@ class Symbol:
             op = _op(op_name)
             metas = [torch.empty(s, dtype=torch.float32, device="meta")
                      for s in in_shapes]
+            attrs = node._clean_attrs()
+            if op.creates:
+                attrs["device"] = torch.device("meta")
             try:
                 with torch.no_grad():
-                    out = op.fn(*metas, **node._clean_attrs())
+                    out = op.fn(*metas, **attrs)
             except Exception as e:  # any op failure is a shape error here
                 raise MXNetError("infer_shape failed at %s: %s"
                                  % (node._name or op_name, e)) from None
@@ -645,8 +685,10 @@ def _make_symbol_op(op_name):
     op = _op(op_name)
     try:
         sig = inspect.signature(op.fn)
-        # An RNG op's generator is passed at run time, never composed.
-        sig_params = [p for p in sig.parameters if p != "generator"]
+        # An RNG op's generator and a creating op's device are passed
+        # at run time, never composed.
+        sig_params = [p for p in sig.parameters
+                      if p not in ("generator", "device")]
         has_varargs = any(p.kind == inspect.Parameter.VAR_POSITIONAL
                           for p in sig.parameters.values())
     except (TypeError, ValueError):
@@ -720,6 +762,19 @@ def _make_symbol_op(op_name):
     sym_op.__name__ = op_name
     _SYM_FUNC_CACHE[op_name] = sym_op
     return sym_op
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    return _make_symbol_op("zeros")(shape=shape, dtype=dtype, **kwargs)
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return _make_symbol_op("ones")(shape=shape, dtype=dtype, **kwargs)
+
+
+def arange(start, stop=None, step=1.0, **kwargs):
+    return _make_symbol_op("arange")(start=start, stop=stop, step=step,
+                                     **kwargs)
 
 
 def __getattr__(name):

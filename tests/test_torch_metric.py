@@ -30,6 +30,13 @@ def _binary(rng, n=12):
             _softmax(rng.randn(n, 2)).astype(np.float32))
 
 
+def _tied(rng, n=10, k=4):
+    """One-hot predictions (ties among the zeros) and labels with a
+    fraction, which both packages truncate to the class index."""
+    pred = np.eye(k, dtype=np.float32)[rng.randint(0, k, n)]
+    return rng.randint(0, k, n).astype(np.float32) + 0.25, pred
+
+
 def _regression(rng, n=9):
     return (rng.randn(n, 3).astype(np.float32),
             rng.randn(n, 3).astype(np.float32))
@@ -44,6 +51,7 @@ CASES = {
     "accuracy": ({"axis": 1}, _classes),
     "topkaccuracy": ({"top_k": 2}, _classes),
     "top_k_acc": ({"top_k": 3}, _classes),
+    "top_k_acc_tied": ({"top_k": 2}, _tied),
     "pearsoncorrelation": ({}, _regression),
     "crossentropy": ({"eps": 1e-8}, _classes),
     "negativeloglikelihood": ({}, _classes),
@@ -64,7 +72,7 @@ CASES = {
 
 
 def _metric_name(case):
-    return "f1" if case == "f1_micro" else case
+    return {"f1_micro": "f1", "top_k_acc_tied": "top_k_acc"}.get(case, case)
 
 
 def _feed(pkg, metric, label, pred):

@@ -167,9 +167,11 @@ def test_internals_indexing_and_attrs():
 def test_unported_ops_raise():
     data = mx.sym.var("data")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        mx.sym.LayerNorm(data)
-    # Ported since: sym.contrib's control flow, Embedding and RNN.
+        mx.sym._contrib_quantized_conv(data)
+    # Ported since: sym.contrib's control flow, Embedding, RNN and the
+    # core surface's rule ops (LayerNorm, Deconvolution, ...).
     assert callable(mx.sym.contrib.while_loop)
     mx.sym.Embedding(data, input_dim=4, output_dim=2)
+    mx.sym.LayerNorm(data)
     with pytest.raises(AttributeError):
         mx.sym.NoSuchOp(data)
