@@ -13,17 +13,20 @@ phase falls back to the host or to a plain version):
 2. build: compile every CUDA source of the port, all at once (timed),
    with ptxas's register and spill report of each instantiation; a
    missing instantiation of an attention kernel, or a spill in one at
-   head_dim 64 or 128, fails.
+   any head dim (32, 64, 128), fails.
 3. kernels: each kernel against its plain PyTorch version on the same
-   CUDA inputs (fp32 at head dims 32, 64 and 128; bf16 and fp16, the
-   tensor-core K1/K2/K3, at ragged and cross shapes, WGMMA_CASES; held to
-   ``ops.flash_attention.kernel_tolerance``), and at the shape the main
+   CUDA inputs (fp32 at head dims 32, 64 and 128; fp32, bf16 and fp16 on
+   the tensor-core K1/K2 and bf16/fp16 on K3 at ragged and cross shapes,
+   WGMMA_CASES; held to ``ops.flash_attention.kernel_tolerance``, the
+   largest share of it logged per dtype), and at the shape the main
    path gives it, where it is timed beside its plain version, the
    library call that computes the same function, and its bound: the
    forward (K1) at the serving shape, the backward (K2 dK/dV, K3 dQ) at
    the training shape, with the backward's peak memory held below one
-   fp32 score matrix; the fp32 (FFMA) route of each at the same shape,
-   beside its fp32 bound and SDPA's fp32 call (the rows' ``fp32``).
+   fp32 score matrix; the fp32 route of each at the same shape (K1 and
+   K2 split-TF32 on the tensor cores, K3 FFMA), held against its plain
+   version there, beside its FFMA and 3xTF32 bounds and SDPA's fp32 call
+   (the rows' ``fp32``).
 4. attention served: ``InferenceServer`` over
    ``nd.contrib.flash_attention`` (16 heads x 64, T 2048, causal, bf16).
 5. ResNet-50 v1 served at full width (224x224, 1000 classes, buckets
@@ -34,7 +37,9 @@ phase falls back to the host or to a plain version):
    (Dense 3072, 16 heads x 64 through ``F.contrib.flash_attention``,
    Dense 1024) at B 8, T 2048 with ``L2Loss`` to a fixed random target:
    K1, K2 and K3 launch once per step and the loss falls; one fp32 step
-   at T 256 on the card against the same step on the host.
+   at T 256 on the card against the same step on the host, where K1, K2
+   and K3 (their fp32 route) launch once each (the kernels line's
+   ``attention_trained_fp32`` path).
 7. ResNet-50 v1 trained at full width: img/s at batch 32 through
    ``examples.train_imagenet.benchmark_rate`` in fp32 (TF32 off) and
    bf16, no flash-attention kernel launched; then, for three seeds, one
@@ -211,9 +216,9 @@ ITERS = 20
 # input dtype and memory bytes/s.
 PEAKS = {
     "H100": {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
-             "bytes": 3.35e12},
+             "tfloat32": 495e12, "bytes": 3.35e12},
     "H200": {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
-             "bytes": 4.8e12},
+             "tfloat32": 495e12, "bytes": 4.8e12},
 }
 
 
@@ -394,12 +399,13 @@ def phase_device():
 # (mangled: the name, then the template arguments: the dtype, where the
 # kernel has one, and the head dim).
 ATTENTION_KERNELS = {
-    "flash_fwd_kernel": ("f",),
+    "flash_fwd_3xtf32_kernel": ("f",),
     "flash_fwd_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
-    "flash_bwd_dkv_kernel": ("f",),
+    "flash_bwd_dkv_3xtf32_kernel": ("f",),
     "flash_bwd_dkv_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
     "flash_bwd_dq_kernel": ("f",),
     "flash_bwd_dq_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
+    "flash_split_tf32_kernel": ("f",),  # the fp32 K1/K2's pre-pass
 }
 
 
@@ -414,8 +420,7 @@ def _instantiation(entry):
 
 def phase_build():
     """Build every source; fail on a missing attention instantiation or
-    on a spill in any attention kernel at head dim 64 or 128 (the dims
-    the attention layers run)."""
+    on a spill in any attention kernel at any head dim."""
     from mxnet_tpu_torch import _native
 
     t0 = time.perf_counter()
@@ -439,15 +444,15 @@ def phase_build():
                     "0 bytes spill stores, 0 bytes spill loads" not in ln:
                 log("   spills in %s: %s" % (entry, ln.strip()))
                 inst = _instantiation(entry)
-                if inst and inst[2] in (64, 128):
+                if inst:
                     spills.append("%s: %s" % (inst, ln.strip()))
     want = {(k, t, d) for k, types in ATTENTION_KERNELS.items()
             for t in types for d in (32, 64, 128)}
     log("build_seconds", round(seconds, 3))
     check(want <= seen, "attention instantiations missing from the ptxas "
           "report: %s" % sorted(want - seen))
-    check(not spills, "ptxas reports register spills at head_dim 64/128:"
-          "\n" + "\n".join(spills))
+    check(not spills, "ptxas reports register spills in attention "
+          "kernels:\n" + "\n".join(spills))
 
 
 # bf16/fp16 cases of the tensor-core kernels (K1, K2, K3): the training
@@ -472,9 +477,10 @@ WGMMA_CASES = [
 # The kernel each dtype runs (the kernels line names it per entry).
 DESIGN = {
     "flash_attention_fwd": {"bfloat16": "wgmma+tma", "float16": "wgmma+tma",
-                            "float32": "ffma"},
+                            "float32": "3xtf32 wgmma+tma, split pre-pass"},
     "flash_attention_bwd_dkv": {"bfloat16": "wgmma+tma",
-                                "float16": "wgmma+tma", "float32": "ffma"},
+                                "float16": "wgmma+tma",
+                                "float32": "3xtf32 wgmma+tma, split pre-pass"},
     "flash_attention_bwd_dq": {"bfloat16": "wgmma+tma",
                                "float16": "wgmma+tma", "float32": "ffma"},
 }
@@ -497,7 +503,8 @@ def phase_kernels(card):
         ((1, 4, 256, 64), (1, 4, 512, 64), torch.float32, False),
         ((1, 4, 256, 64), (1, 4, 512, 64), torch.float32, True),
     ]
-    cases += [(sq, sk, dt, causal) for dt in (torch.bfloat16, torch.float16)
+    cases += [(sq, sk, dt, causal)
+              for dt in (torch.float32, torch.bfloat16, torch.float16)
               for sq, sk, causal in WGMMA_CASES]
     launches0 = fa.LAUNCHES
     calls = 0
@@ -531,6 +538,8 @@ def phase_kernels(card):
     check(fa.LAUNCHES - launches0 == calls,
           "LAUNCHES rose by %d for %d calls" % (fa.LAUNCHES - launches0,
                                                 calls))
+    log(json.dumps({"check": "flash_attention_fwd: largest share of "
+                    "kernel_tolerance per dtype", "by_dtype": by_dtype}))
 
     # The serving shape: bucket 8 of the served attention function.
     b, h, t, d, dt = 8, 16, 2048, 64, torch.bfloat16
@@ -556,10 +565,11 @@ def phase_kernels(card):
     library_ms, library_device_ms = time_ms(library), time_queued(library)
     bound_ms, bound_by, flops, nbytes = attention_bound(
         card, b, h, t, t, d, True, dt)
-    # The fp32 (FFMA) kernel at the same shape: the design every dtype
-    # ran before the tensor-core kernel; read beside its fp32 bound and
-    # SDPA's fp32 forward (TF32 off), with no gate.
-    q32, k32, v32 = (x.float() for x in (q, k, v))
+    # The fp32 (split-TF32) kernel at the same shape, on fp32 inputs (all
+    # 24 bits random, so hi and lo both count), held against its plain
+    # version and timed beside its FFMA and 3xTF32 bounds and SDPA's fp32
+    # forward (TF32 off).
+    q32, k32, v32 = inputs((b, h, t, d), (b, h, t, d), torch.float32)
 
     def kernel32():
         return fa.flash_attention_forward(q32, k32, v32, causal=True)
@@ -567,12 +577,31 @@ def phase_kernels(card):
     def library32():
         return F.scaled_dot_product_attention(q32, k32, v32, is_causal=True)
 
+    out32, lse32 = kernel32()
+    ref32, ref_lse32 = fa.flash_attention_reference(q32, k32, v32,
+                                                    causal=True)
+    tol32 = fa.kernel_tolerance(torch.float32, ref32)
+    _fold_error(by_dtype, torch.float32, out32, ref32, *tol32)
+    v_out = max_violation(out32, ref32, *tol32)
+    v_lse = max_violation(lse32, ref_lse32, *tol32)
+    log(json.dumps({
+        "check": "flash_attention_fwd vs plain at the serving shape",
+        "q": [b, h, t, d], "dtype": "float32", "causal": True,
+        "max_abs_err_out": float((out32 - ref32).abs().max()),
+        "max_abs_err_lse": float((lse32 - ref_lse32).abs().max()),
+        "tol": tol32, "within": v_out <= 0 and v_lse <= 0}))
+    check(v_out <= 0 and v_lse <= 0, "flash_attention_fwd disagrees with "
+          "its plain version in fp32 at the serving shape")
+    del out32, lse32, ref32, ref_lse32
     fp32_ms = time_ms(kernel32)
-    fp32 = fp32_row(card, fp32_ms, time_queued(kernel32),
+    plain32_ms = time_ms(lambda: fa.flash_attention_reference(
+        q32, k32, v32, causal=True), iters=5)
+    fp32 = fp32_row(card, fp32_ms, time_queued(kernel32), plain32_ms,
                     attention_bound(card, b, h, t, t, d, True,
                                     torch.float32),
                     time_ms(library32), time_queued(library32),
                     "F.scaled_dot_product_attention, fp32")
+    fp32["device_ms_by_kernel"] = _device_ms_by_kernel(kernel32)
     del q32, k32, v32
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -592,19 +621,49 @@ def phase_kernels(card):
     }
 
 
-def fp32_row(card, ms, device_ms, bound, library_ms, library_device_ms,
-             library_call):
-    """The reading of an attention kernel's fp32 (FFMA) route: its time
-    one call at a time and on the device, its bound (operations over
-    the fp32 peak or bytes over the memory rate, the larger), and the
-    library call's times at the same shape."""
+def fp32_row(card, ms, device_ms, plain_ms, bound, library_ms,
+             library_device_ms, library_call):
+    """The reading of an attention kernel's fp32 route: its time one
+    call at a time and on the device, its plain version's time on the
+    same fp32 inputs, its bound (operations over the fp32 FFMA peak or
+    bytes over the memory rate, the larger), the 3xTF32 bound (three
+    times the operations over the TF32 tensor-core peak, or the bytes),
+    and the library call's times at the same shape."""
     bound_ms, bound_by, flops, nbytes = bound
-    return {"ms": ms, "device_ms": device_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_share": bound_ms / device_ms,
+    peaks = PEAKS["H200" if "H200" in card else "H100"]
+    tf32_ms = max(3 * flops / peaks["tfloat32"],
+                  nbytes / peaks["bytes"]) * 1e3
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / device_ms, "bound_3xtf32_ms": tf32_ms,
+            "bound_3xtf32_share": tf32_ms / device_ms,
             "library_ms": library_ms,
             "library_device_ms": library_device_ms,
             "library_call": library_call, "flops": flops, "bytes": nbytes,
             "achieved_tflops": flops / device_ms / 1e9}
+
+
+def _device_ms_by_kernel(fn, reps=5):
+    """Device ms per call of `fn` by CUDA kernel (torch.profiler), keyed
+    by the kernel's name up to its template arguments: how a launcher's
+    time splits between its kernels (the fp32 route's pre-pass and main
+    kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", re.sub(r"^void ", "", name))[0]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + \
+                evt.self_device_time_total / 1e3 / reps
+    return out
 
 
 def _fold_error(by_dtype, dtype, got, want, rtol, atol):
@@ -654,8 +713,8 @@ def phase_backward_kernels(card):
                      for s in (shape_q, shape_k, shape_k, shape_q))
 
     # Tolerances: fa.kernel_tolerance. fp32 at every head dim the kernels
-    # take (each has its own lanes per row), bf16/fp16 at the training
-    # geometry.
+    # take (each has its own tiles), and fp32 (K2 split-TF32, K3 FFMA),
+    # bf16 and fp16 at WGMMA_CASES.
     cases = [
         ((1, 4, 512, 64), (1, 4, 512, 64), torch.float32, True),
         ((1, 4, 512, 64), (1, 4, 512, 64), torch.float32, False),
@@ -665,7 +724,8 @@ def phase_backward_kernels(card):
         ((1, 4, 256, 128), (1, 4, 512, 128), torch.float32, False),
         ((1, 4, 512, 32), (1, 4, 512, 32), torch.float32, True),
     ]
-    cases += [(sq, sk, dt, causal) for dt in (torch.bfloat16, torch.float16)
+    cases += [(sq, sk, dt, causal)
+              for dt in (torch.float32, torch.bfloat16, torch.float16)
               for sq, sk, causal in WGMMA_CASES]
     errs = {"dkv": 0.0, "dq": 0.0}
     by_dtype = {"dkv": {}, "dq": {}}
@@ -693,6 +753,8 @@ def phase_backward_kernels(card):
                                 dict(q=shape_q, k=shape_k, causal=causal))
         check(within, "backward kernels disagree with the plain version at "
               "%s/%s %s causal=%s" % (shape_q, shape_k, dt, causal))
+    log(json.dumps({"check": "flash_attention_bwd: largest share of "
+                    "kernel_tolerance per dtype", "by_dtype": by_dtype}))
 
     # The training shape of the attention layer.
     b, h, t, d, dt = 8, 16, 2048, 64, torch.bfloat16
@@ -751,10 +813,11 @@ def phase_backward_kernels(card):
                                    retain_graph=True)
 
     library_ms, library_device_ms = time_ms(library), time_queued(library)
-    # The fp32 (FFMA) kernels at the same shape, as for K1, from an fp32
-    # forward's LSE and delta, beside their fp32 bounds and SDPA's fp32
-    # backward (TF32 off).
-    q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
+    # The fp32 kernels at the same shape (K2 split-TF32, K3 FFMA), as for
+    # K1: fp32 inputs, an fp32 forward's LSE and delta, held against their
+    # plain versions, then timed beside their FFMA and 3xTF32 bounds and
+    # SDPA's fp32 backward (TF32 off).
+    q32, k32, v32, g32 = inputs((b, h, t, d), (b, h, t, d), torch.float32)
     out32, lse32 = fa.flash_attention_forward(q32, k32, v32, causal=True)
     delta32 = (g32 * out32).sum(-1).contiguous()
     kernels32 = {
@@ -762,7 +825,30 @@ def phase_backward_kernels(card):
                                          True, d ** -0.5),
         "dq": lambda: fa.launch_bwd_dq(q32, k32, v32, g32, lse32, delta32,
                                        True, d ** -0.5)}
+    plain32 = {
+        "dkv": fa.flash_attention_bwd_dkv_reference,
+        "dq": fa.flash_attention_bwd_dq_reference}
+    got_dk, got_dv = kernels32["dkv"]()
+    got_dq = kernels32["dq"]()
+    want_dk, want_dv = plain32["dkv"](q32, k32, v32, out32, lse32, g32,
+                                      causal=True)
+    want_dq = plain32["dq"](q32, k32, v32, out32, lse32, g32, causal=True)
+    for which, got_w, want_w in (("dq", got_dq, want_dq),
+                                 ("dkv", got_dk, want_dk),
+                                 ("dkv", got_dv, want_dv)):
+        _fold_error(by_dtype[which], torch.float32, got_w, want_w,
+                    *fa.kernel_tolerance(torch.float32, want_w))
+    within = _hold_backward(("dq", "dk", "dv"), (got_dq, got_dk, got_dv),
+                            (want_dq, want_dk, want_dv), errs,
+                            dict(q=[b, h, t, d], k=[b, h, t, d],
+                                 causal=True, launched="directly"))
+    check(within, "fp32 backward kernels disagree with the plain version "
+          "at the training shape")
+    del got_dk, got_dv, got_dq, want_dk, want_dv, want_dq
     fp32_ms = {w: time_ms(fn) for w, fn in kernels32.items()}
+    plain32_ms = {w: time_ms(lambda fn=fn: fn(q32, k32, v32, out32, lse32,
+                                              g32, causal=True), iters=5)
+                  for w, fn in plain32.items()}
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q32, k32,
                                                                   v32))
     lib_out32 = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
@@ -772,13 +858,15 @@ def phase_backward_kernels(card):
                                    retain_graph=True)
 
     lib32_ms, lib32_device_ms = time_ms(library32), time_queued(library32)
-    fp32 = {w: fp32_row(card, fp32_ms[w], time_queued(fn),
+    fp32 = {w: fp32_row(card, fp32_ms[w], time_queued(fn), plain32_ms[w],
                         backward_bound(card, b, h, t, t, d, True,
                                        torch.float32, w),
                         lib32_ms, lib32_device_ms,
                         "backward of F.scaled_dot_product_attention, fp32 "
                         "(dq, dk and dv together)")
             for w, fn in kernels32.items()}
+    fp32["dkv"]["device_ms_by_kernel"] = _device_ms_by_kernel(
+        kernels32["dkv"])
     del q32, k32, v32, g32, out32, lse32, delta32, lq, lk, lv, lib_out32
     entries = []
     for name, which, ms, plain_ms, replaces in (
@@ -1048,8 +1136,15 @@ def phase_attention_trained():
                         ("host", host_net, mx.cpu())):
         st = TrainStep(n, gluon.loss.L2Loss(), "sgd", opt,
                        mesh=make_mesh({"dp": 1}, devices=[ctx]))
-        loss = float(st(xs, ys))
+        if tag == "card":
+            _reset_launches()  # the fp32 path starts here
+            loss = float(st(xs, ys))
+            fp32_launches = _launches()  # read just after the path
+        else:
+            loss = float(st(xs, ys))
         results[tag] = (loss, _relative(st.state_to_host()[0], n.prefix))
+    check(fp32_launches == (1, 1, 1), "the fp32 step launched K1/K2/K3 %s "
+          "times, not once each" % (fp32_launches,))
     w0 = _relative(w0, card_net.prefix)
     loss_err = abs(results["card"][0] - results["host"][0]) / \
         abs(results["host"][0])
@@ -1061,7 +1156,8 @@ def phase_attention_trained():
         "step_ms": times, "step_ms_median": float(np.median(times[2:])),
         "launches_per_step": per_step, "launches": launches,
         "fp32_step_card_vs_host": {
-            "shape": [2, 16, 256, 64], "loss_card": results["card"][0],
+            "shape": [2, 16, 256, 64], "launches": fp32_launches,
+            "loss_card": results["card"][0],
             "loss_host": results["host"][0], "loss_rel_err": loss_err,
             "update_rel_err": step_errs, "limits": [1e-5, 1e-3]}}))
     # fp32 on both sides, no kinks in the block: the card's loss within
@@ -1071,7 +1167,7 @@ def phase_attention_trained():
           % (results["card"][0], results["host"][0]))
     check(max(step_errs.values()) < 1e-3,
           "fp32 attention update card vs host: %s" % step_errs)
-    return launches, float(np.median(times[2:]))
+    return launches, fp32_launches, float(np.median(times[2:]))
 
 
 def phase_resnet_trained():
@@ -4460,7 +4556,7 @@ def main():
     dkv, dq = phase_backward_kernels(card)
     served = phase_attention_served()
     phase_resnet_served()
-    trained, attn_step_ms = phase_attention_trained()
+    trained, trained32, attn_step_ms = phase_attention_trained()
     synthetic = phase_resnet_trained()
     direct, tensors = phase_rtc_direct()
     rtc_entries = phase_rtc_kernels(card, tensors)
@@ -4486,16 +4582,18 @@ def main():
         "rtc_direct": direct["rtc"],
         "checkpoint_served_partitioned": ckpt["partitioned"]["rtc_launches"],
         "checkpoint_served_plain": ckpt["plain"]["rtc_launches"]}
-    fwd["launches"] = served + trained[0] + attn_trainer[0]
+    fwd["launches"] = served + trained[0] + trained32[0] + attn_trainer[0]
     fwd["launches_by_path"] = {"attention_served": served,
                                "attention_trained": trained[0],
+                               "attention_trained_fp32": trained32[0],
                                "resnet50_trained": 0,
                                "attention_trainer": attn_trainer[0],
                                "resnet50_trainer": 0}
-    for entry, n, m in ((dkv, trained[1], attn_trainer[1]),
-                        (dq, trained[2], attn_trainer[2])):
-        entry["launches"] = n + m
+    for entry, n, n32, m in ((dkv, trained[1], trained32[1], attn_trainer[1]),
+                             (dq, trained[2], trained32[2], attn_trainer[2])):
+        entry["launches"] = n + n32 + m
         entry["launches_by_path"] = {"attention_trained": n,
+                                     "attention_trained_fp32": n32,
                                      "resnet50_trained": 0,
                                      "attention_trainer": m,
                                      "resnet50_trainer": 0}

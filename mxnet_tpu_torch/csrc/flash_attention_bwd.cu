@@ -20,11 +20,13 @@
 // Tq x Tk reaches device memory.
 //
 // What bounds it on this card. At the training shape (B 8, H 16,
-// T 2048, D 64, causal, bf16), K2 does 8*B*H*T*T*D/2 = 137 GFLOP and K3
+// T 2048, D 64, causal), K2 does 8*B*H*T*T*D/2 = 137 GFLOP and K3
 // 6*B*H*T*T*D/2 = 103 GFLOP against about 170 MB and 130 MB of
-// inputs/outputs: far above the H100's ridge point, so arithmetic sets
-// the least time (0.139 ms and 0.104 ms at the 989 TFLOP/s bf16
-// tensor-core peak).
+// inputs/outputs in bf16 (twice that in fp32): far above the H100's
+// ridge point, so arithmetic sets the least time: 0.139 ms and 0.104 ms
+// at the 989 TFLOP/s bf16 tensor-core peak; in fp32 2.05 and 1.54 ms at
+// the 67 TFLOP/s FFMA peak, or 0.833 ms for K2's three TF32 passes at
+// 495 TFLOP/s.
 //
 // No atomics, so every gradient is deterministic: two passes, as on the
 // TPU. K2 owns a tile of keys, K3 a tile of queries; the loop over the
@@ -66,17 +68,48 @@
 // do not make; ops/flash_attention.py's kernel_tolerance() accounts for
 // them.
 //
-// K2 and K3 for float32: IEEE fp32 FFMA on the CUDA cores (67 TFLOP/s),
-// because fp32 inputs must match the JAX package to rtol 2e-4 / atol
-// 2e-5, which TF32 cannot. K3 has the forward's FFMA shape: one block
-// per (batch*head, query tile), L = D/16 lanes per query row, each
-// holding 16 floats of q, dO and the dQ accumulator in registers; keys
-// and values stream through shared memory in 32-row tiles; L-lane
-// butterfly shuffles complete q.k and dO.v. The fp32 K2 is its
-// transpose: L lanes per key row holding k, v and the dK/dV
-// accumulators, queries, dO, lse and delta streaming through shared
-// memory in 16-row tiles. 256 threads per block at every D. K3 blocks
-// launch longest-first.
+// K2 for float32 (`flash_bwd_dkv_3xtf32_kernel`) is K2's structure in
+// split TF32 ("3xTF32", flash_attention_fwd.cu and hopper.cuh give the
+// error argument: about 2^-20 of |a.b| per product against the
+// tolerance's 2^-12). Every product is three TF32 passes: S^T = K Q^T
+// and dP^T = V dO^T as Kh Ql + Kl Qh + Kh Qh, the updates as
+// dV += Pl^T dO_h + Ph^T dO_l + Ph^T dO_h and likewise dK.
+// - tf32 wgmma takes its shared-memory operands K-major only, so the
+//   updates need dO^T and Q^T (D rows, queries contiguous) where the
+//   first products need Q and dO as rows. The pre-pass
+//   (`flash_split_tf32_kernel`) writes both forms of Q and dO, hi and lo,
+//   once per call into a workspace the wrapper allocates: it reads Q
+//   and dO once and writes each four times (about 0.24 ms of a 2.0 ms
+//   call at the training shape on an H100, PERF.md). The transposed
+//   forms hold their queries in tf32_perm order within each group of 8,
+//   so the accumulator registers of S^T and dP^T, taken in the order
+//   {0, 2, 1, 3}, are the A fragments of the updates (as P in the
+//   forward). V is split once per block in shared memory.
+// - What bounds it: the N of S^T and dP^T is the query tile. An ss
+//   m64nNk8 re-reads its 2 KB A tile (64 keys x 8) from shared memory
+//   for 64*N*8*2 FLOP, and shared memory holds K and V hi/lo (128 KB for
+//   128 keys at D 64) besides the stages of eight tiles. So up to D 64
+//   the block's K lives in registers as S^T's A fragments (hi and lo,
+//   64 a thread; S^T is wgmma rs and reads only Q from shared memory).
+//   K is staged raw in the first stage's buffer, split into registers,
+//   and released (mbarrier k_free) before the ring starts. That leaves
+//   room for 32-query tiles: 128 keys (two consumer warpgroups of 64),
+//   V hi/lo resident (64 KB at D 64), two stages of 64 KB, 192 KB, one
+//   block an SM; D 32 takes 96 KB. dP^T still reads V from shared
+//   memory (V in registers too would need more than 240 registers a
+//   thread). At D 128 K stays in shared memory (its fragments would
+//   take 128 registers): 64 keys (one consumer warpgroup), K and V
+//   hi/lo resident (128 KB), one stage of 16 queries (64 KB), 192 KB.
+//   Overlapping a tile's updates with the next tile's first products
+//   was tried and is slower (the stage is released a tile later).
+//
+// K3 for float32 (`flash_bwd_dq_kernel`) is IEEE fp32 FFMA on the CUDA
+// cores (67 TFLOP/s): one block per (batch*head, query tile), L = D/16
+// lanes per query row, each holding 16 floats of q, dO and the dQ
+// accumulator in registers; keys and values stream through shared
+// memory in 32-row tiles; L-lane butterfly shuffles complete q.k and
+// dO.v. 256 threads per block at every D; blocks launch longest-first.
+// It takes the split-TF32 forward's LSE and delta as they are.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -85,7 +118,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileK = 32;  // K3: keys per shared-memory tile
-constexpr int kTileQ = 16;  // K2: queries per shared-memory tile
 
 template <int D>
 struct Geo {
@@ -221,110 +253,304 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < C; ++i) store4(dqrow + 4 * (lane + L * i), acc[i]);
 }
 
-// K2 for float32: dK and dV for one (batch*head, key tile) on FFMA.
+// -- K2 for float32: split-TF32 wgmma + TMA ---------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int tq, int tk, int causal,
-                     float scale) {
-  using G = Geo<D>;
-  constexpr int L = G::kLanes;
-  constexpr int C = G::kChunks;
-  __shared__ float4 qs[kTileQ * G::kVec];
-  __shared__ float4 dos[kTileQ * G::kVec];
-  __shared__ float lses[kTileQ];
-  __shared__ float dels[kTileQ];
+struct F32DkvGeo {
+  static constexpr int kConsumers = D == 128 ? 1 : 2;  // 64 keys each
+  static constexpr int kKeys = 64 * kConsumers;         // keys per block
+  // Up to D 64 K's A fragments live in registers, K is only staged in
+  // shared memory (in the first stage, before the ring starts), and the
+  // room goes to 32-query tiles.
+  static constexpr bool kKRegs = D <= 64;
+  static constexpr int kQueries = kKRegs ? 32 : 16;     // queries per tile
+  static constexpr int kStages = kKRegs ? 2 : 1;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kPanels = D / 32;                // 128-byte panels a row
+  static constexpr int kKPanel = kKeys * 128;
+  static constexpr int kKTile = kKeys * D * 4;          // K or V, hi or lo
+  static constexpr int kQPanel = kQueries * 128;
+  static constexpr int kQTile = kQueries * D * 4;       // one streamed operand
+  static constexpr int kTSW = kQueries * 4;  // a transposed tile's row bytes
+  // A stage: Q hi, Q lo, dO hi, dO lo (rows of D), then Q^T hi, Q^T lo,
+  // dO^T hi, dO^T lo (D rows of kQueries), kQTile bytes each.
+  static constexpr int kStage = 8 * kQTile;
+  // Resident: V hi and lo, and K hi and lo where K stays in shared memory.
+  static constexpr int kResident = (kKRegs ? 2 : 4) * kKTile;
+  static constexpr int kStatOffset = kResident + kStages * kStage;
+  static constexpr int kBarOffset = kStatOffset + kStages * 2 * kQueries * 4;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 2);
+};
+
+// K2 for float32. The block's V is split once in shared memory, its K
+// in registers (up to D 64) or in shared memory (D 128); Q
+// and dO arrive from the pre-pass split (hi, lo) both as rows (the B of
+// S^T = K Q^T and dP^T = V dO^T) and transposed with queries in tf32_perm
+// order (the B of dV += P^T dO and dK += dS^T Q); P^T and dS^T are split
+// in registers.
+template <int D>
+__global__ void __launch_bounds__(F32DkvGeo<D>::kThreads, 1)
+flash_bwd_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap qhmap,
+                            const __grid_constant__ CUtensorMap qlmap,
+                            const __grid_constant__ CUtensorMap dohmap,
+                            const __grid_constant__ CUtensorMap dolmap,
+                            const __grid_constant__ CUtensorMap qthmap,
+                            const __grid_constant__ CUtensorMap qtlmap,
+                            const __grid_constant__ CUtensorMap dothmap,
+                            const __grid_constant__ CUtensorMap dotlmap,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int tq, int tk, int causal, float scale) {
+  using G = F32DkvGeo<D>;
+  using W = hopper::WgmmaTf32<G::kQueries>;
+  using U = hopper::WgmmaTf32<D>;
+  constexpr int kQ = G::kQueries;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* v_s = smem;  // V hi, V lo, then K hi, K lo: kKTile each
+  uint8_t* st_s = smem + G::kResident;  // stage s at s * kStage
+  uint8_t* k_s = G::kKRegs ? st_s : smem + 2 * G::kKTile;
+  // stage s: lse * log2(e) at 2s, delta at 2s + 1 (kQueries floats each)
+  float* stat_s = reinterpret_cast<float*>(smem + G::kStatOffset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBarOffset);
+  uint64_t* empty = full + G::kStages;
+  uint64_t* kv_bar = empty + G::kStages;
+  uint64_t* k_free = kv_bar + 1;  // K's staging area may be refilled
 
   const int ktile = blockIdx.x;  // tile 0 sees the most queries: first
-  const size_t bh = blockIdx.y;
-  const int row = threadIdx.x / L;
-  const int lane = threadIdx.x % L;
-  const int k_pos = ktile * G::kRows + row;
-  const bool row_valid = k_pos < tk;
-
-  const float* qb = q + bh * tq * D;
-  const float* dob = dout + bh * tq * D;
-
-  float4 kr[C], vr[C], dk_acc[C], dv_acc[C];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const int c = lane + L * i;
-    const size_t off = (bh * tk + k_pos) * D + 4 * c;
-    kr[i] = row_valid ? load4(k + off) : make_float4(0.f, 0.f, 0.f, 0.f);
-    vr[i] = row_valid ? load4(v + off) : make_float4(0.f, 0.f, 0.f, 0.f);
-    dk_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const int n_qtiles = (tq + kTileQ - 1) / kTileQ;
+  const int bh = blockIdx.y;
+  const int n_qtiles = (tq + kQ - 1) / kQ;
   // Causal: the first query tile whose last query reaches this block's
   // first key; every earlier one is wholly above the diagonal.
-  const int qt0 = causal ? (ktile * G::kRows) / kTileQ : 0;
+  const int qt0 = causal ? min(ktile * G::kKeys / kQ, n_qtiles) : 0;
 
-  for (int qt = qt0; qt < n_qtiles; ++qt) {
-    const int q0 = qt * kTileQ;
-    __syncthreads();  // every lane is done with the previous tile
-    for (int idx = threadIdx.x; idx < kTileQ * G::kVec; idx += kThreads) {
-      const int i = idx / G::kVec;
-      const int c = idx % G::kVec;
-      float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 dv4 = qv;
-      if (q0 + i < tq) {
-        qv = load4(qb + (size_t)(q0 + i) * D + 4 * c);
-        dv4 = load4(dob + (size_t)(q0 + i) * D + 4 * c);
-      }
-      qs[idx] = qv;
-      dos[idx] = dv4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], 128 * G::kConsumers);
     }
-    if (threadIdx.x < kTileQ) {
-      const int r = threadIdx.x;
-      const bool in = q0 + r < tq;
-      lses[r] = in ? lse[bh * tq + q0 + r] : 0.f;
-      dels[r] = in ? delta[bh * tq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // One query at a time: its q and dO chunks are read from shared
-    // memory once, for the two dot products and for the dK/dV updates
-    // (unrolled by two; a full unroll spills, see K3).
-#pragma unroll 2
-    for (int r = 0; r < kTileQ; ++r) {
-      float4 qq[C], dd[C];
-      float s = 0.f;
-      float dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int c = r * G::kVec + lane + L * i;
-        qq[i] = qs[c];
-        dd[i] = dos[c];
-        s = dot4(qq[i], kr[i], s);
-        dp = dot4(dd[i], vr[i], dp);
-      }
-      s = row_sum<L>(s);
-      dp = row_sum<L>(dp);
-      const int qpos = q0 + r;
-      const bool live = qpos < tq && !(causal && k_pos > qpos);
-      const float p = live ? expf(s * scale - lses[r]) : 0.f;
-      const float ds = p * (dp - dels[r]) * scale;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        axpy4(p, dd[i], dv_acc[i]);
-        axpy4(ds, qq[i], dk_acc[i]);
-      }
-    }
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_init(k_free, 128 * G::kConsumers);
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  if (!row_valid) return;
-  const size_t base = (bh * tk + k_pos) * D;
+  const int wg = threadIdx.x / 128;
+  if (wg == G::kConsumers) {
+    // Producer: one warp. Its lanes stage lse and delta; lane 0 issues
+    // the TMA loads.
+    if constexpr (G::kConsumers > 1) hopper::regs_dealloc<24>();
+    if (threadIdx.x / 32 == 4 * G::kConsumers) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(kv_bar, 2 * G::kKTile);
+        for (int p = 0; p < G::kPanels; ++p) {
+          hopper::tma_load_3d(k_s + p * G::kKPanel, &kmap, kv_bar, p * 32,
+                              ktile * G::kKeys, bh);
+          hopper::tma_load_3d(v_s + p * G::kKPanel, &vmap, kv_bar, p * 32,
+                              ktile * G::kKeys, bh);
+        }
+      }
+      if constexpr (G::kKRegs) hopper::mbar_wait(k_free, 0);
+      for (int qt = qt0; qt < n_qtiles; ++qt) {
+        const int it = qt - qt0;
+        const int s = it % G::kStages;
+        hopper::mbar_wait(&empty[s], ((it / G::kStages) & 1) ^ 1);
+        float* stat = stat_s + 2 * s * kQ;
+        if (lane < kQ) {
+          const int q = qt * kQ + lane;
+          const size_t at = static_cast<size_t>(bh) * tq + q;
+          stat[lane] = q < tq ? lse[at] * hopper::kLog2e : 0.f;
+          stat[kQ + lane] = q < tq ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_tx(&full[s], G::kStage);
+          uint8_t* dst = st_s + s * G::kStage;
+          const int q0 = qt * kQ;
+          for (int p = 0; p < G::kPanels; ++p) {
+            const int off = p * G::kQPanel;
+            hopper::tma_load_3d(dst + off, &qhmap, &full[s], p * 32, q0, bh);
+            hopper::tma_load_3d(dst + G::kQTile + off, &qlmap, &full[s],
+                                p * 32, q0, bh);
+            hopper::tma_load_3d(dst + 2 * G::kQTile + off, &dohmap, &full[s],
+                                p * 32, q0, bh);
+            hopper::tma_load_3d(dst + 3 * G::kQTile + off, &dolmap, &full[s],
+                                p * 32, q0, bh);
+          }
+          hopper::tma_load_3d(dst + 4 * G::kQTile, &qthmap, &full[s], q0, 0,
+                              bh);
+          hopper::tma_load_3d(dst + 5 * G::kQTile, &qtlmap, &full[s], q0, 0,
+                              bh);
+          hopper::tma_load_3d(dst + 6 * G::kQTile, &dothmap, &full[s], q0, 0,
+                              bh);
+          hopper::tma_load_3d(dst + 7 * G::kQTile, &dotlmap, &full[s], q0, 0,
+                              bh);
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    if constexpr (G::kConsumers > 1) hopper::regs_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int first_key = ktile * G::kKeys + wg * 64;
+    const int key0 = first_key + 16 * warp + lane / 4;  // and key0 + 8
+    const int col0 = 2 * (lane % 4);
+    const uint32_t kh_base = hopper::smem_u32(k_s) + wg * 64 * 128;
+    const uint32_t kl_base = kh_base + G::kKTile;
+    const uint32_t vh_base = hopper::smem_u32(v_s) + wg * 64 * 128;
+    const uint32_t vl_base = vh_base + G::kKTile;
+    const float scale_log2 = scale * hopper::kLog2e;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const int c = lane + L * i;
-    store4(dk + base + 4 * c, dk_acc[i]);
-    store4(dv + base + 4 * c, dv_acc[i]);
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    hopper::mbar_wait(kv_bar, 0);
+    hopper::split_rows<G::kPanels, G::kKPanel>(v_s, v_s + G::kKTile, wg, tid);
+    // Up to D 64, K's hi and lo stay in registers as the A fragments of
+    // S^T = K Q^T, split from the raw K staged in the first stage's
+    // buffer, which is then released to the producer.
+    constexpr bool kKRegs = G::kKRegs;
+    constexpr int kKSteps = kKRegs ? D / 8 : 1;
+    uint32_t kfh[kKSteps][4], kfl[kKSteps][4];
+    if constexpr (!kKRegs) {
+      hopper::split_rows<G::kPanels, G::kKPanel>(k_s, k_s + G::kKTile, wg,
+                                                 tid);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kKSteps; ++k) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = wg * 64 + 16 * warp + lane / 4 + 8 * (e & 1);
+          const int col = 8 * k + lane % 4 + 4 * (e >> 1);
+          const int at = (col / 32) * G::kKPanel + row * 128 +
+                         ((((col % 32) / 4) ^ (row & 7)) << 4) + (col % 4) * 4;
+          hopper::tf32_split(*reinterpret_cast<const float*>(k_s + at),
+                             kfh[k][e], kfl[k][e]);
+        }
+      }
+      hopper::mbar_arrive(k_free);
+    }
+    for (int qt = qt0; qt < n_qtiles; ++qt) {
+      const int it = qt - qt0;
+      const int st = it % G::kStages;
+      const int q_first = qt * kQ;
+      hopper::mbar_wait(&full[st], (it / G::kStages) & 1);
+      if (causal && q_first + kQ - 1 < first_key) {
+        hopper::mbar_arrive(&empty[st]);  // above this warpgroup's diagonal
+        continue;
+      }
+      const uint32_t qh_base = hopper::smem_u32(st_s + st * G::kStage);
+      const uint32_t ql_base = qh_base + G::kQTile;
+      const uint32_t doh_base = qh_base + 2 * G::kQTile;
+      const uint32_t dol_base = qh_base + 3 * G::kQTile;
+      const uint32_t qth_base = qh_base + 4 * G::kQTile;
+      const uint32_t qtl_base = qh_base + 5 * G::kQTile;
+      const uint32_t doth_base = qh_base + 6 * G::kQTile;
+      const uint32_t dotl_base = qh_base + 7 * G::kQTile;
+
+      float s[kQ / 2], dp[kQ / 2];
+      if constexpr (kKRegs) {
+#pragma unroll
+        for (int i = 0; i < kQ / 2; ++i) s[i] = 0.f;
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k) {
+        const int boff = (k / 4) * G::kQPanel + (k % 4) * 32;
+        const uint64_t qh = hopper::smem_desc(qh_base + boff, 128);
+        const uint64_t ql = hopper::smem_desc(ql_base + boff, 128);
+        if constexpr (kKRegs) {
+          W::rs(s, kfh[k], ql);
+          W::rs(s, kfl[k], qh);
+          W::rs(s, kfh[k], qh);
+        } else {
+          const int aoff = (k / 4) * G::kKPanel + (k % 4) * 32;
+          const uint64_t kh = hopper::smem_desc(kh_base + aoff, 128);
+          W::ss(s, kh, ql, k > 0);
+          W::ss(s, hopper::smem_desc(kl_base + aoff, 128), qh, 1);
+          W::ss(s, kh, qh, 1);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k) {
+        const int aoff = (k / 4) * G::kKPanel + (k % 4) * 32;
+        const int boff = (k / 4) * G::kQPanel + (k % 4) * 32;
+        const uint64_t vh = hopper::smem_desc(vh_base + aoff, 128);
+        const uint64_t doh = hopper::smem_desc(doh_base + boff, 128);
+        W::ss(dp, vh, hopper::smem_desc(dol_base + boff, 128), k > 0);
+        W::ss(dp, hopper::smem_desc(vl_base + aoff, 128), doh, 1);
+        W::ss(dp, vh, doh, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P^T = exp(scale s - lse[query]) and dS^T = P^T (dP^T - delta)
+      // scale, split as the A fragments of the updates: accumulator
+      // registers 4j..4j+3 in the order {0, 2, 1, 3} (hopper.cuh).
+      const float* lse_l2 = stat_s + 2 * st * kQ;
+      const float* dl = lse_l2 + kQ;
+      const bool masked = q_first + kQ > tq ||
+                          (causal && q_first < first_key + 63);
+      uint32_t ph[kQ / 8][4], pl[kQ / 8][4], dsh[kQ / 8][4], dsl[kQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + ((e & 1) << 1) + (e >> 1);
+          const int c = hopper::acc_col(i) + col0;
+          const int q = q_first + c;
+          const int key = key0 + hopper::acc_row(i);
+          // A select, not a branch: the A fragments below must not be
+          // written on a divergent path, or ptxas serializes the wgmmas.
+          const bool live = !masked || (q < tq && !(causal && key > q));
+          const float pr =
+              live ? exp2f(fmaf(s[i], scale_log2, -lse_l2[c])) : 0.f;
+          hopper::tf32_split(pr, ph[j][e], pl[j][e]);
+          hopper::tf32_split(pr * (dp[i] - dl[c]) * scale, dsh[j][e],
+                             dsl[j][e]);
+        }
+      }
+
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j) {
+        const uint64_t doth = hopper::smem_desc(doth_base + j * 32, G::kTSW);
+        const uint64_t qth = hopper::smem_desc(qth_base + j * 32, G::kTSW);
+        U::rs(dv_acc, pl[j], doth);
+        U::rs(dv_acc, ph[j], hopper::smem_desc(dotl_base + j * 32, G::kTSW));
+        U::rs(dv_acc, ph[j], doth);
+        U::rs(dk_acc, dsl[j], qth);
+        U::rs(dk_acc, dsh[j], hopper::smem_desc(qtl_base + j * 32, G::kTSW));
+        U::rs(dk_acc, dsh[j], qth);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int key = key0 + hopper::acc_row(i);
+      if (key < tk) {
+        const size_t at = (static_cast<size_t>(bh) * tk + key) * D +
+                          hopper::acc_col(i) + col0;
+        *reinterpret_cast<float2*>(dk + at) = make_float2(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<float2*>(dv + at) = make_float2(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
   }
 }
 
@@ -796,6 +1022,7 @@ struct Args {
   const float* delta;
   int bh, tq, tk, causal;
   float scale;
+  void* workspace;  // K2's fp32 route only
   cudaStream_t stream;
 };
 
@@ -840,14 +1067,58 @@ int launch_dq(const Args& a, void* dq) {
   }
 }
 
+// Workspace of K2's fp32 route in floats: Q and dO, each split (hi, lo)
+// as (bh, tq, D) and transposed as (bh, D, tq rounded up to 8).
+size_t f32_dkv_workspace(int bh, int tq, int d) {
+  return 4 * static_cast<size_t>(bh) * d *
+         (tq + static_cast<size_t>(hopper::split_pad(tq)));
+}
+
 template <int D>
-int launch_dkv_ffma(const Args& a, void* dk, void* dv) {
-  const int n_ktiles = (a.tk + Geo<D>::kRows - 1) / Geo<D>::kRows;
-  flash_bwd_dkv_kernel<D><<<dim3(n_ktiles, a.bh), kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.tq,
-      a.tk, a.causal, a.scale);
+int launch_dkv_3xtf32(const Args& a, void* dk, void* dv) {
+  using G = F32DkvGeo<D>;
+  const int tq_pad = hopper::split_pad(a.tq);
+  const size_t rows = static_cast<size_t>(a.bh) * a.tq * D;
+  const size_t cols = static_cast<size_t>(a.bh) * D * tq_pad;
+  float* qh = static_cast<float*>(a.workspace);
+  float* ql = qh + rows;
+  float* doh = ql + rows;
+  float* dol = doh + rows;
+  float* qth = dol + rows;
+  float* qtl = qth + cols;
+  float* doth = qtl + cols;
+  float* dotl = doth + cols;
+  int err = hopper::launch_split_tf32<D>(a.q, qh, ql, qth, qtl, a.bh, a.tq,
+                                         a.stream);
+  if (err == 0) {
+    err = hopper::launch_split_tf32<D>(a.dout, doh, dol, doth, dotl, a.bh,
+                                       a.tq, a.stream);
+  }
+  if (err != 0) return err;
+  constexpr int kQ = G::kQueries;
+  CUtensorMap kmap, vmap, qhmap, qlmap, dohmap, dolmap, qthmap, qtlmap,
+      dothmap, dotlmap;
+  if (!hopper::make_panel_map<float>(&kmap, a.k, a.bh, a.tk, D, G::kKeys, 128) ||
+      !hopper::make_panel_map<float>(&vmap, a.v, a.bh, a.tk, D, G::kKeys, 128) ||
+      !hopper::make_panel_map<float>(&qhmap, qh, a.bh, a.tq, D, kQ, 128) ||
+      !hopper::make_panel_map<float>(&qlmap, ql, a.bh, a.tq, D, kQ, 128) ||
+      !hopper::make_panel_map<float>(&dohmap, doh, a.bh, a.tq, D, kQ, 128) ||
+      !hopper::make_panel_map<float>(&dolmap, dol, a.bh, a.tq, D, kQ, 128) ||
+      !hopper::make_panel_map<float>(&qthmap, qth, a.bh, D, tq_pad, D, G::kTSW) ||
+      !hopper::make_panel_map<float>(&qtlmap, qtl, a.bh, D, tq_pad, D, G::kTSW) ||
+      !hopper::make_panel_map<float>(&dothmap, doth, a.bh, D, tq_pad, D, G::kTSW) ||
+      !hopper::make_panel_map<float>(&dotlmap, dotl, a.bh, D, tq_pad, D, G::kTSW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_bwd_dkv_3xtf32_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_ktiles = (a.tk + G::kKeys - 1) / G::kKeys;
+  kernel<<<dim3(n_ktiles, a.bh), G::kThreads, G::kSmem, a.stream>>>(
+      kmap, vmap, qhmap, qlmap, dohmap, dolmap, qthmap, qtlmap, dothmap,
+      dotlmap, a.lse, a.delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), a.tq, a.tk, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -872,11 +1143,13 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 by dtype: fp32 on FFMA, bf16/fp16 on the tensor cores.
+// K2 by dtype: fp32 split-TF32, bf16/fp16 one pass, all on the tensor
+// cores.
 template <typename T, int D>
 int launch_dkv(const Args& a, void* dk, void* dv) {
   if constexpr (std::is_same<T, float>::value) {
-    return launch_dkv_ffma<D>(a, dk, dv);
+    if (a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dkv_3xtf32<D>(a, dk, dv);
   } else {
     return launch_dkv_wgmma<T, D>(a, dk, dv);
   }
@@ -920,20 +1193,31 @@ bool bad_shape(int bh, int tq, int tk) {
 
 }  // namespace
 
+// Bytes of scratch that flash_attention_bwd_dkv needs for these
+// arguments: the fp32 route's split Q and dO (0 for bf16/fp16).
+extern "C" size_t flash_attention_bwd_dkv_workspace(int bh, int tq, int tk,
+                                                    int d, int dtype) {
+  (void)tk;
+  return dtype == 0 ? 4 * f32_dkv_workspace(bh, tq, d) : 0;
+}
+
 // q, dout, dq: (bh, tq, d); k, v, dk, dv: (bh, tk, d); all contiguous,
 // 16-byte aligned, in one dtype (0 float32, 1 bfloat16, 2 float16). lse
-// and delta: (bh, tq) fp32. Each returns the cudaError_t of its launch
-// (0 on success).
+// and delta: (bh, tq) fp32. K2 in fp32 runs its pre-pass into
+// `workspace` (flash_attention_bwd_dkv_workspace bytes, 16-byte aligned;
+// unused otherwise). Each returns the cudaError_t of its launches (0 on
+// success).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int tq,
                                        int tk, int d, int dtype, int causal,
-                                       float scale, void* stream) {
+                                       float scale, void* workspace,
+                                       void* stream) {
   if (bad_shape(bh, tq, tk)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), bh, tq, tk, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               workspace, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, DkvLauncher{a, dk, dv});
 }
 
@@ -946,6 +1230,6 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (bad_shape(bh, tq, tk)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), bh, tq, tk, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               nullptr, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, DqLauncher{a, dq});
 }

@@ -11,9 +11,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_attention.py``. Three kernels:
   pass (K2, the port of ``_bwd_dkv_kernel``) and then the dQ pass (K3,
   ``_bwd_dq_kernel``).
 
-All three run bf16/fp16 inputs on the tensor cores (wgmma fed by TMA)
-and fp32 inputs on IEEE fp32 FFMA, chosen by the input dtype inside the
-library; nothing falls back from one to the other.
+All three run bf16/fp16 inputs on the tensor cores (wgmma fed by TMA).
+fp32 inputs run K1 and K2 on the tensor cores too, in split TF32 (three
+TF32 products per fp32 product, after a pre-pass into a workspace the
+launcher allocates), and K3 on IEEE fp32 FFMA. The library chooses by
+the input dtype; nothing falls back from one to another.
 :func:`kernel_tolerance` is the one rule a kernel's output is held to
 against its plain version.
 
@@ -54,7 +56,10 @@ __all__ = ["flash_attention", "flash_attention_forward",
 _NEG = -1e30
 
 # Kernel launches since import, each added to where its CUDA kernel is
-# launched and nowhere else: K1 (forward), K2 (dK/dV), K3 (dQ).
+# launched and nowhere else: K1 (forward), K2 (dK/dV), K3 (dQ). One count
+# is one call of the C entry point. On fp32 inputs that call launches the
+# split pre-pass first (once for K1, on V; twice for K2, on Q and dO) and
+# then the kernel, on one stream: the count covers them together.
 LAUNCHES = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
@@ -71,8 +76,15 @@ _UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 def kernel_tolerance(dtype, want):
     """(rtol, atol) of a kernel's output against its plain version.
 
-    float32: the JAX package's test tolerance (rtol 2e-4, atol 2e-5);
-    the fp32 kernels are IEEE FFMA, only the summation order differs.
+    float32: the JAX package's test tolerance (rtol 2e-4, atol 2e-5).
+    K3 is IEEE fp32 FFMA: only the summation order differs. K1 and K2 run
+    split TF32 on the tensor cores: each operand x = hi + lo, hi its top
+    19 bits and lo = x - hi truncated the same way, and a.b = ah.bh +
+    ah.bl + al.bh in fp32. The dropped al.bl and lo's truncation leave
+    about 2^-20 of |a.b| per product (fp32 itself: 2^-24), far inside
+    rtol 2e-4 (about 2^-12); one TF32 pass (2^-11) is not. The host tests
+    emulate the split (tests/test_torch_flash_fp32.py) and chip_smoke.py
+    logs the largest share of this tolerance each kernel uses on the card.
 
     bfloat16/float16, with u the dtype's unit roundoff (2^-8, 2^-11):
     - rtol 2u: the kernel and the plain version each round their fp32
@@ -238,13 +250,22 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
     return flash_attention_bwd_dq_reference(*args), dk, dv
 
 
+def _workspace_fn(lib, name):
+    """`name`(bh, tq, tk, d, dtype) -> bytes of scratch a launch needs."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_size_t
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = _native.load("flash_attention_fwd").flash_attention_fwd
+    lib = _native.load("flash_attention_fwd")
+    fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return fn, _workspace_fn(lib, "flash_attention_fwd_workspace")
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,11 +273,19 @@ def _bwd_kernels():
     lib = _native.load("flash_attention_bwd")
     dkv, dq = lib.flash_attention_bwd_dkv, lib.flash_attention_bwd_dq
     dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_void_p]
     dkv.restype = dq.restype = ctypes.c_int
-    return dkv, dq
+    return dkv, dq, _workspace_fn(lib, "flash_attention_bwd_dkv_workspace")
+
+
+def _workspace(nbytes, device):
+    """Scratch of the fp32 route's split pre-pass (None when a launch
+    needs none): a byte tensor whose pointer the kernel is given."""
+    if not nbytes:
+        return None
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def _check_kernel_inputs(tensors, b, h):
@@ -306,12 +335,14 @@ def flash_attention_forward(q, k, v, causal=False, scale=None, block_q=128,
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if tq == 0:
         return out, lse
+    fn, workspace_bytes = _kernel()
+    code = _DTYPE_CODE[q.dtype]
+    ws = _workspace(workspace_bytes(b * h, tq, tk, d, code), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), b * h, tq, tk, d,
-                        _DTYPE_CODE[q.dtype], int(bool(causal)), scale,
-                        stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b * h, tq, tk, d, code, int(bool(causal)),
+                 scale, None if ws is None else ws.data_ptr(), stream)
     if err:
         raise RuntimeError("flash_attention_fwd kernel launch failed "
                            "(cudaError %d)" % err)
@@ -367,10 +398,12 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
     global LAUNCHES_BWD_DKV
     ptrs, shape = _bwd_args(q, k, v, dout, lse, delta, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn, _, workspace_bytes = _bwd_kernels()
+    ws = _workspace(workspace_bytes(*shape[:5]), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _bwd_kernels()[0](*ptrs, dk.data_ptr(), dv.data_ptr(), *shape,
-                                stream)
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape,
+                 None if ws is None else ws.data_ptr(), stream)
     if err:
         raise RuntimeError("flash_attention_bwd_dkv kernel launch failed "
                            "(cudaError %d)" % err)
