@@ -23,10 +23,13 @@ phase falls back to the host or to a plain version):
    library call that computes the same function, and its bound: the
    forward (K1) at the serving shape, the backward (K2 dK/dV, K3 dQ) at
    the training shape, with the backward's peak memory held below one
-   fp32 score matrix; the fp32 route of each at the same shape (K1 and
-   K2 split-TF32 on the tensor cores, K3 FFMA), held against its plain
-   version there, beside its FFMA and 3xTF32 bounds and SDPA's fp32 call
-   (the rows' ``fp32``).
+   fp32 score matrix; the fp32 route of each at the same shape (K1-K3
+   split TF32 on the tensor cores, each after its pre-pass, timed apart
+   by kernel), held against its plain version there, beside its FFMA and
+   3xTF32 bounds and SDPA's fp32 call (the rows' ``fp32``). At every
+   bf16/fp16 backward case the atol floor from the inputs
+   (``backward_atol_floor``) must lie below the atol the comparison
+   uses, its largest share logged.
 4. attention served: ``InferenceServer`` over
    ``nd.contrib.flash_attention`` (16 heads x 64, T 2048, causal, bf16).
 5. ResNet-50 v1 served at full width (224x224, 1000 classes, buckets
@@ -403,9 +406,9 @@ ATTENTION_KERNELS = {
     "flash_fwd_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
     "flash_bwd_dkv_3xtf32_kernel": ("f",),
     "flash_bwd_dkv_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
-    "flash_bwd_dq_kernel": ("f",),
+    "flash_bwd_dq_3xtf32_kernel": ("f",),
     "flash_bwd_dq_wgmma_kernel": ("13__nv_bfloat16", "6__half"),
-    "flash_split_tf32_kernel": ("f",),  # the fp32 K1/K2's pre-pass
+    "flash_split_tf32_kernel": ("f",),  # the fp32 K1-K3's pre-pass
 }
 
 
@@ -482,7 +485,8 @@ DESIGN = {
                                 "float16": "wgmma+tma",
                                 "float32": "3xtf32 wgmma+tma, split pre-pass"},
     "flash_attention_bwd_dq": {"bfloat16": "wgmma+tma",
-                               "float16": "wgmma+tma", "float32": "ffma"},
+                               "float16": "wgmma+tma",
+                               "float32": "3xtf32 wgmma+tma, split pre-pass"},
 }
 
 
@@ -713,7 +717,7 @@ def phase_backward_kernels(card):
                      for s in (shape_q, shape_k, shape_k, shape_q))
 
     # Tolerances: fa.kernel_tolerance. fp32 at every head dim the kernels
-    # take (each has its own tiles), and fp32 (K2 split-TF32, K3 FFMA),
+    # take (each has its own tiles), and fp32 (K2 and K3 split TF32),
     # bf16 and fp16 at WGMMA_CASES.
     cases = [
         ((1, 4, 512, 64), (1, 4, 512, 64), torch.float32, True),
@@ -729,6 +733,7 @@ def phase_backward_kernels(card):
               for sq, sk, causal in WGMMA_CASES]
     errs = {"dkv": 0.0, "dq": 0.0}
     by_dtype = {"dkv": {}, "dq": {}}
+    floor_share = {}  # dtype: the largest atol floor / atol, dq and dk
     for shape_q, shape_k, dt, causal in cases:
         q, k, v, g = inputs(shape_q, shape_k, dt)
         blocks = dict(block_q=shape_q[2], block_k=shape_k[2])
@@ -748,13 +753,25 @@ def phase_backward_kernels(card):
                                      ("dkv", leaves[2].grad, want[2])):
             _fold_error(by_dtype[which], dt, got_w, want_w,
                         *fa.kernel_tolerance(dt, want_w))
+        if dt != torch.float32:
+            # The floor for gradients that are exactly zero must not
+            # loosen this comparison: below the atol it already has.
+            floors = fa.backward_atol_floor(q, k, v, g, lse, causal)
+            share = max(f / fa.kernel_tolerance(dt, w)[1]
+                        for f, w in zip(floors[:2], want[:2]))
+            name = str(dt).split(".")[1]
+            floor_share[name] = max(floor_share.get(name, 0.0), share)
+            check(share < 1, "the atol floor would loosen the %s backward "
+                  "comparison at %s/%s causal=%s (share %.3g)"
+                  % (name, shape_q, shape_k, causal, share))
         within = _hold_backward(("dq", "dk", "dv"),
                                 [t.grad for t in leaves], want, errs,
                                 dict(q=shape_q, k=shape_k, causal=causal))
         check(within, "backward kernels disagree with the plain version at "
               "%s/%s %s causal=%s" % (shape_q, shape_k, dt, causal))
     log(json.dumps({"check": "flash_attention_bwd: largest share of "
-                    "kernel_tolerance per dtype", "by_dtype": by_dtype}))
+                    "kernel_tolerance per dtype", "by_dtype": by_dtype,
+                    "atol_floor_share": floor_share}))
 
     # The training shape of the attention layer.
     b, h, t, d, dt = 8, 16, 2048, 64, torch.bfloat16
@@ -813,10 +830,11 @@ def phase_backward_kernels(card):
                                    retain_graph=True)
 
     library_ms, library_device_ms = time_ms(library), time_queued(library)
-    # The fp32 kernels at the same shape (K2 split-TF32, K3 FFMA), as for
+    # The fp32 kernels at the same shape (K2 and K3 split TF32), as for
     # K1: fp32 inputs, an fp32 forward's LSE and delta, held against their
     # plain versions, then timed beside their FFMA and 3xTF32 bounds and
-    # SDPA's fp32 backward (TF32 off).
+    # SDPA's fp32 backward (TF32 off), each launcher's pre-pass and kernel
+    # apart.
     q32, k32, v32, g32 = inputs((b, h, t, d), (b, h, t, d), torch.float32)
     out32, lse32 = fa.flash_attention_forward(q32, k32, v32, causal=True)
     delta32 = (g32 * out32).sum(-1).contiguous()
@@ -865,8 +883,8 @@ def phase_backward_kernels(card):
                         "backward of F.scaled_dot_product_attention, fp32 "
                         "(dq, dk and dv together)")
             for w, fn in kernels32.items()}
-    fp32["dkv"]["device_ms_by_kernel"] = _device_ms_by_kernel(
-        kernels32["dkv"])
+    for w, fn in kernels32.items():
+        fp32[w]["device_ms_by_kernel"] = _device_ms_by_kernel(fn)
     del q32, k32, v32, g32, out32, lse32, delta32, lq, lk, lv, lib_out32
     entries = []
     for name, which, ms, plain_ms, replaces in (

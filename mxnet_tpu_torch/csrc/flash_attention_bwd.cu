@@ -25,8 +25,8 @@
 // inputs/outputs in bf16 (twice that in fp32): far above the H100's
 // ridge point, so arithmetic sets the least time: 0.139 ms and 0.104 ms
 // at the 989 TFLOP/s bf16 tensor-core peak; in fp32 2.05 and 1.54 ms at
-// the 67 TFLOP/s FFMA peak, or 0.833 ms for K2's three TF32 passes at
-// 495 TFLOP/s.
+// the 67 TFLOP/s FFMA peak, or 0.833 and 0.625 ms for three TF32 passes
+// at 495 TFLOP/s.
 //
 // No atomics, so every gradient is deterministic: two passes, as on the
 // TPU. K2 owns a tile of keys, K3 a tile of queries; the loop over the
@@ -103,155 +103,48 @@
 //   Overlapping a tile's updates with the next tile's first products
 //   was tried and is slower (the stage is released a tile later).
 //
-// K3 for float32 (`flash_bwd_dq_kernel`) is IEEE fp32 FFMA on the CUDA
-// cores (67 TFLOP/s): one block per (batch*head, query tile), L = D/16
-// lanes per query row, each holding 16 floats of q, dO and the dQ
-// accumulator in registers; keys and values stream through shared
-// memory in 32-row tiles; L-lane butterfly shuffles complete q.k and
-// dO.v. 256 threads per block at every D; blocks launch longest-first.
-// It takes the split-TF32 forward's LSE and delta as they are.
+// K3 for float32 (`flash_bwd_dq_3xtf32_kernel`) is K3's structure in
+// split TF32, as K2's is: S = Q K^T as Qh Kl + Ql Kh + Qh Kh, dP = dO V^T
+// likewise, and dQ += dSl Kh + dSh Kl + dSh Kh with dS split in
+// registers per tile, all accumulated in fp32 and dQ written once.
+// - The B operand of dQ += dS K is K with the keys (that product's K)
+//   contiguous: K^T, which tf32 wgmma cannot read from K's rows and the
+//   TMA cannot transpose. The pre-pass (`flash_split_tf32_kernel`) writes
+//   K^T hi and lo once per call (bh, D, keys), the keys in tf32_perm
+//   order within each group of 8, so the accumulator registers of S and
+//   dP taken {0, 2, 1, 3} are dS's A fragments: it reads K once and
+//   writes it twice. K and V rows need no transpose: three warps of the
+//   producer warpgroup split each K and V tile in shared memory as it
+//   lands (hi in place, lo beside it), while the consumers compute the
+//   tile before, behind a third mbarrier per stage (`ready`), as K1
+//   splits K.
+// - What bounds it: 6*B*H*T*T*D/2 = 103 GFLOP at the training shape, in
+//   three TF32 passes 0.625 ms at 495 TFLOP/s (1.54 ms for one FFMA pass
+//   at 67). An ss m64nNk8 re-reads its 2 KB A tile from shared memory for
+//   64*N*8*2 FLOP, so with 32-key tiles S and dP as ss would ask shared
+//   memory for more bytes a cycle than it gives. Up to D 64 the block's Q
+//   and dO therefore live in registers as the A fragments of S and dP
+//   (hi and lo, 2*D registers a thread; both are wgmma rs, and shared
+//   memory serves only B operands), split once from the raw rows the TMA
+//   staged. Two consumer warpgroups of 64 queries (128 a block), tiles of
+//   32 keys (S and dP 16 accumulator registers each, dQ D/2), three
+//   stages of K, V and K^T, each hi and lo (48 KB at D 64), beside the
+//   64 KB of staged Q and dO: 208 KB, one block an SM; D 32 takes half.
+//   With dO hi/lo resident in shared memory and dP as ss instead, the
+//   kernel was slower at the training shape (PERF.md). At D 128 the
+//   fragments of Q alone would take 128 registers beside the 64 of the
+//   dQ accumulator: one consumer warpgroup of 64 queries, Q and dO hi/lo
+//   resident in shared memory (128 KB, both products ss), two stages of
+//   16 keys (48 KB each): 224 KB.
+// - Causal skipping, the longest-first order, the lse and delta of the
+//   thread's rows held in registers, masking as selects and the ragged
+//   ends (rows past T zero-filled by the TMA, masked here) are the bf16
+//   K3's. It takes the split-TF32 forward's LSE and delta as they are.
 #include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTileK = 32;  // K3: keys per shared-memory tile
-
-template <int D>
-struct Geo {
-  static constexpr int kLanes = D / 16;              // threads per row
-  static constexpr int kRows = kThreads / kLanes;    // rows per block
-  static constexpr int kVec = D / 4;                 // float4s per row
-  static constexpr int kChunks = kVec / kLanes;      // float4s per lane
-  static_assert(kChunks == 4, "each lane holds 16 floats of a row");
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
-  y.x = fmaf(s, x.x, y.x);
-  y.y = fmaf(s, x.y, y.y);
-  y.z = fmaf(s, x.z, y.z);
-  y.w = fmaf(s, x.w, y.w);
-}
-
-// Sum over the L lanes that share a row (neighbouring lanes of a warp).
-template <int L>
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < L; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// K3 for float32: dQ for one (batch*head, query tile) on FFMA.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int tq, int tk, int causal, float scale) {
-  using G = Geo<D>;
-  constexpr int L = G::kLanes;
-  constexpr int C = G::kChunks;
-  __shared__ float4 ks[kTileK * G::kVec];
-  __shared__ float4 vs[kTileK * G::kVec];
-
-  const int n_qtiles = (tq + G::kRows - 1) / G::kRows;
-  const int qtile = n_qtiles - 1 - blockIdx.x;  // longest rows first
-  const size_t bh = blockIdx.y;
-  const int row = threadIdx.x / L;
-  const int lane = threadIdx.x % L;
-  const int q_pos = qtile * G::kRows + row;
-  const bool row_valid = q_pos < tq;
-
-  const float* kb = k + bh * tk * D;
-  const float* vb = v + bh * tk * D;
-
-  float4 qr[C], dor[C], acc[C];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const int c = lane + L * i;
-    const size_t off = (bh * tq + q_pos) * D + 4 * c;
-    qr[i] = row_valid ? load4(q + off) : make_float4(0.f, 0.f, 0.f, 0.f);
-    dor[i] = row_valid ? load4(dout + off) : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const float lse_i = row_valid ? lse[bh * tq + q_pos] : 0.f;
-  const float delta_i = row_valid ? delta[bh * tq + q_pos] : 0.f;
-
-  int n_ktiles = (tk + kTileK - 1) / kTileK;
-  if (causal) {
-    const int last_query = qtile * G::kRows + G::kRows - 1;
-    n_ktiles = min(n_ktiles, last_query / kTileK + 1);
-  }
-
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * kTileK;
-    __syncthreads();  // every lane is done with the previous tile
-    for (int idx = threadIdx.x; idx < kTileK * G::kVec; idx += kThreads) {
-      const int j = idx / G::kVec;
-      const int c = idx % G::kVec;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + j < tk) {
-        kv = load4(kb + (size_t)(k0 + j) * D + 4 * c);
-        vv = load4(vb + (size_t)(k0 + j) * D + 4 * c);
-      }
-      ks[idx] = kv;
-      vs[idx] = vv;
-    }
-    __syncthreads();
-
-    // One key at a time: its k and v chunks are read from shared memory
-    // once, for the two dot products and for the dQ update. Unrolled by
-    // two for overlap; a full unroll would hoist every load of the tile
-    // into registers and spill.
-#pragma unroll 2
-    for (int j = 0; j < kTileK; ++j) {
-      float4 kk[C], vv[C];
-      float s = 0.f;
-      float dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int c = j * G::kVec + lane + L * i;
-        kk[i] = ks[c];
-        vv[i] = vs[c];
-        s = dot4(qr[i], kk[i], s);
-        dp = dot4(dor[i], vv[i], dp);
-      }
-      s = row_sum<L>(s);
-      dp = row_sum<L>(dp);
-      const int key = k0 + j;
-      const bool live = key < tk && !(causal && key > q_pos);
-      const float p = live ? expf(s * scale - lse_i) : 0.f;
-      const float ds = p * (dp - delta_i) * scale;
-#pragma unroll
-      for (int i = 0; i < C; ++i) axpy4(ds, kk[i], acc[i]);
-    }
-  }
-
-  if (!row_valid) return;
-  float* dqrow = dq + (bh * tq + q_pos) * D;
-#pragma unroll
-  for (int i = 0; i < C; ++i) store4(dqrow + 4 * (lane + L * i), acc[i]);
-}
 
 // -- K2 for float32: split-TF32 wgmma + TMA ---------------------------------------
 
@@ -549,6 +442,304 @@ flash_bwd_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap kmap,
                           hopper::acc_col(i) + col0;
         *reinterpret_cast<float2*>(dk + at) = make_float2(dk_acc[i], dk_acc[i + 1]);
         *reinterpret_cast<float2*>(dv + at) = make_float2(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+// -- K3 for float32: split-TF32 wgmma + TMA ---------------------------------------
+
+template <int D>
+struct F32DqGeo {
+  // Up to D 64 the block's Q and dO live in registers as the A fragments
+  // of S and dP; at D 128 they stay in shared memory.
+  static constexpr bool kQRegs = D <= 64;
+  static constexpr int kConsumers = kQRegs ? 2 : 1;     // 64 queries each
+  static constexpr int kRows = 64 * kConsumers;         // queries per block
+  static constexpr int kKeys = kQRegs ? 32 : 16;        // keys per tile
+  static constexpr int kStages = kQRegs ? 3 : 2;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kPanels = D / 32;                // 128-byte panels a row
+  static constexpr int kQPanel = kRows * 128;
+  static constexpr int kQTile = kRows * D * 4;          // Q or dO, hi or lo
+  static constexpr int kKPanel = kKeys * 128;
+  static constexpr int kKTile = kKeys * D * 4;          // one operand of a stage
+  static constexpr int kTSW = kKeys * 4;  // a K^T row's bytes (its swizzle)
+  // A stage: K hi, K lo, V hi, V lo (rows of D), then K^T hi, K^T lo (D
+  // rows of kKeys), kKTile bytes each.
+  static constexpr int kStage = 6 * kKTile;
+  // Resident: dO and Q as the TMA writes them, split into registers
+  // once (up to D 64); or dO hi, dO lo, Q hi, Q lo (D 128).
+  static constexpr int kResident = (kQRegs ? 2 : 4) * kQTile;
+  static constexpr int kBarOffset = kResident + kStages * kStage;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (3 * kStages + 1);
+};
+
+// K3 for float32. The block's Q and dO are split once, into registers
+// (up to D 64) or in shared memory (D 128); each K and V tile is split in
+// shared memory as it lands, by the producer's split warps; K^T (hi, lo,
+// keys in tf32_perm order) comes from the pre-pass. S = Q K^T and
+// dP = dO V^T, then dQ += dS K with dS split in registers.
+template <int D>
+__global__ void __launch_bounds__(F32DqGeo<D>::kThreads, 1)
+flash_bwd_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap kthmap,
+                           const __grid_constant__ CUtensorMap ktlmap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int tq, int tk, int causal,
+                           float scale) {
+  using G = F32DqGeo<D>;
+  using W = hopper::WgmmaTf32<G::kKeys>;
+  using U = hopper::WgmmaTf32<D>;
+  constexpr int kK = G::kKeys;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* do_s = smem;  // dO (hi, then lo at D 128): kQTile each
+  uint8_t* q_s = smem + (G::kQRegs ? 1 : 2) * G::kQTile;  // Q likewise
+  uint8_t* st_s = smem + G::kResident;  // stage s at s * kStage
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBarOffset);
+  uint64_t* empty = full + G::kStages;
+  uint64_t* ready = empty + G::kStages;  // the K and V tiles are split
+  uint64_t* qdo_bar = ready + G::kStages;
+
+  const int n_qtiles = (tq + G::kRows - 1) / G::kRows;
+  const int qtile = n_qtiles - 1 - blockIdx.x;  // longest rows first
+  const int bh = blockIdx.y;
+  int n_ktiles = (tk + kK - 1) / kK;
+  if (causal) {
+    // Up to the key tile of the block's last query; later keys are
+    // above every row's diagonal.
+    const int last_query = min(qtile * G::kRows + G::kRows, tq) - 1;
+    n_ktiles = min(n_ktiles, last_query / kK + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * G::kConsumers);
+      hopper::mbar_init(&ready[s], 96);
+    }
+    hopper::mbar_init(qdo_bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == G::kConsumers) {
+    // Producer: one thread starts every load; warps 1-3 split each K and
+    // V tile once it lands, while the consumers compute the tile before.
+    if constexpr (G::kConsumers > 1) hopper::regs_dealloc<40>();
+    const int ptid = threadIdx.x - 128 * G::kConsumers;
+    if (ptid == 0) {
+      hopper::mbar_arrive_tx(qdo_bar, 2 * G::kQTile);
+      for (int p = 0; p < G::kPanels; ++p) {
+        hopper::tma_load_3d(do_s + p * G::kQPanel, &domap, qdo_bar, p * 32,
+                            qtile * G::kRows, bh);
+        hopper::tma_load_3d(q_s + p * G::kQPanel, &qmap, qdo_bar, p * 32,
+                            qtile * G::kRows, bh);
+      }
+      for (int kt = 0; kt < n_ktiles; ++kt) {
+        const int s = kt % G::kStages;
+        hopper::mbar_wait(&empty[s], ((kt / G::kStages) & 1) ^ 1);
+        hopper::mbar_arrive_tx(&full[s], 4 * G::kKTile);
+        uint8_t* dst = st_s + s * G::kStage;
+        for (int p = 0; p < G::kPanels; ++p) {
+          hopper::tma_load_3d(dst + p * G::kKPanel, &kmap, &full[s], p * 32,
+                              kt * kK, bh);
+          hopper::tma_load_3d(dst + 2 * G::kKTile + p * G::kKPanel, &vmap,
+                              &full[s], p * 32, kt * kK, bh);
+        }
+        hopper::tma_load_3d(dst + 4 * G::kKTile, &kthmap, &full[s], kt * kK,
+                            0, bh);
+        hopper::tma_load_3d(dst + 5 * G::kKTile, &ktlmap, &full[s], kt * kK,
+                            0, bh);
+      }
+    } else if (ptid >= 32) {
+      constexpr int kVecs = G::kKTile / 16;  // uint4s of one operand
+      for (int kt = 0; kt < n_ktiles; ++kt) {
+        const int s = kt % G::kStages;
+        hopper::mbar_wait(&full[s], (kt / G::kStages) & 1);
+        uint4* kv = reinterpret_cast<uint4*>(st_s + s * G::kStage);
+        for (int i = ptid - 32; i < kVecs; i += 96) {
+          hopper::tf32_split4(kv + i, kv + kVecs + i);                // K
+          hopper::tf32_split4(kv + 2 * kVecs + i, kv + 3 * kVecs + i);  // V
+        }
+        hopper::fence_proxy_async();  // the wgmma reads what was written
+        hopper::mbar_arrive(&ready[s]);
+      }
+    }
+  } else {
+    if constexpr (G::kConsumers > 1) hopper::regs_alloc<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int first_q = qtile * G::kRows + wg * 64;
+    const int q0 = first_q + 16 * warp + lane / 4;  // and q0 + 8
+    const int col0 = 2 * (lane % 4);
+    const uint32_t doh_base = hopper::smem_u32(do_s) + wg * 64 * 128;
+    const uint32_t dol_base = doh_base + G::kQTile;
+    const uint32_t qh_base = hopper::smem_u32(q_s) + wg * 64 * 128;
+    const uint32_t ql_base = qh_base + G::kQTile;
+    const float scale_log2 = scale * hopper::kLog2e;
+    // This warpgroup's rows are all past the sequence's end: it only
+    // keeps the ring turning.
+    const bool idle = first_q >= tq;
+
+    // lse * log2(e) and delta of the thread's two rows, q0 and q0 + 8
+    // (accumulator register i is in the second iff acc_row(i) is 8).
+    float lse_l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + 8 * r;
+      const size_t at = static_cast<size_t>(bh) * tq + q;
+      lse_l2[r] = q < tq ? lse[at] * hopper::kLog2e : 0.f;
+      dl[r] = q < tq ? delta[at] : 0.f;
+    }
+
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    hopper::mbar_wait(qdo_bar, 0);
+    // Up to D 64, Q's and dO's hi and lo stay in registers as the A
+    // fragments of S = Q K^T and dP = dO V^T, split from the raw rows.
+    constexpr bool kQRegs = G::kQRegs;
+    constexpr int kQSteps = kQRegs ? D / 8 : 1;
+    uint32_t qfh[kQSteps][4], qfl[kQSteps][4];
+    uint32_t dofh[kQSteps][4], dofl[kQSteps][4];
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int k = 0; k < kQSteps; ++k) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = wg * 64 + 16 * warp + lane / 4 + 8 * (e & 1);
+          const int col = 8 * k + lane % 4 + 4 * (e >> 1);
+          const int at = (col / 32) * G::kQPanel + row * 128 +
+                         ((((col % 32) / 4) ^ (row & 7)) << 4) + (col % 4) * 4;
+          hopper::tf32_split(*reinterpret_cast<const float*>(q_s + at),
+                             qfh[k][e], qfl[k][e]);
+          hopper::tf32_split(*reinterpret_cast<const float*>(do_s + at),
+                             dofh[k][e], dofl[k][e]);
+        }
+      }
+    } else {
+      hopper::split_rows<G::kPanels, G::kQPanel>(q_s, q_s + G::kQTile, wg,
+                                                 tid);
+      hopper::split_rows<G::kPanels, G::kQPanel>(do_s, do_s + G::kQTile, wg,
+                                                 tid);
+    }
+
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      const int st = kt % G::kStages;
+      const int k_first = kt * kK;
+      hopper::mbar_wait(&full[st], (kt / G::kStages) & 1);
+      hopper::mbar_wait(&ready[st], (kt / G::kStages) & 1);
+      if (idle || (causal && k_first > first_q + 63)) {
+        hopper::mbar_arrive(&empty[st]);  // above this warpgroup's diagonal
+        continue;
+      }
+      const uint32_t kh_base = hopper::smem_u32(st_s + st * G::kStage);
+      const uint32_t kl_base = kh_base + G::kKTile;
+      const uint32_t vh_base = kh_base + 2 * G::kKTile;
+      const uint32_t vl_base = kh_base + 3 * G::kKTile;
+      const uint32_t kth_base = kh_base + 4 * G::kKTile;
+      const uint32_t ktl_base = kh_base + 5 * G::kKTile;
+
+      float s[kK / 2], dp[kK / 2];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < kK / 2; ++i) s[i] = dp[i] = 0.f;
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k) {
+        const int koff = (k / 4) * G::kKPanel + (k % 4) * 32;
+        const uint64_t kh = hopper::smem_desc(kh_base + koff, 128);
+        const uint64_t kl = hopper::smem_desc(kl_base + koff, 128);
+        if constexpr (kQRegs) {
+          W::rs(s, qfh[k], kl);
+          W::rs(s, qfl[k], kh);
+          W::rs(s, qfh[k], kh);
+        } else {
+          const int qoff = (k / 4) * G::kQPanel + (k % 4) * 32;
+          const uint64_t qh = hopper::smem_desc(qh_base + qoff, 128);
+          W::ss(s, qh, kl, k > 0);
+          W::ss(s, hopper::smem_desc(ql_base + qoff, 128), kh, 1);
+          W::ss(s, qh, kh, 1);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k) {
+        const int qoff = (k / 4) * G::kQPanel + (k % 4) * 32;
+        const int koff = (k / 4) * G::kKPanel + (k % 4) * 32;
+        const uint64_t vh = hopper::smem_desc(vh_base + koff, 128);
+        if constexpr (kQRegs) {
+          W::rs(dp, dofh[k], hopper::smem_desc(vl_base + koff, 128));
+          W::rs(dp, dofl[k], vh);
+          W::rs(dp, dofh[k], vh);
+        } else {
+          const uint64_t doh = hopper::smem_desc(doh_base + qoff, 128);
+          W::ss(dp, doh, hopper::smem_desc(vl_base + koff, 128), k > 0);
+          W::ss(dp, hopper::smem_desc(dol_base + qoff, 128), vh, 1);
+          W::ss(dp, doh, vh, 1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P = exp(scale s - lse[query]) and dS = P (dP - delta) scale,
+      // split as the A fragments of dQ += dS K: accumulator registers
+      // 4j..4j+3 in the order {0, 2, 1, 3} (hopper.cuh, tf32_perm).
+      const bool masked = k_first + kK > tk ||
+                          (causal && k_first + kK - 1 > first_q);
+      uint32_t dsh[kK / 8][4], dsl[kK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + ((e & 1) << 1) + (e >> 1);
+          const int r = (i >> 1) & 1;
+          const int key = k_first + hopper::acc_col(i) + col0;
+          const int q = q0 + hopper::acc_row(i);
+          // A select, not a branch: the A fragments below must not be
+          // written on a divergent path, or ptxas serializes the wgmmas.
+          const bool live = !masked || (key < tk && !(causal && key > q));
+          const float pr =
+              live ? exp2f(fmaf(s[i], scale_log2, -lse_l2[r])) : 0.f;
+          hopper::tf32_split(pr * (dp[i] - dl[r]) * scale, dsh[j][e],
+                             dsl[j][e]);
+        }
+      }
+
+      hopper::fence_regs(dq_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kK / 8; ++j) {
+        const uint64_t kth = hopper::smem_desc(kth_base + j * 32, G::kTSW);
+        U::rs(dq_acc, dsl[j], kth);
+        U::rs(dq_acc, dsh[j], hopper::smem_desc(ktl_base + j * 32, G::kTSW));
+        U::rs(dq_acc, dsh[j], kth);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(dq_acc);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int q = q0 + hopper::acc_row(i);
+      if (q < tq) {
+        const size_t at = (static_cast<size_t>(bh) * tq + q) * D +
+                          hopper::acc_col(i) + col0;
+        *reinterpret_cast<float2*>(dq + at) =
+            make_float2(dq_acc[i], dq_acc[i + 1]);
       }
     }
   }
@@ -1022,17 +1213,42 @@ struct Args {
   const float* delta;
   int bh, tq, tk, causal;
   float scale;
-  void* workspace;  // K2's fp32 route only
+  void* workspace;  // the fp32 routes' pre-pass only
   cudaStream_t stream;
 };
 
+// Workspace of K3's fp32 route in floats: K^T hi and lo, (bh, D, tk
+// rounded up to 8).
+size_t f32_dq_workspace(int bh, int tk, int d) {
+  return 2 * static_cast<size_t>(bh) * d * hopper::split_pad(tk);
+}
+
 template <int D>
-int launch_dq_ffma(const Args& a, void* dq) {
-  const int n_qtiles = (a.tq + Geo<D>::kRows - 1) / Geo<D>::kRows;
-  flash_bwd_dq_kernel<D><<<dim3(n_qtiles, a.bh), kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(dq), a.tq, a.tk, a.causal, a.scale);
+int launch_dq_3xtf32(const Args& a, void* dq) {
+  using G = F32DqGeo<D>;
+  const int tk_pad = hopper::split_pad(a.tk);
+  float* kth = static_cast<float*>(a.workspace);
+  float* ktl = kth + static_cast<size_t>(a.bh) * D * tk_pad;
+  const int err = hopper::launch_split_tf32<D>(a.k, nullptr, nullptr, kth,
+                                               ktl, a.bh, a.tk, a.stream);
+  if (err != 0) return err;
+  CUtensorMap qmap, domap, kmap, vmap, kthmap, ktlmap;
+  if (!hopper::make_panel_map<float>(&qmap, a.q, a.bh, a.tq, D, G::kRows, 128) ||
+      !hopper::make_panel_map<float>(&domap, a.dout, a.bh, a.tq, D, G::kRows, 128) ||
+      !hopper::make_panel_map<float>(&kmap, a.k, a.bh, a.tk, D, G::kKeys, 128) ||
+      !hopper::make_panel_map<float>(&vmap, a.v, a.bh, a.tk, D, G::kKeys, 128) ||
+      !hopper::make_panel_map<float>(&kthmap, kth, a.bh, D, tk_pad, D, G::kTSW) ||
+      !hopper::make_panel_map<float>(&ktlmap, ktl, a.bh, D, tk_pad, D, G::kTSW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_bwd_dq_3xtf32_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_qtiles = (a.tq + G::kRows - 1) / G::kRows;
+  kernel<<<dim3(n_qtiles, a.bh), G::kThreads, G::kSmem, a.stream>>>(
+      qmap, domap, kmap, vmap, kthmap, ktlmap, a.lse, a.delta,
+      static_cast<float*>(dq), a.tq, a.tk, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1057,11 +1273,13 @@ int launch_dq_wgmma(const Args& a, void* dq) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 by dtype: fp32 on FFMA, bf16/fp16 on the tensor cores.
+// K3 by dtype: fp32 split-TF32, bf16/fp16 one pass, all on the tensor
+// cores.
 template <typename T, int D>
 int launch_dq(const Args& a, void* dq) {
   if constexpr (std::is_same<T, float>::value) {
-    return launch_dq_ffma<D>(a, dq);
+    if (a.workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dq_3xtf32<D>(a, dq);
   } else {
     return launch_dq_wgmma<T, D>(a, dq);
   }
@@ -1201,12 +1419,20 @@ extern "C" size_t flash_attention_bwd_dkv_workspace(int bh, int tq, int tk,
   return dtype == 0 ? 4 * f32_dkv_workspace(bh, tq, d) : 0;
 }
 
+// Bytes of scratch that flash_attention_bwd_dq needs for these
+// arguments: the fp32 route's split K^T (0 for bf16/fp16).
+extern "C" size_t flash_attention_bwd_dq_workspace(int bh, int tq, int tk,
+                                                   int d, int dtype) {
+  (void)tq;
+  return dtype == 0 ? 4 * f32_dq_workspace(bh, tk, d) : 0;
+}
+
 // q, dout, dq: (bh, tq, d); k, v, dk, dv: (bh, tk, d); all contiguous,
 // 16-byte aligned, in one dtype (0 float32, 1 bfloat16, 2 float16). lse
-// and delta: (bh, tq) fp32. K2 in fp32 runs its pre-pass into
-// `workspace` (flash_attention_bwd_dkv_workspace bytes, 16-byte aligned;
-// unused otherwise). Each returns the cudaError_t of its launches (0 on
-// success).
+// and delta: (bh, tq) fp32. In fp32 each runs its pre-pass into
+// `workspace` (flash_attention_bwd_{dkv,dq}_workspace bytes, 16-byte
+// aligned; unused otherwise). Each returns the cudaError_t of its
+// launches (0 on success).
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -1226,10 +1452,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* lse, const void* delta,
                                       void* dq, int bh, int tq, int tk,
                                       int d, int dtype, int causal,
-                                      float scale, void* stream) {
+                                      float scale, void* workspace,
+                                      void* stream) {
   if (bad_shape(bh, tq, tk)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), bh, tq, tk, causal, scale,
-               nullptr, static_cast<cudaStream_t>(stream)};
+               workspace, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, DqLauncher{a, dq});
 }

@@ -12,10 +12,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_attention.py``. Three kernels:
   ``_bwd_dq_kernel``).
 
 All three run bf16/fp16 inputs on the tensor cores (wgmma fed by TMA).
-fp32 inputs run K1 and K2 on the tensor cores too, in split TF32 (three
+fp32 inputs run all three on the tensor cores too, in split TF32 (three
 TF32 products per fp32 product, after a pre-pass into a workspace the
-launcher allocates), and K3 on IEEE fp32 FFMA. The library chooses by
-the input dtype; nothing falls back from one to another.
+launcher allocates). The library chooses by the input dtype; nothing
+falls back from one to another.
 :func:`kernel_tolerance` is the one rule a kernel's output is held to
 against its plain version.
 
@@ -49,7 +49,8 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_backward_reference",
            "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_dq_reference", "launch_bwd_dkv",
-           "launch_bwd_dq", "kernel_tolerance", "FlashAttentionFunction",
+           "launch_bwd_dq", "kernel_tolerance", "backward_atol_floor",
+           "FlashAttentionFunction",
            "LAUNCHES",
            "LAUNCHES_BWD_DKV", "LAUNCHES_BWD_DQ"]
 
@@ -58,8 +59,9 @@ _NEG = -1e30
 # Kernel launches since import, each added to where its CUDA kernel is
 # launched and nowhere else: K1 (forward), K2 (dK/dV), K3 (dQ). One count
 # is one call of the C entry point. On fp32 inputs that call launches the
-# split pre-pass first (once for K1, on V; twice for K2, on Q and dO) and
-# then the kernel, on one stream: the count covers them together.
+# split pre-pass first (once for K1, on V; twice for K2, on Q and dO; once
+# for K3, on K) and then the kernel, on one stream: the count covers them
+# together.
 LAUNCHES = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
@@ -73,18 +75,18 @@ HEAD_DIMS = (32, 64, 128)
 _UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
 
-def kernel_tolerance(dtype, want):
+def kernel_tolerance(dtype, want, floor=0.0):
     """(rtol, atol) of a kernel's output against its plain version.
 
     float32: the JAX package's test tolerance (rtol 2e-4, atol 2e-5).
-    K3 is IEEE fp32 FFMA: only the summation order differs. K1 and K2 run
-    split TF32 on the tensor cores: each operand x = hi + lo, hi its top
-    19 bits and lo = x - hi truncated the same way, and a.b = ah.bh +
-    ah.bl + al.bh in fp32. The dropped al.bl and lo's truncation leave
-    about 2^-20 of |a.b| per product (fp32 itself: 2^-24), far inside
-    rtol 2e-4 (about 2^-12); one TF32 pass (2^-11) is not. The host tests
-    emulate the split (tests/test_torch_flash_fp32.py) and chip_smoke.py
-    logs the largest share of this tolerance each kernel uses on the card.
+    K1-K3 run split TF32 on the tensor cores: each operand x = hi + lo,
+    hi its top 19 bits and lo = x - hi truncated the same way, and a.b =
+    ah.bh + ah.bl + al.bh in fp32. The dropped al.bl and lo's truncation
+    leave about 2^-20 of |a.b| per product (fp32 itself: 2^-24), far
+    inside rtol 2e-4 (about 2^-12); one TF32 pass (2^-11) is not. The host
+    tests emulate the split (tests/test_torch_flash_fp32.py) and
+    chip_smoke.py logs the largest share of this tolerance each kernel
+    uses on the card. `floor` does not apply.
 
     bfloat16/float16, with u the dtype's unit roundoff (2^-8, 2^-11):
     - rtol 2u: the kernel and the plain version each round their fp32
@@ -101,11 +103,61 @@ def kernel_tolerance(dtype, want):
       the host tests emulate the rounding against it, and the card's
       readings are in PERF.md. Without the term, non-causal bf16 at
       T 2048 misses by one ulp.
+    - atol is at least `floor`, the backward's rounding noise where the
+      exact gradient is zero (:func:`backward_atol_floor`): both terms
+      above scale with the largest entry of `want`, and are zero where
+      `want` is. A call that gives no floor keeps the terms alone.
     """
     if dtype == torch.float32:
         return 2e-4, 2e-5
     u = _UNIT_ROUNDOFF[dtype]
-    return 2 * u, (1e-3 + u) * float(want.float().abs().max())
+    return 2 * u, max((1e-3 + u) * float(want.float().abs().max()),
+                      float(floor))
+
+
+def backward_atol_floor(q, k, v, dout, lse, causal=False, scale=None):
+    """(dq, dk, dv) atol floors of the backward kernels against their
+    plain versions, from the inputs alone (q, k, v, dout, and the
+    forward's lse): the rounding noise the two versions leave where the
+    exact gradient is zero. For :func:`kernel_tolerance`'s `floor`.
+
+    dS_ij = P_ij (dP_ij - delta_i) scale. dP_ij = dO_i . v_j is a sum of D
+    products, each at most m = max|dO| max|V| in size; the kernel and the
+    plain version compute it in fp32 in their own orders, each off by
+    about D 2^-24 m (fp32's unit roundoff times the largest sum of
+    magnitudes), so their dP - delta (delta is the same tensor in both)
+    differ by up to e = 2 D 2^-24 m. Attention over one key is the case
+    where that is all there is: P = 1 and dP = delta exactly, so dS, dQ
+    and dK are exactly zero and both versions return the noise.
+    - dQ_i = sum_j dS_ij K_j carries it as scale e sum_j P_ij |K_j| <=
+      scale e max|K|: a row of P sums to 1.
+    - dK_j = sum_i dS_ij Q_i carries it as scale e sum_i P_ij |Q_i| <=
+      scale e max|Q| c, c the largest column sum of P (computed here from
+      q, k and lse by blocks of 256 queries: one pass of Q K^T, as the
+      plain versions make). A column's sum is at most Tq, a bound
+      that grows with Tq where the existing atol does not.
+    - dV_j = sum_i P_ij dO_i has no such cancellation: 0.
+    The noise, not a wider bound: where the exact gradient is not zero
+    the existing atol is the larger (tests/test_torch_flash_attention.py
+    shows it at the host and card shapes; chip_smoke.py on the card).
+    """
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else float(scale)
+    qf, kf = q.float(), k.float()
+    tq, tk = q.shape[2], k.shape[2]
+    e = 2 * d * 2.0 ** -24 * float(dout.float().abs().max()) * \
+        float(v.float().abs().max())
+    mass = torch.zeros(qf.shape[:2] + (tk,), device=q.device)
+    keys = torch.arange(tk, device=q.device)
+    for i0 in range(0, tq, 256):
+        s = torch.matmul(qf[:, :, i0:i0 + 256], kf.transpose(-1, -2))
+        p = torch.exp(s * scale - lse[:, :, i0:i0 + 256, None].float())
+        if causal:
+            rows = i0 + torch.arange(s.shape[2], device=q.device)
+            p = p * (rows[:, None] >= keys[None, :])
+        mass += p.sum(-2)
+    return (scale * e * float(kf.abs().max()),
+            scale * e * float(qf.abs().max()) * float(mass.max()), 0.0)
 
 
 def _resolve(q, k, v, scale, block_q, block_k):
@@ -270,14 +322,17 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels():
+    """{"dkv", "dq"}: (entry point, its workspace-bytes function)."""
     lib = _native.load("flash_attention_bwd")
-    dkv, dq = lib.flash_attention_bwd_dkv, lib.flash_attention_bwd_dq
-    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    dkv.restype = dq.restype = ctypes.c_int
-    return dkv, dq, _workspace_fn(lib, "flash_attention_bwd_dkv_workspace")
+    out = {}
+    for which, n_ptrs in (("dkv", 8), ("dq", 7)):
+        fn = getattr(lib, "flash_attention_bwd_" + which)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
+            [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out[which] = fn, _workspace_fn(
+            lib, "flash_attention_bwd_%s_workspace" % which)
+    return out
 
 
 def _workspace(nbytes, device):
@@ -286,6 +341,21 @@ def _workspace(nbytes, device):
     if not nbytes:
         return None
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _launch(name, fn, q, workspace_bytes, *args):
+    """Call the C entry point `fn`(*args, workspace, stream) on q's
+    device and current stream, with `workspace_bytes` of scratch
+    allocated there; raise, naming the kernel, the dtype and the head
+    dim, if it returns a cudaError."""
+    ws = _workspace(workspace_bytes, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*args, None if ws is None else ws.data_ptr(), stream)
+    if err:
+        raise RuntimeError(
+            "%s kernel launch failed for %s, head_dim %d (cudaError %d)"
+            % (name, str(q.dtype).split(".")[1], q.shape[-1], err))
 
 
 def _check_kernel_inputs(tensors, b, h):
@@ -337,15 +407,10 @@ def flash_attention_forward(q, k, v, causal=False, scale=None, block_q=128,
         return out, lse
     fn, workspace_bytes = _kernel()
     code = _DTYPE_CODE[q.dtype]
-    ws = _workspace(workspace_bytes(b * h, tq, tk, d, code), q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b * h, tq, tk, d, code, int(bool(causal)),
-                 scale, None if ws is None else ws.data_ptr(), stream)
-    if err:
-        raise RuntimeError("flash_attention_fwd kernel launch failed "
-                           "(cudaError %d)" % err)
+    _launch("flash_attention_fwd", fn, q,
+            workspace_bytes(b * h, tq, tk, d, code),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b * h, tq, tk, d, code, int(bool(causal)), scale)
     LAUNCHES += 1
     return out, lse
 
@@ -398,30 +463,22 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
     global LAUNCHES_BWD_DKV
     ptrs, shape = _bwd_args(q, k, v, dout, lse, delta, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn, _, workspace_bytes = _bwd_kernels()
-    ws = _workspace(workspace_bytes(*shape[:5]), q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape,
-                 None if ws is None else ws.data_ptr(), stream)
-    if err:
-        raise RuntimeError("flash_attention_bwd_dkv kernel launch failed "
-                           "(cudaError %d)" % err)
+    fn, workspace_bytes = _bwd_kernels()["dkv"]
+    _launch("flash_attention_bwd_dkv", fn, q, workspace_bytes(*shape[:5]),
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *shape)
     LAUNCHES_BWD_DKV += 1
     return dk, dv
 
 
 def launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale):
-    """Launch K3 on CUDA tensors: dq in the input dtype."""
+    """Launch K3 on CUDA tensors: dq in the input dtype. `delta` as for
+    :func:`launch_bwd_dkv`."""
     global LAUNCHES_BWD_DQ
     ptrs, shape = _bwd_args(q, k, v, dout, lse, delta, causal, scale)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _bwd_kernels()[1](*ptrs, dq.data_ptr(), *shape, stream)
-    if err:
-        raise RuntimeError("flash_attention_bwd_dq kernel launch failed "
-                           "(cudaError %d)" % err)
+    fn, workspace_bytes = _bwd_kernels()["dq"]
+    _launch("flash_attention_bwd_dq", fn, q, workspace_bytes(*shape[:5]),
+            *ptrs, dq.data_ptr(), *shape)
     LAUNCHES_BWD_DQ += 1
     return dq
 

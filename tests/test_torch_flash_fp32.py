@@ -1,8 +1,8 @@
 """The fp32 flash-attention kernels' split-TF32 arithmetic, emulated on the
 host and held against the JAX package's Pallas op.
 
-The fp32 forward (K1) and dK/dV (K2) kernels run on the tensor cores in
-TF32, three products per matmul: each fp32 operand x is written as
+The fp32 forward (K1), dK/dV (K2) and dQ (K3) kernels run on the tensor
+cores in TF32, three products per matmul: each fp32 operand x is written as
 hi + lo, hi = x with its low 13 mantissa bits cleared and lo = x - hi
 cleared the same way, and a.b is ah.bh + ah.bl + al.bh with fp32
 accumulation (mxnet_tpu_torch/csrc/hopper.cuh). The kernels cannot run
@@ -100,6 +100,34 @@ def emulate_bwd_dkv(q, k, v, out, lse, dout, causal, mm=_mm3):
     return mm(dst, q), mm(pt, dout)
 
 
+def _dq_keys(d):
+    """Keys per tile of the fp32 dQ kernel (flash_attention_bwd.cu,
+    F32DqGeo::kKeys)."""
+    return 16 if d == 128 else 32
+
+
+def emulate_bwd_dq(q, k, v, out, lse, dout, causal, mm=_mm3):
+    """K3's fp32 arithmetic, tile by tile over the kernel's key tiles:
+    S = mm(Q, K^T) and dP = mm(dO, V^T), P = exp2(scale log2e S - lse
+    log2e) (0 where masked), dS = P (dP - delta) scale, split per tile,
+    and dQ += mm(dS, K) accumulated in fp32."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = d ** -0.5
+    delta = (dout * out).sum(-1)
+    lse_l2 = (lse * LOG2E)[..., None]
+    dq = torch.zeros(q.shape)
+    width = _dq_keys(d)
+    for k0 in range(0, tk, width):
+        kt, vt = k[:, :, k0:k0 + width], v[:, :, k0:k0 + width]
+        p = torch.exp2(mm(q, kt.transpose(-1, -2)) * (scale * LOG2E) - lse_l2)
+        if causal:
+            p = p * (torch.arange(tq)[:, None] >=
+                     (k0 + torch.arange(kt.shape[2]))[None, :])
+        ds = p * (mm(dout, vt.transpose(-1, -2)) - delta[..., None]) * scale
+        dq = dq + mm(ds, kt)
+    return dq
+
+
 def _inputs(seed, shape_q, shape_k):
     rng = np.random.RandomState(seed)
     return [rng.randn(*s).astype(np.float32)
@@ -116,7 +144,8 @@ def _jax_forward(q, k, v, causal, block):
     return np.asarray(out), np.asarray(lse)
 
 
-def _jax_dkv(q, k, v, g, causal, block):
+def _jax_grads(q, k, v, g, causal, block):
+    """(dq, dk, dv) of the Pallas op by jax.vjp, in interpret mode."""
     import jax
     import jax.numpy as jnp
     from mxnet_tpu.ops import pallas_attention as jfa
@@ -126,8 +155,7 @@ def _jax_dkv(q, k, v, g, causal, block):
                                             block_q=block[0],
                                             block_k=block[1]),
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    _, dk, dv = vjp(jnp.asarray(g))
-    return np.asarray(dk), np.asarray(dv)
+    return tuple(np.asarray(x) for x in vjp(jnp.asarray(g)))
 
 
 def _violation(got, want, rows=None):
@@ -176,12 +204,26 @@ def test_split_tf32_dkv_matches_jax_vjp(shape_q, shape_k, causal):
     against jax.vjp of the Pallas op: dK and dV within
     kernel_tolerance(float32)."""
     q, k, v, g = _inputs(31, shape_q, shape_k)
-    want_dk, want_dv = _jax_dkv(q, k, v, g, causal, _block(shape_q, shape_k))
+    _, want_dk, want_dv = _jax_grads(q, k, v, g, causal,
+                                     _block(shape_q, shape_k))
     tq_, tk_, tv_, tg_ = map(torch.from_numpy, (q, k, v, g))
     out, lse = emulate_forward(tq_, tk_, tv_, causal)
     dk, dv = emulate_bwd_dkv(tq_, tk_, tv_, out, lse, tg_, causal)
     assert _violation(dk, want_dk) <= 0
     assert _violation(dv, want_dv) <= 0
+
+
+@pytest.mark.parametrize("shape_q,shape_k,causal", SMALL)
+def test_split_tf32_dq_matches_jax_vjp(shape_q, shape_k, causal):
+    """K3's split-TF32 emulation over its own key tiles (32 keys, 16 at
+    head dim 128), from the emulated forward's O and LSE, against
+    jax.vjp of the Pallas op: dQ within kernel_tolerance(float32)."""
+    q, k, v, g = _inputs(34, shape_q, shape_k)
+    want_dq, _, _ = _jax_grads(q, k, v, g, causal, _block(shape_q, shape_k))
+    tq_, tk_, tv_, tg_ = map(torch.from_numpy, (q, k, v, g))
+    out, lse = emulate_forward(tq_, tk_, tv_, causal)
+    dq = emulate_bwd_dq(tq_, tk_, tv_, out, lse, tg_, causal)
+    assert _violation(dq, want_dq) <= 0
 
 
 # A few rows of the serving/training geometry: T 2048, head dim 64,
@@ -194,24 +236,37 @@ LONG_ROWS = [0, 777, 1500, 2047]
 def long_case():
     q, k, v, g = _inputs(32, *LONG)
     want_out, want_lse = _jax_forward(q, k, v, True, (512, 512))
-    want_dk, want_dv = _jax_dkv(q, k, v, g, True, (512, 512))
-    return (q, k, v, g), (want_out, want_lse, want_dk, want_dv)
+    want_dq, want_dk, want_dv = _jax_grads(q, k, v, g, True, (512, 512))
+    return (q, k, v, g), (want_out, want_lse, want_dk, want_dv, want_dq)
+
+
+LONG_OUTPUTS = ["out", "lse", "dk", "dv", "dq"]
 
 
 def _long_emulation(case, mm):
+    """(out, lse, dk, dv, dq) of the emulated kernels at T 2048. dQ is
+    computed on LONG_ROWS' queries alone (each sees every key up to its
+    own), from the full forward's O and LSE."""
     (q, k, v, g), _ = case
     tq_, tk_, tv_, tg_ = map(torch.from_numpy, (q, k, v, g))
     out, lse = emulate_forward(tq_, tk_, tv_, True, mm)
     dk, dv = emulate_bwd_dkv(tq_, tk_, tv_, out, lse, tg_, True, mm)
-    return out, lse, dk, dv
+    dq = torch.zeros(tq_.shape)
+    for r in LONG_ROWS:
+        rows = slice(r, r + 1)
+        # One query row at absolute position r: causal against keys <= r.
+        dq[:, :, rows] = emulate_bwd_dq(
+            tq_[:, :, rows], tk_[:, :, :r + 1], tv_[:, :, :r + 1],
+            out[:, :, rows], lse[:, :, rows], tg_[:, :, rows], False, mm)
+    return out, lse, dk, dv, dq
 
 
-@pytest.mark.parametrize("which", ["out", "lse", "dk", "dv"])
+@pytest.mark.parametrize("which", LONG_OUTPUTS)
 def test_split_tf32_holds_at_t2048(long_case, which):
     """At T 2048 the three-product emulation stays within
     kernel_tolerance(float32) of the JAX op on the chosen rows."""
     got = _long_emulation(long_case, _mm3)
-    i = ["out", "lse", "dk", "dv"].index(which)
+    i = LONG_OUTPUTS.index(which)
     g, w = got[i].numpy(), long_case[1][i]
     if which == "lse":
         g, w = g[..., None], w[..., None]
@@ -221,11 +276,18 @@ def test_split_tf32_holds_at_t2048(long_case, which):
 def test_one_tf32_pass_misses_the_tolerance(long_case):
     """The same inputs through one TF32 pass (hi.hi alone) miss
     kernel_tolerance(float32): the lo products are what hold it."""
-    out, _, dk, dv = _long_emulation(long_case, _mm1)
-    want_out, _, want_dk, want_dv = long_case[1]
+    out, _, dk, dv, _ = _long_emulation(long_case, _mm1)
+    want_out, _, want_dk, want_dv, _ = long_case[1]
     assert max(_violation(out, want_out, LONG_ROWS),
                _violation(dk, want_dk, LONG_ROWS),
                _violation(dv, want_dv, LONG_ROWS)) > 0
+
+
+def test_one_tf32_pass_misses_dq_at_t2048(long_case):
+    """K3 alone: dQ through one TF32 pass misses kernel_tolerance(float32)
+    on LONG_ROWS at T 2048, where the three-product dQ holds it."""
+    dq = _long_emulation(long_case, _mm1)[4]
+    assert _violation(dq, long_case[1][4], LONG_ROWS) > 0
 
 
 @pytest.mark.parametrize("shape_q,shape_k,causal", SMALL[:4])
@@ -234,12 +296,26 @@ def test_one_tf32_pass_misses_at_small_shapes(shape_q, shape_k, causal):
     forward or dK/dV), where the three-product emulation holds it."""
     q, k, v, g = _inputs(31, shape_q, shape_k)
     want_out, _ = _jax_forward(q, k, v, causal, _block(shape_q, shape_k))
-    want_dk, want_dv = _jax_dkv(q, k, v, g, causal, _block(shape_q, shape_k))
+    _, want_dk, want_dv = _jax_grads(q, k, v, g, causal,
+                                     _block(shape_q, shape_k))
     tq_, tk_, tv_, tg_ = map(torch.from_numpy, (q, k, v, g))
     out, lse = emulate_forward(tq_, tk_, tv_, causal, _mm1)
     dk, dv = emulate_bwd_dkv(tq_, tk_, tv_, out, lse, tg_, causal, _mm1)
     assert max(_violation(out, want_out), _violation(dk, want_dk),
                _violation(dv, want_dv)) > 0
+
+
+@pytest.mark.parametrize("shape_q,shape_k,causal", SMALL[:4])
+def test_one_tf32_pass_misses_dq_at_small_shapes(shape_q, shape_k, causal):
+    """K3 alone at the small shapes: dQ through one TF32 pass misses the
+    tolerance where the three-product dQ
+    (test_split_tf32_dq_matches_jax_vjp) holds it."""
+    q, k, v, g = _inputs(34, shape_q, shape_k)
+    want_dq, _, _ = _jax_grads(q, k, v, g, causal, _block(shape_q, shape_k))
+    tq_, tk_, tv_, tg_ = map(torch.from_numpy, (q, k, v, g))
+    out, lse = emulate_forward(tq_, tk_, tv_, causal)
+    dq = emulate_bwd_dq(tq_, tk_, tv_, out, lse, tg_, causal, _mm1)
+    assert _violation(dq, want_dq) > 0
 
 
 def test_split_is_exact_to_the_dropped_term():
