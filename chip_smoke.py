@@ -187,7 +187,31 @@ phase falls back to the host or to a plain version):
    equals ``torch.topk``, the loss is finite and falls; its img/s
    beside phase 11's (a reading).
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17) is driven with
+18. model zoo: Inception-v3 (299x299) and AlexNet (224x224), 1000
+   classes, trained through ``examples.train_imagenet.benchmark_rate``
+   (SGD, the windows of phase 7) in fp32 (TF32 off) and bf16 over fp32
+   masters, Inception-v3 at b32 and AlexNet at b512 (BASELINE.md's b32
+   x 16) and b32 (``ZOO_TRAIN``); VGG-16 and Inception-v3 forward img/s
+   at b32 on a batch on the card, fp32 and bf16 (``ZOO_SERVED``); one
+   torch.profiler line per new training path (idle share, top device
+   ops); beside the reference's published V100 figures, as readings.
+   Each family (``ZOO_FAMILIES``: alexnet, vgg11, squeezenet1.1,
+   mobilenet1.0, mobilenetv2_1.0, densenet121, inceptionv3) at b2 and
+   its standard input: one train-mode forward and backward in float64
+   on the card against the host from the same weights (relative L2 of
+   logits, gradients and running statistics within ``ZOO_F64_REL_L2``),
+   and its hybridized fp32 forward equal to the imperative one. Every
+   new gluon layer and loss (``ZOO_LAYERS``, ``ZOO_LOSSES``) and
+   ``ctc_loss`` (``ZOO_CTC``; the op and ``gluon.loss.CTCLoss``) on the
+   card in fp32 against the host in float64 within ``SURFACE_TOL["nn"]``,
+   the worst share of the limit logged; ctc_loss's impossible alignment
+   is 1e30 with a zero gradient on both; its CUDA backward (atomics) is
+   listed with the spread of its gradient over reruns and whether
+   ``torch.use_deterministic_algorithms`` refuses it (phase 17's
+   determinism check does not take it); the operators run are the
+   slice's registered ones.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -4565,6 +4589,503 @@ def phase_core_surface(card_line, trainer_img_s):
     return result
 
 
+# Phase 18: the model zoo. Training rows at BASELINE.md's training table
+# (:11-20): Inception-v3 at b32, 299 px; AlexNet at b32 x 16 = 512 (its
+# reference column runs 16 times the listed batch) and at b32. Served
+# rows at its V100 inference table (:26-30): VGG-16 and Inception-v3, b32.
+ZOO_TRAIN = (("inception-v3", 32, (3, 299, 299)),
+             ("alexnet", 512, (3, 224, 224)),
+             ("alexnet", 32, (3, 224, 224)))
+ZOO_SERVED = (("vgg16", 224), ("inceptionv3", 299))
+# The reference's published V100 img/s (BASELINE.md:17, 28, 35): a
+# reading beside ours, not a target.
+ZOO_REFERENCE_V100 = {"inceptionv3_train_b32": 214.48,
+                      "alexnet_train_b32x16": 2585.61,
+                      "vgg16_infer_b32_fp32": 708.43,
+                      "inceptionv3_infer_b32_fp32": 814.59,
+                      "vgg16_infer_b32_fp16": 1486.63,
+                      "inceptionv3_infer_b32_fp16": 1512.08}
+# Every family at batch 2 and its standard input, one train-mode forward
+# and backward (Dropout at rate 0: the card's and the host's masks come
+# from different generators) in float64 on the card against the host,
+# from the same weights: relative L2 over the logits, over the gradients
+# of the input and every trainable parameter, and over the running
+# statistics after the step. In float64 a ReLU input within rounding of
+# zero is too rare to flip, so the two agree to float64 rounding summed
+# through the net.
+ZOO_FAMILIES = {"alexnet": 224, "vgg11": 224, "squeezenet1.1": 224,
+                "mobilenet1.0": 224, "mobilenetv2_1.0": 224,
+                "densenet121": 224, "inceptionv3": 299}
+ZOO_F64_REL_L2 = 1e-9
+# Steps a profiled window (torch.profiler's host-side bookkeeping of an
+# Inception-v3 step costs seconds).
+ZOO_PROFILE_ITERS = 3
+# Every layer and loss of the slice at a model's width, on the card in
+# fp32 against the host in float64 (SURFACE_TOL["nn"], gradients
+# SURFACE_GRAD_TOL): (class, constructor arguments, input shape) — a
+# ResNet stage's activation, BERT-base's LayerNorm input, Kim's text CNN
+# (300-wide embeddings, 60 tokens), a C3D stage, a DCGAN generator's
+# upsampling, a style-transfer net's normalization and padding.
+ZOO_LAYERS = (
+    ("InstanceNorm", {"scale": True}, (8, 64, 64, 64)),
+    ("LayerNorm", {}, (32, 128, 768)),
+    ("LeakyReLU", {"alpha": 0.1}, (32, 512, 14, 14)),
+    ("PReLU", {}, (32, 512, 14, 14)),
+    ("ELU", {"alpha": 1.0}, (32, 512, 14, 14)),
+    ("SELU", {}, (32, 512, 14, 14)),
+    ("GELU", {}, (32, 512, 14, 14)),
+    ("Swish", {"beta": 1.0}, (32, 512, 14, 14)),
+    ("Lambda", {"function": "tanh"}, (32, 512, 14, 14)),
+    ("HybridLambda", {"function": "tanh"}, (32, 512, 14, 14)),
+    ("Conv1D", {"channels": 100, "kernel_size": 3}, (32, 300, 60)),
+    ("Conv3D", {"channels": 32, "kernel_size": 3, "padding": 1},
+     (4, 32, 8, 28, 28)),
+    ("Conv1DTranspose", {"channels": 64, "kernel_size": 4, "strides": 2,
+                         "padding": 1}, (32, 128, 60)),
+    ("Conv2DTranspose", {"channels": 64, "kernel_size": 4, "strides": 2,
+                         "padding": 1}, (32, 128, 16, 16)),
+    ("Conv3DTranspose", {"channels": 16, "kernel_size": 4, "strides": 2,
+                         "padding": 1}, (4, 32, 4, 14, 14)),
+    ("MaxPool1D", {"pool_size": 3, "strides": 2}, (32, 300, 60)),
+    ("MaxPool3D", {"pool_size": 2}, (8, 64, 8, 28, 28)),
+    ("AvgPool1D", {"pool_size": 3, "strides": 2, "padding": 1,
+                   "count_include_pad": False}, (32, 300, 60)),
+    ("AvgPool3D", {"pool_size": 2, "padding": 1}, (8, 64, 8, 28, 28)),
+    ("GlobalMaxPool1D", {}, (32, 100, 58)),
+    ("GlobalMaxPool3D", {}, (8, 64, 4, 7, 7)),
+    ("GlobalAvgPool1D", {}, (32, 100, 58)),
+    ("GlobalAvgPool3D", {}, (8, 64, 4, 7, 7)),
+    ("ReflectionPad2D", {"padding": 4}, (8, 64, 64, 64)),
+)
+# (class, constructor arguments, input kinds) at the ImageNet logits' or a
+# GAN's widths; each with a per-sample sample_weight.
+ZOO_LOSSES = (
+    ("SigmoidBinaryCrossEntropyLoss", {}, ("pred", "binary")),
+    ("SigmoidBCELoss", {"from_sigmoid": True}, ("prob", "binary")),
+    ("KLDivLoss", {"from_logits": False}, ("pred", "dist")),
+    ("HuberLoss", {"rho": 0.5}, ("pred", "pred")),
+    ("HingeLoss", {}, ("pred", "signed")),
+    ("SquaredHingeLoss", {}, ("pred", "signed")),
+    ("LogisticLoss", {}, ("pred", "signed")),
+    ("TripletLoss", {"margin": 0.5}, ("pred", "pred", "pred")),
+)
+ZOO_LOSS_SHAPE = (32, 1000)
+# CTC at a speech recognizer's widths: 32 utterances of up to 100 frames
+# over 29 characters and the blank, labels of 5-20 characters.
+ZOO_CTC = {"T": 100, "N": 32, "C": 30, "min_label": 5, "max_label": 20,
+           "reruns": 5}
+ZOO_OPS = ("ctc_loss", "CTCLoss", "_contrib_ctc_loss", "_contrib_CTCLoss")
+
+
+def _without_dropout(net):
+    """`net` with the rate of each Dropout layer in it set to 0."""
+    todo = [net]
+    while todo:
+        block = todo.pop()
+        if type(block).__name__ == "Dropout":
+            block._rate = 0.0
+        todo.extend(block._children.values())
+    return net
+
+
+def _zoo_rates(mx, card_line):
+    """Train img/s (benchmark_rate, fp32 TF32 off and bf16 over fp32
+    masters) and served forward img/s at b32 (fp32, bf16)."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.examples import train_imagenet
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    train = {}
+    for network, batch, shape in ZOO_TRAIN:
+        row = {"batch": batch, "image_shape": list(shape),
+               "iters_per_window": 16 if batch <= 32 else 10, "windows": 5,
+               "card": card_line}
+        for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+            t0 = time.perf_counter()
+            rate = train_imagenet.benchmark_rate(
+                network, batch, dtype, device=mx.gpu(0), image_shape=shape)
+            row[tag] = {"img_s": rate, "ms_per_step": batch * 1e3 / rate,
+                        "seconds": time.perf_counter() - t0}
+            torch.cuda.empty_cache()
+        train["%s_b%d" % (network, batch)] = row
+        log(json.dumps({"check": "model zoo train", "network": network,
+                        **row}))
+    served = {}
+    rng = np.random.default_rng(SEED)
+    for name, side in ZOO_SERVED:
+        mx.random.seed(SEED)
+        net = vision.get_model(name, classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.hybridize()
+        x = nd.array(rng.random((32, 3, side, side), dtype=np.float32),
+                     ctx=mx.gpu(0))
+        row = {"batch": 32, "side": side, "card": card_line}
+        for tag, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+            if dtype != "float32":
+                net.cast(dtype)
+            xin = x.astype(dtype)
+
+            def forward():
+                with torch.no_grad(), autograd.pause():
+                    net(xin).wait_to_read()
+
+            ms = time_ms(forward)
+            row[tag] = {"forward_ms": ms, "img_s": 32e3 / ms}
+        served[name] = row
+        log(json.dumps({"check": "model zoo served", "network": name,
+                        **row}))
+        del net
+        torch.cuda.empty_cache()
+    return train, served
+
+
+def _zoo_device_split(mx):
+    """One torch.profiler line a new training path: wall, enqueue and
+    device ms per step, idle share, top device ops."""
+    from mxnet_tpu_torch.examples import train_imagenet
+    from mxnet_tpu_torch.profile_serving import _profile
+
+    lines = {}
+    rng = np.random.default_rng(SEED)
+    for network, batch, shape in ZOO_TRAIN[:2]:
+        x = torch.from_numpy(rng.random((batch,) + shape,
+                                        dtype=np.float32)).cuda()
+        y = torch.from_numpy(rng.integers(0, 1000, batch)
+                             .astype(np.float32)).cuda()
+        for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+            step = train_imagenet.build_train_step(network, 1000, dtype,
+                                                   mx.gpu(0))
+            step(x, y)  # materialize
+            key = "%s_b%d_%s" % (network, batch, tag)
+            lines[key] = _profile("%s train %s b%d" % (network, tag, batch),
+                                  lambda: step(x, y), iters=ZOO_PROFILE_ITERS)
+            del step
+            torch.cuda.empty_cache()
+    return lines
+
+
+def _f64_step(mx, net, x, y, ctx):
+    """Train-mode logits, gradients ("<input>" the input's) and running
+    statistics after one float64 step, by relative name."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.utils import relative_names
+
+    xa = mx.nd.array(x, ctx=ctx, dtype="float64")
+    xa.attach_grad()
+    with autograd.record():
+        out = net(xa)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+            out, mx.nd.array(y, ctx=ctx, dtype="float64")).sum()
+    loss.backward()
+    rel = relative_names(list(net.collect_params().keys()), net.prefix)
+    params = net.collect_params().items()
+    grads = {rel[n]: p.grad(ctx).asnumpy() for n, p in params
+             if p.grad_req != "null"}
+    grads["<input>"] = xa.grad.asnumpy()
+    stats = {rel[n]: p.data(ctx).asnumpy() for n, p in params
+             if n.endswith(("running_mean", "running_var"))}
+    return {"logits": {"": out.asnumpy()}, "grads": grads, "stats": stats}
+
+
+def _zoo_family(mx, name, side):
+    """(a) The family on the card against the host in float64; (b) its
+    hybridized inference forward on the card equal to the imperative
+    one (fp32)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import params_from_numpy
+
+    gpu = mx.gpu(0)
+    rng = np.random.default_rng(SEED + side)
+    x = rng.random((2, 3, side, side), dtype=np.float32)
+    y = rng.integers(0, 1000, 2).astype(np.float32)
+    mx.random.seed(SEED)
+    net = vision.get_model(name, classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    with autograd.pause():
+        imperative = net(mx.nd.array(x, ctx=gpu)).asnumpy()
+        net.hybridize()
+        hybrid = net(mx.nd.array(x, ctx=gpu)).asnumpy()
+        net.hybridize(False)
+    hybrid_err = float(np.abs(hybrid - imperative).max()
+                       / np.abs(imperative).max())
+    weights = {p.name: p.data(gpu).asnumpy()
+               for p in net.collect_params().values()}
+    prefix = net.prefix
+    net.cast("float64")
+    card = _f64_step(mx, _without_dropout(net), x, y, gpu)
+    del net
+    with mx.cpu():
+        host_net = vision.get_model(name, classes=1000)
+        host_net.initialize(ctx=mx.cpu())
+        params_from_numpy(host_net, weights, prefix=prefix)
+        host_net.cast("float64")
+        host = _f64_step(mx, _without_dropout(host_net), x, y, mx.cpu())
+    del host_net
+    torch.cuda.empty_cache()
+    errs = {}
+    for part in ("logits", "grads", "stats"):
+        check(set(card[part]) == set(host[part]), "%s: %s names differ "
+              "card vs host" % (name, part))
+        if host[part]:
+            errs[part] = _rel_l2(card[part], host[part])
+    return {"side": side, "batch": 2, "tensors": len(host["grads"]),
+            "f64_rel_l2": errs, "limit": ZOO_F64_REL_L2,
+            "hybrid_vs_imperative_rel": hybrid_err,
+            "hybrid_bit_equal": bool(np.array_equal(hybrid, imperative))}
+
+
+def _zoo_input(gen, kind, shape):
+    """A float32 host array of `kind` for the loss sweep."""
+    if kind == "pred":
+        return gen.uniform(-3, 3, shape).astype(np.float32)
+    if kind == "prob":
+        return gen.uniform(0.02, 0.98, shape).astype(np.float32)
+    if kind == "binary":
+        return gen.integers(0, 2, shape).astype(np.float32)
+    if kind == "signed":
+        return gen.integers(0, 2, shape).astype(np.float32) * 2 - 1
+    d = gen.uniform(0.1, 1, shape).astype(np.float32)  # "dist"
+    return d / d.sum(axis=-1, keepdims=True)
+
+
+def _zoo_block_case(mx, make, arrays, wrt, gen, between=()):
+    """Worst share of the "nn" limit of one block (layer or loss): the
+    card in fp32 against the host in float64, forward and the gradients
+    of `wrt` and of every trainable parameter, from the same weights."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.utils import params_from_numpy, relative_names
+
+    runs = []
+    head = None
+    weights = None
+    for ctx, dtype in ((mx.gpu(0), "float32"), (mx.cpu(), "float64")):
+        with ctx:
+            block = make()
+            block.initialize(ctx=ctx)
+            nds = [mx.nd.array(a, ctx=ctx, dtype=dtype) for a in arrays]
+            if weights is None:
+                with autograd.pause():
+                    block(*nds, *between)  # deferred shapes
+                for p in block.collect_params().values():
+                    p.set_data(gen.uniform(0.5, 1.5, p.shape)
+                               .astype(np.float32))
+                weights = ({p.name: p.data(ctx).asnumpy() for p in
+                            block.collect_params().values()}, block.prefix)
+            else:
+                params_from_numpy(block, weights[0], prefix=weights[1])
+                block.cast(dtype)
+            for i in wrt:
+                nds[i].attach_grad()
+            with autograd.record():
+                out = block(*nds, *between)
+            if head is None:
+                head = gen.uniform(0.5, 1.5, out.shape).astype(np.float32)
+            out.backward(mx.nd.array(head, ctx=ctx, dtype=dtype))
+            rel = relative_names(list(block.collect_params().keys()),
+                                 block.prefix)
+            grads = {rel[n]: p.grad(ctx).asnumpy() for n, p in
+                     block.collect_params().items() if p.grad_req != "null"}
+            grads.update({"<input %d>" % i: nds[i].grad.asnumpy()
+                          for i in wrt})
+            runs.append((out.asnumpy(), grads))
+    (got, got_g), (want, want_g) = runs
+    rtol, atol_rel = SURFACE_TOL["nn"]
+    share = _share(torch.from_numpy(got), torch.from_numpy(want), rtol,
+                   atol_rel)
+    grtol = max(rtol, SURFACE_GRAD_TOL[0])
+    gatol = max(atol_rel, SURFACE_GRAD_TOL[1])
+    check(set(got_g) == set(want_g), "gradient names differ card vs host")
+    for n, w in want_g.items():
+        share = max(share, _share(torch.from_numpy(got_g[n]),
+                                  torch.from_numpy(w), grtol, gatol))
+    return share
+
+
+def _zoo_ctc_arrays(gen):
+    """(pred (T, N, C), label, pred_lengths): random lengths, repeated
+    labels; row 0 has no label, row 1 cannot align (max_label labels in
+    half as many frames)."""
+    c = ZOO_CTC
+    T, N, C = c["T"], c["N"], c["C"]
+    pred = gen.standard_normal((T, N, C)).astype(np.float32) * 2
+    label = np.full((N, c["max_label"]), -1, np.float32)
+    lengths = gen.integers(c["min_label"], c["max_label"] + 1, N)
+    pred_len = gen.integers(T * 3 // 5, T + 1, N).astype(np.float32)
+    for i, n in enumerate(lengths):
+        row = gen.integers(0, C - 1, n)
+        row[1::4] = row[0::4][:len(row[1::4])]  # repeats
+        label[i, :n] = row
+    label[0] = -1
+    label[1] = gen.integers(0, C - 1, c["max_label"])
+    pred_len[1] = c["max_label"] // 2
+    return pred, label, pred_len
+
+
+def _zoo_ctc(mx, gen):
+    """ctc_loss on the card (ATen's CTC) against the host's float64
+    recursion, loss and gradient; the impossible row exactly the JAX
+    package's 1e30 with a zero gradient; the spread of the card's
+    gradient over reruns (its backward accumulates with atomics) and
+    whether deterministic mode refuses it."""
+    from mxnet_tpu_torch import autograd
+
+    pred, label, pred_len = _zoo_ctc_arrays(gen)
+    head = gen.uniform(0.5, 1.5, pred.shape[1]).astype(np.float32)
+    runs = []
+    called = ["_contrib_ctc_loss", "ctc_loss", "CTCLoss"]
+    for ctx, dtype in ((mx.gpu(0), "float32"), (mx.cpu(), "float64")):
+        p = mx.nd.array(pred, ctx=ctx, dtype=dtype)
+        p.attach_grad()
+        with autograd.record():
+            loss = mx.nd.contrib.ctc_loss(p, mx.nd.array(label, ctx=ctx),
+                                          mx.nd.array(pred_len, ctx=ctx))
+        loss.backward(mx.nd.array(head, ctx=ctx, dtype=dtype))
+        runs.append((loss.asnumpy(), p.grad.asnumpy()))
+    (got, got_g), (want, want_g) = runs
+    ok = np.ones(len(want), bool)
+    ok[1] = False
+    check(got[1] == np.float32(1e30) and want[1] == 1e30
+          and not got_g[:, 1].any() and not want_g[:, 1].any(),
+          "ctc_loss: the impossible row is not 1e30 with a zero gradient "
+          "(card %r, host %r)" % (got[1], want[1]))
+    rtol, atol_rel = SURFACE_TOL["nn"]
+    share = max(
+        _share(torch.from_numpy(got[ok]), torch.from_numpy(want[ok]),
+               rtol, atol_rel),
+        _share(torch.from_numpy(got_g), torch.from_numpy(want_g),
+               max(rtol, SURFACE_GRAD_TOL[0]),
+               max(atol_rel, SURFACE_GRAD_TOL[1])))
+    # gluon.loss.CTCLoss (F.ctc_loss) in NTC layout over the same data.
+    block_share = _zoo_block_case(
+        mx, lambda: mx.gluon.loss.CTCLoss(layout="NTC"),
+        [pred.transpose(1, 0, 2).copy(), label], [0], gen,
+        between=(None, None))
+    # Reruns of the card's backward.
+    p = mx.nd.array(pred, ctx=mx.gpu(0))
+    grads = []
+    for _ in range(ZOO_CTC["reruns"]):
+        p.attach_grad()
+        with autograd.record():
+            loss = mx.nd.ctc_loss(p, mx.nd.array(label, ctx=mx.gpu(0)),
+                                  mx.nd.array(pred_len, ctx=mx.gpu(0)))
+        loss.backward(mx.nd.array(head, ctx=mx.gpu(0)))
+        grads.append(p.grad.asnumpy())
+    spread = max(float(np.abs(g - grads[0]).max()) for g in grads)
+    refused = None
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        p.attach_grad()
+        with autograd.record():
+            loss = mx.nd.ctc_loss(p, mx.nd.array(label, ctx=mx.gpu(0)))
+        loss.backward()
+        p.grad.wait_to_read()
+        refused = False
+    except RuntimeError as err:  # torch's determinism alert
+        refused = str(err).splitlines()[0][:160]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return {"T": pred.shape[0], "N": pred.shape[1], "C": pred.shape[2],
+            "worst_share_of_limit": max(share, block_share),
+            "op_share": share, "block_share": block_share,
+            "impossible_row": float(got[1]),
+            "grad_rerun_spread_max_abs": spread,
+            "grad_max_abs": float(np.abs(grads[0]).max()),
+            "deterministic": spread == 0.0,
+            "refused_under_deterministic_algorithms": refused,
+            "operators_called": called}
+
+
+def _zoo_surface(mx):
+    """Every new layer and loss, and ctc_loss, on the card against the
+    host in float64."""
+    from mxnet_tpu_torch import gluon
+
+    gen = np.random.default_rng(SEED + 18)
+    layers = {}
+    for name, kwargs, shape in ZOO_LAYERS:
+        x = gen.uniform(-2, 2, shape).astype(np.float32)
+        layers[name] = _zoo_block_case(
+            mx, lambda: getattr(gluon.nn, name)(**kwargs), [x], [0], gen)
+        check(layers[name] <= 1.0, "layer %s on the card vs the host: "
+              "%.3g of its limit" % (name, layers[name]))
+    losses = {}
+    for name, kwargs, kinds in ZOO_LOSSES:
+        arrays = [_zoo_input(gen, k, ZOO_LOSS_SHAPE) for k in kinds]
+        sw = gen.uniform(0.5, 1.5, (ZOO_LOSS_SHAPE[0],) + (
+            () if name == "TripletLoss" else (1,))).astype(np.float32)
+        wrt = [i for i, k in enumerate(kinds) if k in ("pred", "prob")]
+        losses[name] = _zoo_block_case(
+            mx, lambda: getattr(gluon.loss, name)(**kwargs),
+            arrays + [sw], wrt, gen)
+        check(losses[name] <= 1.0, "loss %s on the card vs the host: %.3g "
+              "of its limit" % (name, losses[name]))
+    ctc = _zoo_ctc(mx, gen)
+    log(json.dumps({"check": "model zoo ctc_loss", **ctc}))
+    check(ctc["worst_share_of_limit"] <= 1.0, "ctc_loss on the card vs "
+          "the host: %.3g of its limit" % ctc["worst_share_of_limit"])
+    return layers, losses, ctc
+
+
+def phase_model_zoo(card_line, resnet_img_s):
+    """Phase 18: the model zoo (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t_phase = time.perf_counter()
+    result = {"phase": "model_zoo", "card": card_line,
+              "reference_v100_published": ZOO_REFERENCE_V100,
+              "resnet50_train_img_s_b32_phase7": resnet_img_s}
+    seconds = result["seconds_by_part"] = {}
+    _reset_all_launches()   # the main path starts here
+    t0 = time.perf_counter()
+    result["train"], result["served"] = _zoo_rates(mx, card_line)
+    seconds["rates"] = time.perf_counter() - t0
+    result["device_split"] = _zoo_device_split(mx)
+    seconds["device_split"] = time.perf_counter() - t0 - sum(seconds.values())
+    result["families"] = {}
+    for name, side in ZOO_FAMILIES.items():
+        t_family = time.perf_counter()
+        row = _zoo_family(mx, name, side)
+        row["seconds"] = time.perf_counter() - t_family
+        result["families"][name] = row
+        log(json.dumps({"check": "model zoo family", "network": name,
+                        **row}))
+    seconds["families"] = time.perf_counter() - t0 - sum(seconds.values())
+    layers, losses, ctc = _zoo_surface(mx)
+    seconds["layers_losses_ctc"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+    launches = _all_launches()   # read just after the path
+    result["launches"] = launches
+    result["layers_worst_share"] = layers
+    result["losses_worst_share"] = losses
+    result["ctc_loss"] = ctc
+    ops = {registry.get(n).name for n in ZOO_OPS}
+    ran = {registry.get(n).name for n in ctc["operators_called"]}
+    result["canonical_ops"] = {"registered": sorted(ops), "ran": sorted(ran)}
+    result["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(result))
+    check(ran == ops, "phase 18: operators not run %s, run but not "
+          "registered by the slice %s" % (sorted(ops - ran),
+                                          sorted(ran - ops)))
+    check(len(layers) == 24 and len(losses) == 8,
+          "%d layers and %d losses run" % (len(layers), len(losses)))
+    for name, row in result["families"].items():
+        for part, err in row["f64_rel_l2"].items():
+            check(err <= ZOO_F64_REL_L2, "%s: float64 %s on the card vs the "
+                  "host: relative L2 %.3g" % (name, part, err))
+        check(row["hybrid_vs_imperative_rel"] <= 1e-6, "%s: hybridized "
+              "forward differs from the imperative one by %.3g"
+              % (name, row["hybrid_vs_imperative_rel"]))
+    for key, row in result["train"].items():
+        for tag in ("fp32", "bf16"):
+            check(row[tag]["img_s"] > 0, "%s %s img/s" % (key, tag))
+    return result
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -4586,6 +5107,7 @@ def main():
     module = phase_module(card_line, trainer["fp32"]["img_s_b32"])
     recurrent = phase_recurrent(card_line)
     core = phase_core_surface(card_line, trainer["fp32"]["img_s_b32"])
+    zoo = phase_model_zoo(card_line, synthetic["fp32"]["img_s_b32"])
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -4618,13 +5140,14 @@ def main():
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
     # The input pipeline's (phase 13), the checkpoint's (14), the
-    # Module's (15), the recurrent (16) and the core surface's (17)
-    # paths launch none of them.
+    # Module's (15), the recurrent (16), the core surface's (17) and the
+    # model zoo's (18) paths launch none of them.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
                        ("recurrent", recurrent["launches"]),
-                       ("core_surface", core["launches"])):
+                       ("core_surface", core["launches"]),
+                       ("model_zoo", zoo["launches"])):
         for entry, n in zip([fwd, dkv, dq] + rtc_list,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

@@ -51,6 +51,9 @@ CATALOGUE = [
     Knob("MXNET_USE_NATIVE_RECORDIO", int, 1, "recordio.py",
          "0 forces the pure-python RecordIO path (escape hatch; re-read "
          "on every read so a mid-run flip takes effect)", False),
+    Knob("MXNET_TPU_MODEL_ZOO_DIR", str, "", "gluon/model_zoo/",
+         "local directory of pretrained model zoo params (no-download "
+         "model store)", False),
     Knob("MXNET_TRACE_SAMPLE", float, 1.0, "telemetry/xtrace.py",
          "head-based trace sampling probability in [0, 1], decided once "
          "per root context", False),

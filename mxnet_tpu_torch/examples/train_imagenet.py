@@ -24,9 +24,12 @@ epochs of at most ``--max-batches`` batches::
     python -m mxnet_tpu_torch.examples.train_imagenet --data-train x.rec \\
         --max-batches 50
 
-It runs on ``gpu(0)`` unless ``--device cpu`` is given. The ResNets are
-the networks of the port's model zoo; the other names of the
-reference's factory raise until their model-zoo entries are ported.
+It runs on ``gpu(0)`` unless ``--device cpu`` is given. Every network
+of the reference's factory is served (``_NETWORKS``); Inception-v3 takes
+``--image-shape 3,299,299``::
+
+    python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1 \
+        --network inception-v3 --image-shape 3,299,299
 """
 from __future__ import annotations
 
@@ -46,14 +49,13 @@ def build_net(network, num_classes, ctx=None):
     """The network, initialized (deferred shapes) on `ctx`."""
     from ..gluon.model_zoo import vision
 
-    factory = {"resnet18": vision.resnet18_v1, "resnet34": vision.resnet34_v1,
-               "resnet50": vision.resnet50_v1,
-               "resnet101": vision.resnet101_v1}.get(network)
-    if factory is None:
-        raise NotImplementedError(
-            "network %r: its model-zoo entry is not ported yet (the port's "
-            "model zoo has the ResNets; the rest is ROADMAP Queue 1 item "
-            "11)" % network)
+    factory = {
+        "resnet18": vision.resnet18_v1, "resnet34": vision.resnet34_v1,
+        "resnet50": vision.resnet50_v1, "resnet101": vision.resnet101_v1,
+        "alexnet": vision.alexnet, "vgg16": vision.vgg16,
+        "inception-v3": vision.inception_v3,
+        "mobilenet": vision.mobilenet1_0,
+    }[network]
     net = factory(classes=num_classes)
     net.initialize(ctx=ctx)
     return net

@@ -1,13 +1,46 @@
-"""Vision model zoo (counterpart of
-``mxnet_tpu/gluon/model_zoo/vision/__init__.py``); the port has the
-ResNet family so far."""
+"""Vision model zoo.
+
+Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/__init__.py``
+(reference: python/mxnet/gluon/model_zoo/vision/__init__.py): the
+``get_model(name)`` factory over alexnet, densenet, inception,
+mobilenet v1 and v2, resnet v1 and v2, squeezenet and vgg.
+"""
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
+from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
-from . import resnet
+from .squeezenet import *  # noqa: F401,F403
+from .vgg import *  # noqa: F401,F403
+import sys as _sys
 
-__all__ = resnet.__all__ + ["get_model"]
+# (The module ``alexnet`` is shadowed here by its function.)
+__all__ = [n for m in ("alexnet", "densenet", "inception", "mobilenet",
+                       "resnet", "squeezenet", "vgg")
+           for n in _sys.modules[__name__ + "." + m].__all__] + ["get_model"]
 
-_MODELS = {"resnet%d_v%d" % (n, v): getattr(resnet, "resnet%d_v%d" % (n, v))
-           for n in resnet.resnet_spec for v in (1, 2)}
+_MODELS = {
+    "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
+    "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
+    "resnet152_v1": resnet152_v1,
+    "resnet18_v2": resnet18_v2, "resnet34_v2": resnet34_v2,
+    "resnet50_v2": resnet50_v2, "resnet101_v2": resnet101_v2,
+    "resnet152_v2": resnet152_v2,
+    "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+    "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+    "vgg19_bn": vgg19_bn,
+    "alexnet": alexnet,
+    "densenet121": densenet121, "densenet161": densenet161,
+    "densenet169": densenet169, "densenet201": densenet201,
+    "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+    "inceptionv3": inception_v3,
+    "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+    "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+    "mobilenetv2_1.0": mobilenet_v2_1_0,
+    "mobilenetv2_0.75": mobilenet_v2_0_75,
+    "mobilenetv2_0.5": mobilenet_v2_0_5,
+    "mobilenetv2_0.25": mobilenet_v2_0_25,
+}
 
 
 def get_model(name, **kwargs):

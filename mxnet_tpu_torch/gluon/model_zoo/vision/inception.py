@@ -1,0 +1,179 @@
+"""Inception V3.
+
+Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/inception.py``
+(reference: python/mxnet/gluon/model_zoo/vision/inception.py). Its
+input is 299x299: the closing ``AvgPool2D(8)`` needs an 8x8 map. The
+same blocks (branches concatenated by its own ``_Concurrent``) and
+parameter names.
+"""
+from __future__ import annotations
+
+from ...block import HybridBlock
+from ... import nn
+
+__all__ = ["Inception3", "inception_v3"]
+
+
+def _make_basic_conv(**kwargs):
+    out = nn.HybridSequential(prefix="")
+    out.add(nn.Conv2D(use_bias=False, **kwargs))
+    out.add(nn.BatchNorm(epsilon=0.001))
+    out.add(nn.Activation("relu"))
+    return out
+
+
+def _make_branch(use_pool, *conv_settings):
+    out = nn.HybridSequential(prefix="")
+    if use_pool == "avg":
+        out.add(nn.AvgPool2D(pool_size=3, strides=1, padding=1))
+    elif use_pool == "max":
+        out.add(nn.MaxPool2D(pool_size=3, strides=2))
+    for setting in conv_settings:
+        kwargs = {}
+        if setting[0] is not None:
+            kwargs["channels"] = setting[0]
+        if setting[1] is not None:
+            kwargs["kernel_size"] = setting[1]
+        if setting[2] is not None:
+            kwargs["strides"] = setting[2]
+        if setting[3] is not None:
+            kwargs["padding"] = setting[3]
+        out.add(_make_basic_conv(**kwargs))
+    return out
+
+
+class _Concurrent(HybridBlock):
+    """Parallel branches concatenated on channel axis (reference:
+    gluon/contrib/nn/basic_layers.py:HybridConcurrent)."""
+
+    def __init__(self, axis=1, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = axis
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def hybrid_forward(self, F, x):
+        outs = [block(x) for block in self._children.values()]
+        return F.concat(*outs, dim=self.axis)
+
+
+def _make_A(pool_features, prefix):
+    out = _Concurrent(prefix=prefix)
+    out.add(_make_branch(None, (64, 1, None, None)))
+    out.add(_make_branch(None, (48, 1, None, None), (64, 5, None, 2)))
+    out.add(_make_branch(None, (64, 1, None, None), (96, 3, None, 1),
+                         (96, 3, None, 1)))
+    out.add(_make_branch("avg", (pool_features, 1, None, None)))
+    return out
+
+
+def _make_B(prefix):
+    out = _Concurrent(prefix=prefix)
+    out.add(_make_branch(None, (384, 3, 2, None)))
+    out.add(_make_branch(None, (64, 1, None, None), (96, 3, None, 1),
+                         (96, 3, 2, None)))
+    out.add(_make_branch("max"))
+    return out
+
+
+def _make_C(channels_7x7, prefix):
+    out = _Concurrent(prefix=prefix)
+    out.add(_make_branch(None, (192, 1, None, None)))
+    out.add(_make_branch(None, (channels_7x7, 1, None, None),
+                         (channels_7x7, (1, 7), None, (0, 3)),
+                         (192, (7, 1), None, (3, 0))))
+    out.add(_make_branch(None, (channels_7x7, 1, None, None),
+                         (channels_7x7, (7, 1), None, (3, 0)),
+                         (channels_7x7, (1, 7), None, (0, 3)),
+                         (channels_7x7, (7, 1), None, (3, 0)),
+                         (192, (1, 7), None, (0, 3))))
+    out.add(_make_branch("avg", (192, 1, None, None)))
+    return out
+
+
+def _make_D(prefix):
+    out = _Concurrent(prefix=prefix)
+    out.add(_make_branch(None, (192, 1, None, None), (320, 3, 2, None)))
+    out.add(_make_branch(None, (192, 1, None, None),
+                         (192, (1, 7), None, (0, 3)),
+                         (192, (7, 1), None, (3, 0)),
+                         (192, 3, 2, None)))
+    out.add(_make_branch("max"))
+    return out
+
+
+class _InceptionE(HybridBlock):
+    """Block E has nested splits, so it is its own HybridBlock."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.branch1 = _make_branch(None, (320, 1, None, None))
+        self.branch2_stem = _make_basic_conv(channels=384, kernel_size=1)
+        self.branch2_a = _make_basic_conv(channels=384, kernel_size=(1, 3),
+                                          padding=(0, 1))
+        self.branch2_b = _make_basic_conv(channels=384, kernel_size=(3, 1),
+                                          padding=(1, 0))
+        self.branch3_stem = nn.HybridSequential(prefix="")
+        self.branch3_stem.add(_make_basic_conv(channels=448, kernel_size=1))
+        self.branch3_stem.add(_make_basic_conv(channels=384, kernel_size=3,
+                                               padding=1))
+        self.branch3_a = _make_basic_conv(channels=384, kernel_size=(1, 3),
+                                          padding=(0, 1))
+        self.branch3_b = _make_basic_conv(channels=384, kernel_size=(3, 1),
+                                          padding=(1, 0))
+        self.branch_pool = _make_branch("avg", (192, 1, None, None))
+
+    def hybrid_forward(self, F, x):
+        b1 = self.branch1(x)
+        b2 = self.branch2_stem(x)
+        b2 = F.concat(self.branch2_a(b2), self.branch2_b(b2), dim=1)
+        b3 = self.branch3_stem(x)
+        b3 = F.concat(self.branch3_a(b3), self.branch3_b(b3), dim=1)
+        bp = self.branch_pool(x)
+        return F.concat(b1, b2, b3, bp, dim=1)
+
+
+class Inception3(HybridBlock):
+    """(reference inception.py:Inception3)."""
+
+    def __init__(self, classes=1000, **kwargs):
+        super().__init__(**kwargs)
+        self.features = nn.HybridSequential(prefix="")
+        self.features.add(_make_basic_conv(channels=32, kernel_size=3,
+                                           strides=2))
+        self.features.add(_make_basic_conv(channels=32, kernel_size=3))
+        self.features.add(_make_basic_conv(channels=64, kernel_size=3,
+                                           padding=1))
+        self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+        self.features.add(_make_basic_conv(channels=80, kernel_size=1))
+        self.features.add(_make_basic_conv(channels=192, kernel_size=3))
+        self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+        self.features.add(_make_A(32, "A1_"))
+        self.features.add(_make_A(64, "A2_"))
+        self.features.add(_make_A(64, "A3_"))
+        self.features.add(_make_B("B_"))
+        self.features.add(_make_C(128, "C1_"))
+        self.features.add(_make_C(160, "C2_"))
+        self.features.add(_make_C(160, "C3_"))
+        self.features.add(_make_C(192, "C4_"))
+        self.features.add(_make_D("D_"))
+        self.features.add(_InceptionE(prefix="E1_"))
+        self.features.add(_InceptionE(prefix="E2_"))
+        self.features.add(nn.AvgPool2D(pool_size=8))
+        self.features.add(nn.Dropout(0.5))
+        self.output = nn.Dense(classes)
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        return self.output(x)
+
+
+def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
+    net = Inception3(**kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+
+        net.load_parameters(get_model_file("inceptionv3", root=root), ctx=ctx)
+    return net

@@ -1,8 +1,10 @@
 """Basic layers: Sequential, HybridSequential, Dense, Dropout, BatchNorm,
-Embedding, Activation, Flatten.
+InstanceNorm, LayerNorm, Embedding, Flatten, Activation, LeakyReLU,
+PReLU, ELU, SELU, GELU, Swish, Lambda and HybridLambda.
 
-Counterpart of the subset of ``mxnet_tpu/gluon/nn/basic_layers.py`` that
-ResNet and the language models use. Note the BatchNorm layer's defaults differ from the op's:
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py`` (reference:
+python/mxnet/gluon/nn/basic_layers.py), over the same operators. Note
+the BatchNorm layer's defaults differ from the op's:
 the layer passes ``epsilon=1e-5`` and ``fix_gamma=not scale``, the op
 defaults to ``eps=1e-3, fix_gamma=True``.
 """
@@ -11,9 +13,12 @@ from __future__ import annotations
 import numpy as np
 
 from ..block import Block, HybridBlock
+from ... import ndarray as nd
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "Embedding", "Flatten", "Activation"]
+           "InstanceNorm", "LayerNorm", "Embedding", "Flatten", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU", "Lambda",
+           "HybridLambda"]
 
 
 class _SequentialMixin:
@@ -31,8 +36,16 @@ class _SequentialMixin:
     def __len__(self):
         return len(self._children)
 
-    def __getitem__(self, i):
-        return list(self._children.values())[i]
+    def __getitem__(self, key):
+        layers = list(self._children.values())
+        if isinstance(key, slice):
+            net = self.__class__()
+            net.add(*layers[key])
+            return net
+        return layers[key]
+
+    def __iter__(self):
+        return iter(self._children.values())
 
 
 class Sequential(_SequentialMixin, Block):
@@ -152,6 +165,60 @@ class BatchNorm(HybridBlock):
         return out
 
 
+class InstanceNorm(HybridBlock):
+    """Normalization of each sample's channel over its spatial axes;
+    ``gamma`` is learned only with ``scale=True``."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     differentiable=scale,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    differentiable=center,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class LayerNorm(HybridBlock):
+    """Normalization over `axis` of each sample."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     differentiable=scale,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    differentiable=center,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
 class Embedding(HybridBlock):
     """Rows of an (input_dim, output_dim) weight at integer indices
     (clipped into range, as the op clips them)."""
@@ -186,3 +253,93 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` where positive, ``alpha * x`` elsewhere."""
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope ``alpha`` of shape (1,), 0.25 at
+    initialization."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        from ... import initializer as _init
+
+        self.alpha = self.params.get(
+            "alpha", shape=(1,),
+            init=alpha_initializer or _init.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU in its tanh form, as the JAX package computes it."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class Lambda(Block):
+    """A function as a Block: a callable, or the name of an ``nd``
+    function."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(function, str):
+            self._func = getattr(nd, function)
+        else:
+            self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function of ``(F, *inputs)`` as a HybridBlock, or the name of an
+    operator, resolved in ``F`` at each call."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(function, str):
+            name = function
+            self._func = lambda F, *a: getattr(F, name)(*a)
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)

@@ -1,15 +1,22 @@
-"""Convolution and pooling layers: Conv2D, MaxPool2D, AvgPool2D,
-GlobalAvgPool2D, GlobalMaxPool2D.
+"""Convolution, transposed convolution, pooling and padding layers:
+Conv1D/2D/3D, Conv1D/2D/3DTranspose, MaxPool/AvgPool 1-3D,
+GlobalMaxPool/GlobalAvgPool 1-3D and ReflectionPad2D.
 
-Counterpart of the subset of ``mxnet_tpu/gluon/nn/conv_layers.py`` that
-ResNet uses; NCHW layout, as in the JAX package.
+Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py`` (reference:
+python/mxnet/gluon/nn/conv_layers.py); channels-first layouts, as in the
+JAX package. A transposed convolution stores its weight as
+(in_channels, channels / groups, *kernel), so its deferred shape takes
+the first axis from the input.
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
 
-__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
-           "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "ReflectionPad2D"]
 
 
 def _tuple(x, n):
@@ -20,18 +27,25 @@ def _tuple(x, n):
 
 class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
-                 groups, layout, in_channels=0, activation=None,
-                 use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None, params=None):
+                 groups, layout, in_channels=0, activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 op_name="Convolution", adj=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._channels = channels
         self._kwargs = {
             "kernel": kernel_size, "stride": strides, "dilate": dilation,
             "pad": padding, "num_filter": channels, "num_group": groups,
             "no_bias": not use_bias, "layout": layout}
+        if adj is not None:
+            self._kwargs["adj"] = adj
+        self._op_name = op_name
         self.act_type = activation
-        wshape = (channels, in_channels // groups if in_channels else 0) \
-            + tuple(kernel_size)
+        if op_name == "Convolution":
+            wshape = (channels, in_channels // groups if in_channels else 0) \
+                + tuple(kernel_size)
+        else:  # Deconvolution stores (in, out/group, *k)
+            wshape = (in_channels, channels // groups if channels else 0) \
+                + tuple(kernel_size)
         self.weight = self.params.get("weight", shape=wshape,
                                       init=weight_initializer,
                                       allow_deferred_init=True)
@@ -43,17 +57,35 @@ class _Conv(HybridBlock):
             self.bias = None
 
     def infer_shape(self, x, *args):
+        c = x.shape[1]
         g = self._kwargs["num_group"]
-        self.weight.shape = (self._channels, x.shape[1] // g) \
-            + tuple(self._kwargs["kernel"])
+        k = tuple(self._kwargs["kernel"])
+        if self._op_name == "Convolution":
+            self.weight.shape = (self._channels, c // g) + k
+        else:
+            self.weight.shape = (c, self._channels // g) + k
         if self.bias is not None:
             self.bias.shape = (self._channels,)
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.Convolution(x, weight, bias, **self._kwargs)
+        if self._op_name == "Convolution":
+            out = F.Convolution(x, weight, bias, **self._kwargs)
+        else:
+            out = F.Deconvolution(x, weight, bias, **self._kwargs)
         if self.act_type:
             out = F.Activation(out, act_type=self.act_type)
         return out
+
+
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0, dilation=1,
+                 groups=1, layout="NCW", in_channels=0, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 1), _tuple(strides, 1),
+                         _tuple(padding, 1), _tuple(dilation, 1), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
 
 
 class Conv2D(_Conv):
@@ -65,6 +97,57 @@ class Conv2D(_Conv):
                          _tuple(padding, 2), _tuple(dilation, 2), groups,
                          layout, in_channels, activation, use_bias,
                          weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", in_channels=0, activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros", **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 3), _tuple(strides, 3),
+                         _tuple(padding, 3), _tuple(dilation, 3), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 in_channels=0, activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros", **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 1), _tuple(strides, 1),
+                         _tuple(padding, 1), _tuple(dilation, 1), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tuple(output_padding, 1), **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", in_channels=0, activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros", **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 2), _tuple(strides, 2),
+                         _tuple(padding, 2), _tuple(dilation, 2), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tuple(output_padding, 2), **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW", in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 3), _tuple(strides, 3),
+                         _tuple(padding, 3), _tuple(dilation, 3), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tuple(output_padding, 3), **kwargs)
 
 
 class _Pooling(HybridBlock):
@@ -84,12 +167,37 @@ class _Pooling(HybridBlock):
         return F.Pooling(x, **self._kwargs)
 
 
+class MaxPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(_tuple(pool_size, 1),
+                         _tuple(strides, 1) if strides is not None else None,
+                         _tuple(padding, 1), ceil_mode, False, "max", **kwargs)
+
+
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, **kwargs):
         super().__init__(_tuple(pool_size, 2),
                          _tuple(strides, 2) if strides is not None else None,
                          _tuple(padding, 2), ceil_mode, False, "max", **kwargs)
+
+
+class MaxPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, **kwargs):
+        super().__init__(_tuple(pool_size, 3),
+                         _tuple(strides, 3) if strides is not None else None,
+                         _tuple(padding, 3), ceil_mode, False, "max", **kwargs)
+
+
+class AvgPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(_tuple(pool_size, 1),
+                         _tuple(strides, 1) if strides is not None else None,
+                         _tuple(padding, 1), ceil_mode, False, "avg",
+                         count_include_pad, **kwargs)
 
 
 class AvgPool2D(_Pooling):
@@ -102,11 +210,54 @@ class AvgPool2D(_Pooling):
                          count_include_pad, **kwargs)
 
 
+class AvgPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tuple(pool_size, 3),
+                         _tuple(strides, 3) if strides is not None else None,
+                         _tuple(padding, 3), ceil_mode, False, "avg",
+                         count_include_pad, **kwargs)
+
+
+class GlobalMaxPool1D(_Pooling):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__((1,), None, (0,), False, True, "max", **kwargs)
+
+
 class GlobalMaxPool2D(_Pooling):
     def __init__(self, layout="NCHW", **kwargs):
         super().__init__((1, 1), None, (0, 0), False, True, "max", **kwargs)
 
 
+class GlobalMaxPool3D(_Pooling):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__((1, 1, 1), None, (0, 0, 0), False, True, "max",
+                         **kwargs)
+
+
+class GlobalAvgPool1D(_Pooling):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__((1,), None, (0,), False, True, "avg", **kwargs)
+
+
 class GlobalAvgPool2D(_Pooling):
     def __init__(self, layout="NCHW", **kwargs):
         super().__init__((1, 1), None, (0, 0), False, True, "avg", **kwargs)
+
+
+class GlobalAvgPool3D(_Pooling):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__((1, 1, 1), None, (0, 0, 0), False, True, "avg",
+                         **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

@@ -33,22 +33,22 @@ import torch
 ITERS = 10
 
 
-def _profile(tag, call):
+def _profile(tag, call, iters=ITERS):
     for _ in range(3):
         call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enqueue = 0.0
-    for _ in range(ITERS):
+    for _ in range(iters):
         e0 = time.perf_counter()
         call()
         enqueue += time.perf_counter() - e0
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / ITERS
+    wall = (time.perf_counter() - t0) / iters
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(ITERS):
+        for _ in range(iters):
             call()
         torch.cuda.synchronize()
     kernels = {}
@@ -57,15 +57,17 @@ def _profile(tag, call):
         if str(evt.device_type).endswith("CUDA"):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + \
                 evt.self_device_time_total
-    device_ms = sum(kernels.values()) / 1e3 / ITERS
+    device_ms = sum(kernels.values()) / 1e3 / iters
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(json.dumps({
-        "profile": tag, "iters": ITERS, "wall_ms": wall * 1e3,
-        "enqueue_ms": enqueue / ITERS * 1e3,
+    line = {
+        "profile": tag, "iters": iters, "wall_ms": wall * 1e3,
+        "enqueue_ms": enqueue / iters * 1e3,
         "device_ms": device_ms if kernels else None,
         "idle_share": 1 - device_ms / (wall * 1e3) if kernels else None,
-        "top_kernels": [[k[:90], v / 1e3 / ITERS] for k, v in top],
-    }), flush=True)
+        "top_kernels": [[k[:90], v / 1e3 / iters] for k, v in top],
+    }
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def main():

@@ -92,7 +92,18 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.checkpoint.state, mxnet_tpu_torch.checkpoint.guard, "
         "mxnet_tpu_torch.module, mxnet_tpu_torch.model, "
         "mxnet_tpu_torch.profiler, mxnet_tpu_torch.examples.train_resume, "
-        "mxnet_tpu_torch.examples.train_mnist\n"
+        "mxnet_tpu_torch.examples.train_mnist, "
+        "mxnet_tpu_torch.ops.contrib_ops, "
+        "mxnet_tpu_torch.gluon.model_zoo.model_store, "
+        "mxnet_tpu_torch.examples.train_gan, "
+        "mxnet_tpu_torch.examples.train_autoencoder, "
+        "mxnet_tpu_torch.examples.train_fcn_segmentation, "
+        "mxnet_tpu_torch.examples.cnn_text_classification, "
+        "mxnet_tpu_torch.examples.train_ctc_ocr, "
+        "mxnet_tpu_torch.examples.neural_style, "
+        "mxnet_tpu_torch.examples.adversarial_fgsm, "
+        "mxnet_tpu_torch.examples.train_multi_task, "
+        "mxnet_tpu_torch.examples.bi_lstm_sort\n"
         "import mxnet_tpu_torch.data as d\n"
         "d.DataPipeline, d.DecodePool, d.DevicePrefetcher, d.RecordDataset, "
         "d.DecodeAutoscaler, d.stall_fraction\n"

@@ -484,9 +484,10 @@ def test_every_name_of_the_five_files_is_registered():
     assert len(names) == 287
     missing = sorted(n for n in names if n not in treg.OP_REGISTRY)
     assert not missing, missing
-    # 82 names of other files wait for the second and third slices.
+    # 78 names of other files wait for later slices (the core surface's
+    # second half registered ctc_loss and its 3 aliases).
     rest = set(jreg.OP_REGISTRY) - set(treg.OP_REGISTRY)
-    assert len(rest) == 82, sorted(rest)
+    assert len(rest) == 78, sorted(rest)
 
 
 def test_every_deterministic_name_has_a_case_here():

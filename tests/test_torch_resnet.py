@@ -168,4 +168,4 @@ def test_get_model_builds_every_resnet_depth():
                 net = vision.get_model("resnet%d_v%d" % (n, v), classes=3)
                 assert isinstance(net, mx.gluon.HybridBlock)
     with pytest.raises(ValueError):
-        vision.get_model("alexnet")
+        vision.get_model("resnet999_v9")

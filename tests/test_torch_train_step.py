@@ -532,12 +532,15 @@ def test_single_device_mesh_places_on_its_device():
 
 def test_train_imagenet_driver_runs_on_the_host():
     """The port's train_imagenet driver (the benchmark protocol) on a
-    small ResNet on the host; a network the model zoo lacks raises."""
+    small ResNet on the host; every network it lists builds, and a name
+    it does not list raises."""
     from mxnet_tpu_torch.examples import train_imagenet
 
     rate = train_imagenet.benchmark_rate(
         "resnet18", batch=2, device=mx.cpu(), image_shape=(3, 32, 32),
         num_classes=10, iters=1, windows=1, warmup=1)
     assert rate > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train_imagenet.build_net("alexnet", 10, ctx=mx.cpu())
+    assert type(train_imagenet.build_net("alexnet", 10, ctx=mx.cpu())) \
+        .__name__ == "AlexNet"
+    with pytest.raises(KeyError):
+        train_imagenet.build_net("lenet", 10, ctx=mx.cpu())
