@@ -211,7 +211,34 @@ phase falls back to the host or to a plain version):
    determinism check does not take it); the operators run are the
    slice's registered ones.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18) is driven with
+19. distribution, each part in ranks started by the port's launcher
+   (``parallel.launch``; this process never joins a group; a rank that
+   fails fails the phase): (1) NCCL at world size 1: the attention layer
+   of phase 6 at its width (b8, T2048, fp32, TF32 off, SGD lr 10,
+   momentum 0.9; ``DIST_ATTN``) 5 steps through the dp TrainStep over a
+   mesh of the group's one rank, losses and weights bit for bit those
+   of today's single-device TrainStep in the same process, step ms of
+   both; (2) two ranks sharing the card over gloo, 4 rows each of the
+   same batch: losses and weights within tests/test_torch_train_step.py's
+   fp32 tolerance of part 1's single-device run, bit for bit across the
+   ranks, step ms and K1/K2/K3 launches per rank; then
+   ``deterministic_reduction=True``, its ranks bit for bit; which
+   collectives gloo takes on CUDA tensors there (one call each); and
+   ``ring_self_attention`` over the two ranks on CUDA q/k/v (causal, T
+   2048) against ``blockwise_attention`` on one rank, forward and
+   gradients, its blocks staged through the host and counted; (3)
+   ``-n 2 -s 1``: two workers train ResNet-50 v1 b32 (fp32, TF32 off)
+   through ``gluon.Trainer(kvstore="dist_sync")`` (SGD lr 0.025, momentum
+   0.9, wd 1e-4; 2 warmup steps, 10 timed; ``DIST_RESNET``), with the
+   scheduler and server on the host:
+   img/s summed, push ms, pull ms, the server's apply ms and the MB
+   pushed per step; the workers' pulled weights bit for bit after every
+   step and the loss falling; then ``Module.fit`` over the exported net
+   with the same store, 2 batches, its weights bit for bit across the
+   workers. One JSON line per part, with the card's name and power
+   limit. Labelled one card, N ranks: never a multi-card figure.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -5086,6 +5113,645 @@ def phase_model_zoo(card_line, resnet_img_s):
     return result
 
 
+
+# -- phase 19: distribution ----------------------------------------------------
+
+DIST_ATTN = {"units": 1024, "heads": 16, "batch": 8, "seq": 2048, "steps": 5,
+             "det_steps": 2, "opt": {"learning_rate": 10.0, "momentum": 0.9}}
+# SGD at the linear-scaling rate of the global batch (0.1 per 256 images,
+# Goyal et al.; 2 x 32 = 64). At phase 11's lr 0.1 this random-label batch
+# of 64 diverged; `_dist_plain_witness` trains the same batch from the
+# same weights in plain PyTorch at that rate and at `WITNESS_RATES`.
+DIST_RESNET = {"batch": 32, "image": 224, "warmup": 2, "steps": 10,
+               "module_batches": 2, "opt": {"learning_rate": 0.025, "momentum": 0.9, "wd": 1e-4}}
+# The plain witness's rates: part 3's, half and twice it (a worker's
+# gradient counted twice or half as often would follow one of those),
+# and phase 11's.
+WITNESS_RATES = (0.0125, 0.025, 0.05, 0.1)
+DIST_TIMEOUT = 300      # seconds a part's ranks may run
+
+
+def _dist_result(payload):
+    """A rank's result: one line its launcher parses."""
+    print("DIST_RESULT " + json.dumps(payload), flush=True)
+
+
+def _dist_attention(mx):
+    """The attention layer of PERF.md §4 on gpu(0), from SEED, and its
+    fixed batch (numpy)."""
+    from mxnet_tpu_torch.examples.attention_layer import SelfAttention
+
+    c = DIST_ATTN
+    mx.random.seed(SEED)
+    net = SelfAttention(c["units"], heads=c["heads"])
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rng = np.random.default_rng(SEED)
+    shape = (c["batch"], c["seq"], c["units"])
+    x = rng.standard_normal(shape, dtype=np.float32)
+    y = rng.standard_normal(shape, dtype=np.float32)
+    return net, x, y
+
+
+def _dist_steps(step, x, y, steps):
+    """(losses, step ms): each step's loss read on the host."""
+    xs, ys = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(xs, ys)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _dist_state(step, net):
+    from mxnet_tpu_torch.gluon.utils import relative_names
+
+    params = step.state_to_host()[0]
+    rel = relative_names(list(params), net.prefix)
+    return {rel[n]: v for n, v in params.items()}
+
+
+def _dist_part_nccl1(outdir):
+    """Part 1, one rank: NCCL at world size 1. The dp TrainStep over a
+    mesh of the group's one rank against today's single-device step."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep, dist, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(dist.initialize(backend="nccl"), "no NCCL group was formed")
+    check(dist.backend() == "nccl" and dist.num_processes() == 1,
+          "group %s of %d" % (dist.backend(), dist.num_processes()))
+    c = DIST_ATTN
+    out = {"part": "nccl_world_size_1"}
+    runs = {}
+    for tag, mesh in (("dp", make_mesh({"dp": 1})),
+                      ("single", make_mesh({"dp": 1},
+                                           devices=[mx.gpu(0)]))):
+        net, x, y = _dist_attention(mx)
+        step = TrainStep(net, gluon.loss.L2Loss(), "sgd", dict(c["opt"]),
+                         mesh=mesh)
+        check((step._dp_group is not None) == (tag == "dp"),
+              "%s step: dp group %r" % (tag, step._dp_group))
+        _reset_launches()       # this run's path starts here
+        losses, ms = _dist_steps(step, x, y, c["steps"])
+        launches = _launches()  # read just after it
+        runs[tag] = (losses, _dist_state(step, net))
+        out[tag] = {"losses": losses, "step_ms": ms,
+                    "step_ms_median": float(np.median(ms[1:])),
+                    "launches": launches}
+    same = runs["dp"][0] == runs["single"][0] and all(
+        np.array_equal(runs["dp"][1][k], v)
+        for k, v in runs["single"][1].items())
+    out["bit_for_bit"] = bool(same)
+    np.savez(os.path.join(outdir, "single.npz"),
+             losses=np.array(runs["single"][0]),
+             **{"p:" + k: v for k, v in runs["single"][1].items()})
+    _dist_result(out)
+    check(same, "the dp step at world size 1 is not the single-device "
+          "step bit for bit")
+
+
+def _dist_part_gloo2(outdir):
+    """Part 2, two ranks on the one card over gloo: the dp TrainStep,
+    4 rows a rank of part 1's batch of 8; then deterministic_reduction."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep, dist, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(dist.initialize(backend="gloo", platform="gpu"),
+          "no gloo group was formed")
+    r = dist.rank()
+    c = DIST_ATTN
+    lo, hi = dist.local_slice(c["batch"])
+    out = {"part": "gloo_two_ranks_one_card", "rank": r}
+    for tag, kw, steps in (("dp", {}, c["steps"]),
+                           ("det", {"deterministic_reduction": True},
+                            c["det_steps"])):
+        net, x, y = _dist_attention(mx)
+        step = TrainStep(net, gluon.loss.L2Loss(), "sgd", dict(c["opt"]),
+                         mesh=make_mesh({"dp": -1}), **kw)
+        _reset_launches()       # this run's path starts here
+        losses, ms = _dist_steps(step, x[lo:hi], y[lo:hi], steps)
+        launches = _launches()  # read just after it
+        state = _dist_state(step, net)
+        np.savez(os.path.join(outdir, "%s_r%d.npz" % (tag, r)),
+                 losses=np.array(losses),
+                 **{"p:" + k: v for k, v in state.items()})
+        out[tag] = {"losses": losses, "step_ms": ms,
+                    "step_ms_median": float(np.median(ms[1:])),
+                    "launches": launches}
+    out["gloo_on_cuda"] = _gloo_cuda_probe()
+    out["ring"] = _dist_ring_on_card(mx)
+    _dist_result(out)
+
+
+def _gloo_cuda_probe():
+    """Which collectives this gloo group takes on CUDA tensors: each op
+    once on a small tensor of the card, "ok" or the error's first line
+    (an op that raises on one rank raises on both: they meet at the
+    barrier after it)."""
+    import torch.distributed as tdist
+
+    r, n = tdist.get_rank(), tdist.get_world_size()
+    t = torch.full((4,), float(r + 1), device="cuda")
+    ops = {
+        "all_reduce": lambda: tdist.all_reduce(t.clone()),
+        "broadcast": lambda: tdist.broadcast(t.clone(), src=0),
+        "all_gather": lambda: tdist.all_gather(
+            [torch.empty_like(t) for _ in range(n)], t),
+        "reduce_scatter": lambda: tdist.reduce_scatter(
+            torch.empty_like(t), [t.clone() for _ in range(n)]),
+    }
+    # Not probed: point-to-point send/recv of a CUDA tensor, which
+    # aborted the process on this machine (gloo::IoException, writev:
+    # Bad address); ring attention stages its blocks through the host.
+    got = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            got[name] = "ok"
+        except Exception as exc:   # noqa: BLE001 — the reading itself
+            got[name] = "%s: %s" % (type(exc).__name__,
+                                    str(exc).splitlines()[0][:160])
+        # A refused op may leave the peers at different points: meet.
+        tdist.barrier()
+    return got
+
+
+def _dist_ring_on_card(mx):
+    """ring_self_attention over the two ranks' sp mesh on CUDA q/k/v
+    (B 1, H 16, T 2048, D 64, causal): forward and gradients against
+    blockwise_attention on one rank; the gloo route stages each block
+    through the host and counts it."""
+    import importlib
+
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    ra = importlib.import_module("mxnet_tpu_torch.parallel.ring_attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((1, 16, 2048, 64), generator=gen, device="cuda")
+               .requires_grad_(True) for _ in range(3))
+    mesh = make_mesh({"sp": -1})
+    staged0 = ra.HOST_STAGED
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ra.ring_self_attention(mesh, q, k, v, causal=True)
+    grads = torch.autograd.grad((out ** 2).mean(), (q, k, v))
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    want = ra.blockwise_attention(q, k, v, block=256, causal=True)
+    wgrads = torch.autograd.grad((want ** 2).mean(), (q, k, v))
+    err = max(float(((a - b).abs() / (2e-5 + 2e-4 * b.abs())).max())
+              for a, b in [(out, want)] + list(zip(grads, wgrads)))
+    check(err <= 1.0, "ring attention on the card: %.3g of the tolerance"
+          % err)
+    return {"shape": [1, 16, 2048, 64], "ms_forward_backward": ring_ms,
+            "share_of_tolerance": err,
+            "host_staged_messages": ra.HOST_STAGED - staged0}
+
+
+def _dist_part_kvstore(outdir, lr=None):
+    """Part 3, a worker of `-n 2 -s 1`: ResNet-50 v1 b32 (fp32, TF32
+    off) through gluon.Trainer(kvstore="dist_sync"); then Module.fit
+    over the exported net in the same group. `lr` replaces the SGD
+    rate (`probe_dist_rate`)."""
+    import hashlib
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = DIST_RESNET
+    opt = dict(c["opt"], **({"learning_rate": lr} if lr else {}))
+    kv = mx.kv.create("dist_sync")
+    r, nw = kv.rank, kv.num_workers
+    net = _resnet50()
+    if r == 0:
+        # The weights the store starts from, for the plain witness.
+        np.savez(os.path.join(outdir, "resnet_init.npz"), *[
+            p.data()._data.detach().cpu().numpy() for p in _trainable(net)])
+    rng = np.random.RandomState(SEED + r)
+    px = c["image"]
+    x = mx.nd.array(rng.rand(c["batch"], 3, px, px).astype(np.float32),
+                    ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, c["batch"]).astype(np.float32),
+                    ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(opt),
+                            kvstore=kv)
+    wire = {"push_s": 0.0, "pull_s": 0.0, "push_bytes": 0}
+    push, pull = kv.push, kv.pull
+
+    def timed_push(key, value, priority=0):
+        vals = value if isinstance(value, (list, tuple)) else [value]
+        wire["push_bytes"] += vals[0].size * vals[0]._data.element_size()
+        t0 = time.perf_counter()
+        push(key, value, priority)
+        wire["push_s"] += time.perf_counter() - t0
+
+    def timed_pull(key, out=None, priority=0, ignore_sparse=True):
+        t0 = time.perf_counter()
+        pull(key, out=out, priority=priority)
+        wire["pull_s"] += time.perf_counter() - t0
+
+    kv.push, kv.pull = timed_push, timed_pull
+
+    def digest(n):
+        # The pulled weights: the trainable parameters. BatchNorm's
+        # running statistics stay each worker's own, as in the
+        # reference's dist training.
+        h = hashlib.sha256()
+        for p in _trainable(n):
+            h.update(p.data()._data.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    losses, digests, step_s, apply_s = [], [], [], []
+    for i in range(c["warmup"] + c["steps"]):
+        if i == c["warmup"]:
+            for k in ("push_s", "pull_s", "push_bytes"):
+                wire[k] = 0
+        a0 = sum(s["apply_seconds"] for s in kv.server_stats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _record_and_backward(net, x, y)
+        trainer.step(c["batch"] * nw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(loss.mean().asnumpy()))
+        digests.append(digest(net))
+        if i >= c["warmup"]:
+            step_s.append(dt)
+            apply_s.append(sum(s["apply_seconds"]
+                               for s in kv.server_stats()) - a0)
+    check(trainer._update_on_kvstore and trainer._uokv_bucketed,
+          "the dist Trainer did not update on the store's buckets")
+    n = c["steps"]
+    out = {"part": "dist_sync_trainer", "rank": r,
+           "img_s": c["batch"] * n / sum(step_s),
+           "step_ms": [s * 1e3 for s in step_s],
+           "push_ms_per_step": wire["push_s"] * 1e3 / n,
+           "pull_ms_per_step": wire["pull_s"] * 1e3 / n,
+           "server_apply_ms_per_step": float(np.mean(apply_s)) * 1e3,
+           "push_mb_per_step": wire["push_bytes"] / n / 1e6,
+           "losses": losses, "digests": digests,
+           "buckets": len(trainer._bucketer)}
+    # Module.fit over the exported net, in the same group.
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        sym, arg, aux = _module_symbol(net, td)
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        b = c["batch"]
+        it = mx.io.NDArrayIter(
+            rng.rand(b * c["module_batches"], 3, px, px).astype(
+                np.float32),
+            rng.randint(0, 1000, b * c["module_batches"]).astype(
+                np.float32), batch_size=b, label_name="softmax_label",
+            ctx=mx.gpu(0))
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, kvstore=kv, optimizer="sgd",
+                optimizer_params=dict(opt), arg_params=arg,
+                aux_params=aux)
+        torch.cuda.synchronize()
+        out["module_fit_s"] = time.perf_counter() - t0
+        check(mod._update_on_kvstore and mod._kvstore is kv,
+              "Module.fit did not update on the dist store")
+        h = hashlib.sha256()
+        for k, v in sorted(mod.get_params()[0].items()):
+            h.update(v.asnumpy().tobytes())
+        out["module_digest"] = h.hexdigest()
+    kv.push, kv.pull = push, pull
+    _dist_result(out)
+    kv.close()
+    # The launcher kills every role once the workers are gone: wait for
+    # the scheduler's and the servers' records (`_dist_role_record`).
+    deadline = time.time() + 60
+    want = {"scheduler": 1, "server": int(os.environ["DMLC_NUM_SERVER"])}
+    while time.time() < deadline and any(
+            len(v) < want[k] for k, v in _dist_role_records(outdir).items()):
+        time.sleep(0.1)
+
+
+def _dist_role_record(outdir):
+    """In a scheduler or server of part 3 (whose loop runs inside
+    `import mxnet_tpu_torch` and exits): record at exit whether the
+    process initialised CUDA. It must not have."""
+    import atexit
+    import os
+
+    role = os.environ.get("DMLC_ROLE", "")
+    if role not in ("scheduler", "server"):
+        return
+    path = os.path.join(outdir, "cuda_%s_%d.txt" % (role, os.getpid()))
+
+    def record():
+        with open(path + ".tmp", "w") as f:
+            f.write(str(torch.cuda.is_initialized()))
+        os.replace(path + ".tmp", path)
+
+    atexit.register(record)
+
+
+def _dist_role_records(outdir):
+    """{"scheduler": [initialised, ...], "server": [...]} as recorded."""
+    import glob
+    import os
+
+    got = {"scheduler": [], "server": []}
+    for path in sorted(glob.glob(os.path.join(outdir, "cuda_*.txt"))):
+        role = os.path.basename(path).split("_")[1]
+        with open(path) as f:
+            got[role].append(f.read() == "True")
+    return got
+
+
+def _plain_resnet50_v1(params, x):
+    """ResNet-50 v1 as the model zoo builds it (stride on the 3x3),
+    written in plain torch.nn.functional with train-mode BatchNorm over
+    the batch (epsilon 1e-5). `params`: the gluon net's trainable
+    parameters in registration order."""
+    it = iter(params)
+
+    def conv(h, stride=1, pad=0):
+        return F.conv2d(h, next(it), stride=stride, padding=pad)
+
+    def bn(h):
+        gamma, beta = next(it), next(it)
+        return F.batch_norm(h, None, None, gamma, beta, training=True,
+                            eps=1e-5)
+
+    h = F.max_pool2d(F.relu(bn(conv(x, 2, 3))), 3, 2, 1)
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for i in range(blocks):
+            stride = 2 if stage and not i else 1
+            y = F.relu(bn(conv(h)))
+            y = F.relu(bn(conv(y, stride, 1)))
+            y = bn(conv(y))
+            if not i:
+                h = bn(conv(h, stride))
+            h = F.relu(y + h)
+    logits = F.linear(h.mean((2, 3)), next(it), next(it))
+    check(next(it, None) is None, "plain ResNet-50: parameters left over")
+    return logits
+
+
+def _dist_plain_witness(outdir, rates):
+    """Part 3's training in plain PyTorch, independent of the port: the
+    two workers' batches (each its own BatchNorm statistics), the
+    gradient of their summed loss over the global batch, and the SGD
+    momentum update the servers run, from the weights rank 0 started
+    from. Returns {rate: rank 0's losses}."""
+    import os
+
+    c, opt = DIST_RESNET, DIST_RESNET["opt"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init = np.load(os.path.join(outdir, "resnet_init.npz"))
+    data = []
+    for r in range(2):
+        rng = np.random.RandomState(SEED + r)
+        x = rng.rand(c["batch"], 3, c["image"], c["image"]).astype(
+            np.float32)
+        y = rng.randint(0, 1000, c["batch"])
+        data.append((torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()))
+    got = {}
+    for lr in rates:
+        ws = [torch.from_numpy(init["arr_%d" % i]).cuda().requires_grad_()
+              for i in range(len(init.files))]
+        moms = [torch.zeros_like(w) for w in ws]
+        losses = []
+        for _ in range(c["warmup"] + c["steps"]):
+            total = 0.0
+            for r, (x, y) in enumerate(data):
+                loss = F.cross_entropy(_plain_resnet50_v1(ws, x), y,
+                                       reduction="none")
+                if r == 0:
+                    losses.append(float(loss.detach().mean()))
+                total = total + loss.sum()
+            grads = torch.autograd.grad(total, ws)
+            with torch.no_grad():
+                for w, g, m in zip(ws, grads, moms):
+                    m.mul_(opt["momentum"]).sub_(
+                        lr * (g / (2 * c["batch"]) + opt["wd"] * w))
+                    w.add_(m)
+        got[lr] = losses
+    return got
+
+
+_DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
+               "kvstore": _dist_part_kvstore}
+
+
+def _dist_launch(part, workers, servers, outdir, extra=()):
+    """Run `part` as `workers` ranks (and a scheduler with `servers`
+    servers) through the port's launcher; returns each worker's result.
+    A rank that fails fails the phase."""
+    import os
+
+    from mxnet_tpu_torch.parallel.launch import launch_local
+
+    cmd = [sys.executable, os.path.abspath(__file__), "--dist-part", part,
+           "--dist-dir", outdir] + list(extra)
+    codes, outs = launch_local(workers, servers, cmd, timeout=DIST_TIMEOUT,
+                               capture=True)
+    errs = "\n".join("--- worker %d ---\n%s" % (i, err[-4000:])
+                     for i, (_, err) in enumerate(outs))
+    check(codes == [0] * workers, "phase 19 part %s: worker exit codes %s\n"
+          "%s" % (part, codes, errs))
+    results = []
+    for so, _ in outs:
+        lines = [ln[len("DIST_RESULT "):] for ln in so.splitlines()
+                 if ln.startswith("DIST_RESULT ")]
+        check(len(lines) == 1, "phase 19 part %s: a worker printed %d "
+              "results\n%s" % (part, len(lines), errs))
+        results.append(json.loads(lines[0]))
+    return results
+
+
+def _dist_close(got, want, rtol, atol_frac):
+    worst = 0.0
+    for k, w in want.items():
+        atol = atol_frac * max(float(np.abs(w).max()), 1e-6)
+        worst = max(worst, float((np.abs(got[k] - w) /
+                                  (atol + rtol * np.abs(w))).max()))
+    return worst
+
+
+def _dist_run_kvstore(outdir, card_line, t_phase):
+    """Part 3: dist_sync through the parameter server, and its checks."""
+    p3 = _dist_launch("kvstore", 2, 1, outdir)
+    line3 = {"part": "dist_sync_trainer", "card": card_line,
+             "network": "resnet50_v1", "batch_per_worker":
+             DIST_RESNET["batch"], "dtype": "float32",
+             "img_s_summed": sum(p["img_s"] for p in p3),
+             "img_s_per_worker": [p["img_s"] for p in p3]}
+    for k in ("push_ms_per_step", "pull_ms_per_step",
+              "server_apply_ms_per_step", "push_mb_per_step"):
+        line3[k] = [p[k] for p in p3]
+    line3["buckets"] = p3[0]["buckets"]
+    # Rank 0's losses (the workers' results come in launch order; a
+    # rank is the scheduler's registration order).
+    ported = next(p for p in p3 if p["rank"] == 0)["losses"]
+    line3["losses"] = ported
+    line3["module_fit_s"] = [p["module_fit_s"] for p in p3]
+    same = p3[0]["digests"] == p3[1]["digests"]
+    line3["workers_bit_for_bit_every_step"] = same
+    line3["module_workers_bit_for_bit"] = \
+        p3[0]["module_digest"] == p3[1]["module_digest"]
+    roles = _dist_role_records(outdir)
+    line3["cuda_initialised_in"] = roles
+    t0 = time.perf_counter()
+    plain = _dist_plain_witness(outdir, WITNESS_RATES)
+    lr = DIST_RESNET["opt"]["learning_rate"]
+    # One update from the same weights and batch: before ReLU kinks and
+    # fp32 rounding (each a few percent of a ResNet-50 update) compound.
+    gap1 = {str(k): abs(v[1] - ported[1]) for k, v in plain.items()}
+    line3["witness"] = {
+        "plain_losses": {str(k): v for k, v in plain.items()},
+        "step1_abs_gap_to_rank0": gap1,
+        "step1_gap_share_of_drop": gap1[str(lr)] / (plain[lr][0] -
+                                                    plain[lr][1]),
+        "max_abs_gap_to_rank0": {
+            str(k): float(np.max(np.abs(np.subtract(v, ported))))
+            for k, v in plain.items()},
+        "step0_rel_err": abs(plain[lr][0] - ported[0]) / ported[0],
+        "falls": {str(k): v[-1] < v[DIST_RESNET["warmup"]]
+                  for k, v in plain.items()},
+        "seconds": time.perf_counter() - t0}
+    line3["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(line3))
+    check(same, "part 3: the workers' pulled weights differ")
+    check(line3["module_workers_bit_for_bit"],
+          "part 3: the workers' Module weights differ")
+    warm = DIST_RESNET["warmup"]
+    check(ported[-1] < ported[warm],
+          "part 3: the loss did not fall: %s" % ported)
+    check(len(roles["scheduler"]) == 1 and len(roles["server"]) == 1,
+          "part 3: the scheduler and the server did not both record "
+          "their CUDA state at exit: %s" % roles)
+    check(not any(roles["scheduler"] + roles["server"]),
+          "part 3: a scheduler or server process initialised CUDA: %s"
+          % roles)
+    # The same weights and batch: the first loss is one forward apart.
+    check(line3["witness"]["step0_rel_err"] <= 1e-4,
+          "part 3: the first loss %.7g against the plain witness's "
+          "%.7g" % (ported[0], plain[lr][0]))
+    # The first update is the plain one at part 3's rate, not at half or
+    # twice it.
+    check(min(gap1, key=gap1.get) == str(lr),
+          "part 3: the first update follows the plain witness at another "
+          "rate: step-1 loss gaps %s" % gap1)
+
+
+def probe_dist_rate(card_line, lr):
+    """Part 3 at SGD rate `lr` beside the plain witness at that rate,
+    with no check that the loss falls: how the port and plain PyTorch
+    train where the rate is too high for the batch. Not run by main():
+    `python3 -c "import chip_smoke as c; c.probe_dist_rate(
+    c.phase_device(), 0.1)"`."""
+    import shutil
+    import tempfile
+
+    outdir = tempfile.mkdtemp(prefix="phase19_probe_")
+    try:
+        p3 = _dist_launch("kvstore", 2, 1, outdir, ["--dist-lr", repr(lr)])
+        line = {"part": "dist_sync_rate_probe", "card": card_line,
+                "learning_rate": lr,
+                "rank0_losses": next(p for p in p3
+                                     if p["rank"] == 0)["losses"],
+                "plain_losses": _dist_plain_witness(outdir, (lr,))[lr],
+                "workers_bit_for_bit_every_step":
+                    p3[0]["digests"] == p3[1]["digests"]}
+        log(json.dumps(line))
+        check(line["workers_bit_for_bit_every_step"],
+              "probe: the workers' pulled weights differ")
+        return line
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def phase_distributed(card_line):
+    """Phase 19: the ranks run in child processes of the port's
+    launcher, so this process never joins a group."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="phase19_")
+    try:
+        # Part 1: NCCL at world size 1.
+        p1 = _dist_launch("nccl1", 1, 0, outdir)[0]
+        p1["card"] = card_line
+        p1["dp_overhead_ms"] = p1["dp"]["step_ms_median"] - \
+            p1["single"]["step_ms_median"]
+        log(json.dumps(p1))
+        check(p1["bit_for_bit"], "part 1: not bit for bit")
+        check(tuple(p1["dp"]["launches"]) == (DIST_ATTN["steps"],) * 3,
+              "part 1: K1/K2/K3 launches %s on the dp path, not once a "
+              "step each" % (p1["dp"]["launches"],))
+        # Part 2: two ranks sharing the card over gloo.
+        p2 = _dist_launch("gloo2", 2, 0, outdir)
+        ref = np.load(outdir + "/single.npz")
+        want = {k[2:]: ref[k] for k in ref.files if k.startswith("p:")}
+        st = [np.load(outdir + "/dp_r%d.npz" % r) for r in range(2)]
+        det = [np.load(outdir + "/det_r%d.npz" % r) for r in range(2)]
+        ranks_equal = all(np.array_equal(st[0][k], st[1][k])
+                          for k in st[0].files)
+        det_equal = all(np.array_equal(det[0][k], det[1][k])
+                        for k in det[0].files)
+        loss_err = float(np.max(np.abs(st[0]["losses"] - ref["losses"]) /
+                                (1e-6 + 1e-5 * np.abs(ref["losses"]))))
+        state_share = _dist_close({k[2:]: st[0][k] for k in st[0].files
+                                   if k.startswith("p:")}, want, 1e-5, 1e-4)
+        line2 = {"part": "gloo_two_ranks_one_card", "card": card_line,
+                 "step_ms_median_per_rank": [p["dp"]["step_ms_median"]
+                                             for p in p2],
+                 "step_ms_vs_part1_dp": p2[0]["dp"]["step_ms_median"] /
+                 p1["dp"]["step_ms_median"],
+                 "launches_per_rank": [p["dp"]["launches"] for p in p2],
+                 "det_launches_per_rank": [p["det"]["launches"] for p in p2],
+                 "losses": p2[0]["dp"]["losses"],
+                 "loss_share_of_tolerance": loss_err,
+                 "state_share_of_tolerance": state_share,
+                 "ranks_bit_for_bit": ranks_equal,
+                 "deterministic_ranks_bit_for_bit": det_equal,
+                 "deterministic_losses": p2[0]["det"]["losses"],
+                 "gloo_on_cuda_per_rank": [p["gloo_on_cuda"] for p in p2],
+                 "ring_attention_per_rank": [p["ring"] for p in p2]}
+        log(json.dumps(line2))
+        check(ranks_equal, "part 2: the two ranks' weights differ")
+        check(loss_err <= 1.0 and state_share <= 1.0,
+              "part 2 against part 1's single-device run: loss %.3g, state "
+              "%.3g of the tolerance" % (loss_err, state_share))
+        for p in p2:
+            check(tuple(p["dp"]["launches"]) == (DIST_ATTN["steps"],) * 3,
+                  "part 2: K1/K2/K3 launches %s per rank"
+                  % (p["dp"]["launches"],))
+            check(p["gloo_on_cuda"]["all_reduce"] == "ok",
+                  "part 2: gloo refused all_reduce on CUDA tensors")
+            check(p["ring"]["host_staged_messages"] > 0,
+                  "part 2: the gloo ring did not stage through the host")
+        # Part 3: dist_sync through the parameter server.
+        _dist_run_kvstore(outdir, card_line, t_phase)
+        return {"k1_k2_k3_nccl1": p1["dp"]["launches"],
+                "k1_k2_k3_gloo2": [sum(x) for x in zip(
+                    *[p["dp"]["launches"] for p in p2]
+                    + [p["det"]["launches"] for p in p2])]}
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
 def main():
     t_start = time.perf_counter()
     card_line = phase_device()
@@ -5108,6 +5774,7 @@ def main():
     recurrent = phase_recurrent(card_line)
     core = phase_core_surface(card_line, trainer["fp32"]["img_s_b32"])
     zoo = phase_model_zoo(card_line, synthetic["fp32"]["img_s_b32"])
+    distributed = phase_distributed(card_line)
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -5137,6 +5804,13 @@ def main():
                                      "resnet50_trained": 0,
                                      "attention_trainer": m,
                                      "resnet50_trainer": 0}
+    # Phase 19's dp TrainStep paths (the ranks' own counts: part 1's
+    # one rank, part 2's two ranks summed, deterministic run included).
+    for i, entry in enumerate((fwd, dkv, dq)):
+        for path in ("nccl1", "gloo2"):
+            n = distributed["k1_k2_k3_" + path][i]
+            entry["launches_by_path"]["distributed_" + path] = n
+            entry["launches"] += n
     rtc_list = [rtc_entries[k] for k in ("k4", "bn_relu", "scale_add",
                                          "relu")]
     # The input pipeline's (phase 13), the checkpoint's (14), the
@@ -5168,6 +5842,16 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--dist-part" in sys.argv:
+        # A rank of phase 19 (or a scheduler/server of its part 3, whose
+        # loop runs inside this import and never returns).
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        _dist_role_record(args["--dist-dir"])
+        import mxnet_tpu_torch  # noqa: F401
+
+        kw = {"lr": float(args["--dist-lr"])} if "--dist-lr" in args else {}
+        _DIST_PARTS[args["--dist-part"]](args["--dist-dir"], **kw)
+        sys.exit(0)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it drives mxnet_tpu_torch on "
               "an NVIDIA GPU", file=sys.stderr)

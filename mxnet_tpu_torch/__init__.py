@@ -48,6 +48,8 @@ _LAZY = {
     "callback": ".callback",
     "kvstore": ".kvstore",
     "kv": ".kvstore",
+    "kvstore_dist": ".kvstore_dist",
+    "kvstore_server": ".kvstore_server",
     "gradient_compression": ".gradient_compression",
     "fused_update": ".fused_update",
     "telemetry": ".telemetry",
@@ -82,3 +84,15 @@ def __getattr__(attr):
 
 def waitall():
     ndarray.waitall()
+
+
+# A process launched with DMLC_ROLE=server/scheduler runs the blocking
+# parameter-server loop here and never returns to the user script, as in
+# the reference's python/mxnet/kvstore_server.py bootstrap. Nothing
+# imported above touches CUDA.
+import os as _os
+
+if _os.environ.get("DMLC_ROLE", "").lower() in ("server", "scheduler"):
+    from .kvstore_server import _init_kvstore_server_module
+
+    _init_kvstore_server_module()

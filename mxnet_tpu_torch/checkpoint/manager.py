@@ -43,9 +43,10 @@ What differs from the JAX package, and why:
   payloads, which is what the JAX package writes through ``ml_dtypes``.
   The port has no ``ml_dtypes``; a restored bfloat16 leaf comes back as
   a CPU ``torch.bfloat16`` tensor (every other array leaf as numpy).
-* ``process_index``/``process_count`` default to 0/1: the port's
-  ``parallel.dist`` is ROADMAP Queue 1 item 7. Sharded saves work with
-  explicit indices over one shared directory.
+* ``process_index``/``process_count`` default from ``parallel.dist``
+  when a group is formed, else 0/1, as in the JAX package. Sharded saves
+  of non-replicated state are ROADMAP Queue 1 item 7b; a dp step's state
+  is replicated.
 
 The format is the JAX package's: the ``manifest.json`` keys, ``_FORMAT``
 (the string names the format, not the package), the shard file names
@@ -331,7 +332,8 @@ class CheckpointManager:
     max_retries : int — transient-IO retry budget per save (exponential
         backoff, base ``retry_backoff`` seconds).
     process_index / process_count : the writer's identity among the
-        processes of one save (default 0/1; only process 0 stitches
+        processes of one save (default: ``parallel.dist``'s rank and
+        size when a group is formed, else 0/1; only process 0 stitches
         manifests, commits, and GCs).
     stitch_timeout : float — how long process 0 waits for the other
         processes' part-manifests before declaring the save failed.
@@ -351,6 +353,14 @@ class CheckpointManager:
                  max_retries=3, retry_backoff=0.05,
                  process_index=None, process_count=None,
                  stitch_timeout=60.0, fsync="commit", max_pending=2):
+        if process_index is None or process_count is None:
+            from ..parallel import dist
+
+            if dist.is_initialized():
+                if process_index is None:
+                    process_index = dist.rank()
+                if process_count is None:
+                    process_count = dist.num_processes()
         self.process_index = int(process_index or 0)
         self.process_count = int(process_count or 1)
         self.directory = str(directory)

@@ -130,9 +130,8 @@ class DataPipeline:
         own local batch; with N ranks the global batch is N * this).
     shuffle / seed : per-epoch deterministic shuffle (identical on
         every rank — the shard partition depends on it).
-    num_shards / shard_index : default 1 and 0 (one process; the JAX
-        package's ``parallel.dist`` defaults are ROADMAP Queue 1 item
-        7), overridable.
+    num_shards / shard_index : default from ``parallel.dist``: one shard
+        per process, this process taking its rank's; overridable.
     decode_threads : decode-pool size (0/1 = decode inline).
     ordered : decode delivery mode (see DecodePool; unordered delivery
         is faster under skew but drops the resume guarantee).

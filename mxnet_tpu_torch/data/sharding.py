@@ -31,13 +31,18 @@ __all__ = ["epoch_order", "shard_indices", "shard_slice", "num_padded",
 
 
 def resolve_shards(num_shards=None, shard_index=None):
-    """Default shard geometry: the JAX package takes one shard per
-    ``parallel.dist`` process; until the port has ``parallel.dist``
-    (ROADMAP Queue 1 item 7) the defaults are one shard, index 0.
-    Explicit values work. The single policy point for every pipeline
-    entry surface."""
-    return (1 if num_shards is None else int(num_shards),
-            0 if shard_index is None else int(shard_index))
+    """Default shard geometry from the process group: one shard per
+    ``parallel.dist`` process, this process taking its rank's shard
+    (one shard, index 0, without a group). The single policy point for
+    every pipeline entry surface."""
+    if num_shards is None or shard_index is None:
+        from ..parallel import dist
+
+        if num_shards is None:
+            num_shards = dist.num_processes()
+        if shard_index is None:
+            shard_index = dist.rank()
+    return int(num_shards), int(shard_index)
 
 
 def epoch_order(n, epoch=0, seed=0, shuffle=True):

@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/env.py`` (reference: docs/faq/env_var.md):
 one table of the ``MXNET_*`` knobs this package reads, with type,
 default and where each acts; :func:`get` reads a knob with its type and
 :func:`describe` renders the table. The port keeps only the knobs its
-modules read; the JAX package's kvstore-server, gateway, compile-cache
-and dist knobs come with the modules that read them (ROADMAP Queue 1).
+modules read; the JAX package's gateway and compile-cache knobs come
+with the modules that read them (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -31,9 +31,9 @@ CATALOGUE = [
          "size of one fused-apply chunk of a (device, dtype) group",
          False),
     Knob("MXNET_FUSED_OVERLAP_DEPTH", int, 2, "gluon/trainer.py",
-         "comm/compute overlap window of the multi-context fused step "
-         "(ROADMAP Queue 1 item 7; a single-context Trainer reduces "
-         "nothing and ignores it)", False),
+         "comm/compute overlap window of the multi-context or dist fused "
+         "step (0 = serial; a single-context Trainer reduces nothing and "
+         "ignores it)", False),
     Knob("MXNET_FUSED_DONATE", str, "auto", "fused_update.py",
          "accepted for scripts of the JAX package: the port's fused "
          "apply updates its flat buffers in place, so there is nothing "
@@ -57,6 +57,58 @@ CATALOGUE = [
     Knob("MXNET_TRACE_SAMPLE", float, 1.0, "telemetry/xtrace.py",
          "head-based trace sampling probability in [0, 1], decided once "
          "per root context", False),
+    Knob("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1000000, "kvstore_dist.py",
+         "dist kvstore: arrays >= this many elements shard across all "
+         "servers", False),
+    Knob("MXNET_KVSTORE_DEBUG", int, 0, "kvstore_server.py",
+         "verbose parameter-server tracing", False),
+    Knob("MXNET_PS_SNAPSHOT_DIR", str, "", "kvstore_server.py",
+         "server recovery: per-key shard snapshots live here", False),
+    Knob("MXNET_PS_SNAPSHOT_EVERY", int, 1, "kvstore_server.py",
+         "applies between optimizer-state meta snapshots", False),
+    Knob("MXNET_TPU_PS_TIMEOUT", float, 300.0, "kvstore_server.py",
+         "dist rendezvous/barrier timeout in seconds", False),
+    Knob("MXNET_TPU_PS_AUTHKEY", str, "mxnet_tpu_kvstore",
+         "kvstore_server.py", "dist transport auth key", False),
+    Knob("MXNET_TRACE_DIR", str, "", "kvstore_server.py",
+         "when set, kvstore server processes stream their trace "
+         "segments here (trace.rank<R>.<seq>.jsonl, server ranks "
+         "numbered past the workers)", False),
+    Knob("MXNET_PS_CC_BUFFER_MB", int, 256, "kvstore_server.py",
+         "kvstore server's compile-cache buffer bound (total bytes, "
+         "drop-oldest)", False),
+    Knob("MXNET_TPU_PS_HEARTBEAT", float, 5.0, "kvstore_dist.py",
+         "worker->scheduler liveness ping interval in seconds (feeds "
+         "get_dead_nodes)", False),
+    Knob("MXNET_PS_RECONNECT_TIMEOUT", float, 120.0, "kvstore_dist.py",
+         "how long a worker re-queries the scheduler for a restarted "
+         "server's new address before giving up", False),
+    Knob("MXNET_PS_DIAG_BUFFER", int, 16, "kvstore_server.py",
+         "kvstore server's flight-recorder bundle buffer bound (bundles "
+         "per rank, drop-oldest)", False),
+    Knob("DMLC_ROLE", str, "worker", "kvstore_server.py",
+         "process role: worker | server | scheduler (set by "
+         "parallel/launch.py)", False),
+    Knob("DMLC_PS_ROOT_URI", str, "127.0.0.1", "kvstore_server.py",
+         "scheduler host (the process group's rendezvous host when "
+         "-s 0)", False),
+    Knob("DMLC_PS_ROOT_PORT", int, 9091, "kvstore_server.py",
+         "scheduler port (the process group's rendezvous port when "
+         "-s 0)", False),
+    Knob("DMLC_NUM_WORKER", int, 1, "kvstore_server.py",
+         "worker count of the dist group", False),
+    Knob("DMLC_NUM_SERVER", int, 1, "kvstore_server.py",
+         "server count of the dist group", False),
+    Knob("DMLC_NODE_HOST", str, "127.0.0.1", "kvstore_server.py",
+         "address this server advertises to the scheduler", False),
+    Knob("DMLC_WORKER_ID", int, 0, "parallel/dist.py",
+         "this process's worker rank (set by parallel/launch.py)", False),
+    Knob("DMLC_WORKER_RECOVERY", str, "", "kvstore_dist.py",
+         "set on a restarted worker: rejoin the group as this rank "
+         "instead of rendezvousing fresh", False),
+    Knob("DMLC_SERVER_RECOVERY", str, "", "kvstore_server.py",
+         "set on a restarted server: reload per-key snapshots and "
+         "re-announce through the scheduler", False),
 ]
 
 _BY_NAME = {k.name: k for k in CATALOGUE}

@@ -24,6 +24,17 @@ epochs of at most ``--max-batches`` batches::
     python -m mxnet_tpu_torch.examples.train_imagenet --data-train x.rec \\
         --max-batches 50
 
+``--kv-store dist_sync`` (or ``dist_device_sync``/``dist_async``)
+trains through ``gluon.Trainer`` over the parameter-server store
+instead: each worker of a job started with ``parallel.launch -n N -s
+S`` trains on its own synthetic batch of ``--batch-size`` and the
+servers run SGD on the summed gradients (``--benchmark 1`` prints the
+worker's img/s)::
+
+    python -m mxnet_tpu_torch.parallel.launch -n 2 -s 1 \
+        python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1 \
+        --kv-store dist_sync
+
 It runs on ``gpu(0)`` unless ``--device cpu`` is given. Every network
 of the reference's factory is served (``_NETWORKS``); Inception-v3 takes
 ``--image-shape 3,299,299``::
@@ -114,6 +125,60 @@ def benchmark_rate(network="resnet50", batch=32, dtype=None, device=None,
     return sorted(rates)[len(rates) // 2]
 
 
+def trainer_rate(network="resnet50", batch=32, kvstore="dist_sync",
+                 device=None, image_shape=(3, 224, 224), iters=None,
+                 windows=5, warmup=2, num_classes=1000, lr=0.1,
+                 momentum=0.9, wd=1e-4):
+    """img/s of this worker through ``gluon.Trainer`` over `kvstore`,
+    on the windows of :func:`benchmark_rate`. ``trainer.step`` takes
+    the global batch (every worker's), so the server's SGD update is
+    that of the mean over the global batch."""
+    import torch
+
+    from .. import autograd, gluon
+    from .. import kvstore as kvs
+    from ..context import gpu
+
+    device = device if device is not None else gpu(0)
+    if iters is None:
+        iters = 16 if batch <= 32 else 10
+    kv = kvs.create(kvstore) if isinstance(kvstore, str) else kvstore
+    net = build_net(network, num_classes, ctx=device)
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(kv.rank)
+    with device:
+        x = gluon.utils.split_and_load(
+            rng.rand(batch, *image_shape).astype(np.float32), [device])[0]
+        y = gluon.utils.split_and_load(
+            rng.randint(0, num_classes, batch).astype(np.float32),
+            [device])[0]
+    with autograd.pause():
+        net(x)      # materialize the deferred shapes
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": lr, "momentum": momentum,
+                             "wd": wd}, kvstore=kv)
+
+    def one():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch * kv.num_workers)
+        return loss
+
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize() if device.device_type == "gpu" else None
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            loss = one()
+        float(loss.mean().asnumpy())  # completion proof
+        rates.append(batch * iters / (time.perf_counter() - t0))
+    return sorted(rates)[len(rates) // 2]
+
+
 def train_from_rec(step, data_train, batch_size, image_shape, num_epochs=1,
                    max_batches=0, ctx=None):
     """Train `step` on the records of `data_train` through
@@ -173,13 +238,33 @@ def main(argv=None):
                         help=".rec file for real training data")
     parser.add_argument("--num-epochs", type=int, default=1)
     parser.add_argument("--max-batches", type=int, default=0,
-                        help="stop an epoch early (0 = full epoch)")
+                        help="stop an epoch early (0 = full epoch); with "
+                        "--benchmark, the batches of each timed window "
+                        "(0 = 16 at batch <= 32, else 10)")
+    parser.add_argument("--kv-store", default="device",
+                        help="dist_sync/dist_device_sync/dist_async: train "
+                        "through gluon.Trainer over the parameter servers")
     args = parser.parse_args(argv)
     from ..context import cpu, gpu
 
     device = cpu() if args.device == "cpu" else gpu(0)
     shape = tuple(int(v) for v in args.image_shape.split(","))
     dtype = None if args.dtype == "float32" else args.dtype
+    if "dist" in args.kv_store:
+        if not args.benchmark:
+            raise SystemExit("--kv-store %s trains the synthetic benchmark: "
+                             "add --benchmark 1" % args.kv_store)
+        if dtype is not None:
+            raise SystemExit("--kv-store %s trains in float32"
+                             % args.kv_store)
+        rate = trainer_rate(args.network, args.batch_size, args.kv_store,
+                            device=device, image_shape=shape,
+                            iters=args.max_batches or None,
+                            num_classes=args.num_classes, lr=args.lr,
+                            momentum=args.mom, wd=args.wd)
+        print("benchmark: %s b%d float32 %s on %s: %.2f img/s (this worker)"
+              % (args.network, args.batch_size, args.kv_store, device, rate))
+        return rate
     if not args.benchmark:
         if not args.data_train:
             raise SystemExit("provide --data-train <file.rec> or "
@@ -195,6 +280,7 @@ def main(argv=None):
         return loss
     rate = benchmark_rate(args.network, args.batch_size, dtype,
                           device=device, image_shape=shape,
+                          iters=args.max_batches or None,
                           num_classes=args.num_classes, lr=args.lr,
                           momentum=args.mom, wd=args.wd)
     print("benchmark: %s b%d %s on %s: %.2f img/s"

@@ -4,8 +4,13 @@ Counterpart of ``examples/train_mnist.py`` (reference:
 example/image-classification/train_mnist.py + common/fit.py — the
 canonical symbolic training script: build a symbol, create a kvstore,
 ``Module.fit`` with metric and Speedometer callbacks), driving the port
-on one device: ``gpu(0)`` unless ``--cpu`` is given. Distributed
-training (``--kv-store dist_sync``) is ROADMAP Queue 1 item 7.
+on one device: ``gpu(0)`` unless ``--cpu`` is given. With ``--kv-store
+dist_sync`` (or ``dist_async``) each worker of a parameter-server job
+trains its shard of the data and the servers run the optimizer::
+
+    python -m mxnet_tpu_torch.parallel.launch -n 2 -s 1 \
+        python -m mxnet_tpu_torch.examples.train_mnist --synthetic --cpu \
+        --kv-store dist_sync
 
 With ``--synthetic`` (or when ``--data-dir`` holds no MNIST files) the
 script generates an MNIST-shaped synthetic classification set; nothing
@@ -66,7 +71,7 @@ def synthetic_arrays(num_examples, flat, seed=42):
     return X[:cut], y[:cut], X[cut:], y[cut:]
 
 
-def iters(mx, args, flat, ctx):
+def iters(mx, args, flat, ctx, num_parts=1, part_index=0):
     have_mnist = os.path.exists(os.path.join(
         args.data_dir, "train-images-idx3-ubyte"))
     if not args.synthetic and have_mnist:
@@ -74,13 +79,16 @@ def iters(mx, args, flat, ctx):
         train = mx.io.MNISTIter(
             image=os.path.join(prefix, "train-images-idx3-ubyte"),
             label=os.path.join(prefix, "train-labels-idx1-ubyte"),
-            batch_size=args.batch_size, shuffle=True, flat=flat)
+            batch_size=args.batch_size, shuffle=True, flat=flat,
+            num_parts=num_parts, part_index=part_index)
         val = mx.io.MNISTIter(
             image=os.path.join(prefix, "t10k-images-idx3-ubyte"),
             label=os.path.join(prefix, "t10k-labels-idx1-ubyte"),
             batch_size=args.batch_size, shuffle=False, flat=flat)
         return train, val
     Xt, yt, Xv, yv = synthetic_arrays(args.num_examples, flat)
+    # Each worker of a dist job trains its own part of the data.
+    Xt, yt = Xt[part_index::num_parts], yt[part_index::num_parts]
     train = mx.io.NDArrayIter(Xt, yt, batch_size=args.batch_size,
                               shuffle=True, label_name="softmax_label",
                               ctx=ctx)
@@ -115,8 +123,13 @@ def main(argv=None):
     ctx = mx.cpu() if args.cpu else mx.gpu(0)
     flat = args.network == "mlp"
     net = get_mlp(mx) if flat else get_lenet(mx)
+    kv = args.kv_store
+    parts = (1, 0)
+    if "dist" in kv:
+        kv = mx.kv.create(kv)
+        parts = (kv.num_workers, kv.rank)
     with ctx:
-        train, val = iters(mx, args, flat, ctx)
+        train, val = iters(mx, args, flat, ctx, *parts)
         mod = mx.mod.Module(net, context=ctx, label_names=["softmax_label"])
         checkpoint = (mx.callback.do_checkpoint(args.model_prefix)
                       if args.model_prefix else None)
@@ -124,7 +137,7 @@ def main(argv=None):
                 optimizer=args.optimizer,
                 optimizer_params={"learning_rate": args.lr},
                 initializer=mx.init.Xavier(magnitude=2.0),
-                kvstore=args.kv_store, eval_metric="acc",
+                kvstore=kv, eval_metric="acc",
                 batch_end_callback=mx.callback.Speedometer(
                     args.batch_size, args.disp_batches),
                 epoch_end_callback=checkpoint)

@@ -27,7 +27,8 @@ and the control-flow operators run their sub-graphs through it
 partitioned at bind, as in the JAX package and the reference.
 
 ``group2ctx`` is accepted only where every group maps to the executor's
-own device: placement across devices is ROADMAP Queue 1 item 7.
+own device: model-parallel placement across devices is ROADMAP Queue
+1 item 7b.
 """
 from __future__ import annotations
 
@@ -147,7 +148,7 @@ class Executor:
             raise NotImplementedError(
                 "group2ctx places groups %s on devices other than the "
                 "executor's %s: model-parallel placement is not ported yet "
-                "(ROADMAP Queue 1 item 7)" % (sorted(elsewhere), self._ctx))
+                "(ROADMAP Queue 1 item 7b)" % (sorted(elsewhere), self._ctx))
 
     # -- graph evaluation -----------------------------------------------------
 

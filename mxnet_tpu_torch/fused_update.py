@@ -69,12 +69,21 @@ Test take the per-parameter fallback, entry by entry, as there.
 
 ``num_compiles`` counts the chunk plans built (the counterpart of the
 JAX package's executable-cache fills; ``mx_fused_apply_compiles_total``)
-and ``mx_trainer_fused_dispatches`` the coalesced passes. Not ported
-here: ``GradBucketer`` (the multi-context bucketed reduce, ROADMAP
-Queue 1 item 7), the numeric grad guard (``open_guard_window``, item 9),
-memstats (item 9) and the persistent compile cache (item 10).
+and ``mx_trainer_fused_dispatches`` the coalesced passes.
+
+``GradBucketer`` packs the gradients of many parameters into flat
+buckets of at most ``MXNET_FUSED_BUCKET_MB`` per dtype
+(``mxnet_tpu/fused_update.py:857-939``): the Trainer's multi-context
+and dist reduce moves one bucket per store key, so its traffic and
+its launches scale with ``ceil(params/bucket)``. ``flatten`` is one
+``torch.cat`` and ``unflatten`` gives views of the flat buffer, both
+exact copies. Not ported here: the numeric grad guard
+(``open_guard_window``, ROADMAP Queue 1 item 9), memstats (item 9) and
+the persistent compile cache (item 10).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -85,7 +94,7 @@ from .ops import optimizer_ops as _oo
 from .telemetry import metrics as _tm
 from .telemetry import trace as _trace
 
-__all__ = ["FusedApplier", "bucket_bytes"]
+__all__ = ["FusedApplier", "GradBucketer", "bucket_bytes"]
 
 _apply_compiles = _tm.REGISTRY.counter(
     "mx_fused_apply_compiles_total",
@@ -677,3 +686,67 @@ class FusedApplier:
         for spec, ch, part in chunks:
             pending.extend(self._run_chunk(spec, ch, part, opt, grad_scale))
         return pending
+
+
+class GradBucketer:
+    """Coalesce many same-dtype gradients into few flat buckets.
+
+    Built once per (param-set, bucket-size) signature; each bucket's
+    ``flatten`` and ``unflatten`` is one pass, so the per-step
+    aggregation cost scales with ``ceil(params/bucket)``."""
+
+    def __init__(self, shapes_dtypes, max_bytes=None):
+        """``shapes_dtypes``: list of (key, shape, dtype) in push order;
+        dtype a torch dtype or a dtype name."""
+        from .base import torch_dtype
+
+        max_bytes = bucket_bytes() if max_bytes is None else max_bytes
+        by_dtype = {}
+        for key, shape, dtype in shapes_dtypes:
+            dt = torch_dtype(dtype)
+            by_dtype.setdefault(str(dt), []).append((key, tuple(shape), dt))
+        self.buckets = []
+        for _, items in sorted(by_dtype.items()):
+            for part in _pack_by_bytes(
+                    items, max_bytes,
+                    lambda it: math.prod(it[1]) * it[2].itemsize):
+                self.buckets.append(_Bucket(len(self.buckets), part))
+
+    def __len__(self):
+        return len(self.buckets)
+
+
+class _Bucket:
+    def __init__(self, bucket_id, items):
+        self.id = bucket_id
+        self.keys = [k for k, _, _ in items]
+        self.shapes = [s for _, s, _ in items]
+        self.sizes = [math.prod(s) for _, s, _ in items]
+        self.dtype = items[0][2]
+        self.store_key = "__fused_grad_bucket_%d" % bucket_id
+
+    def sumsq(self, flat):
+        """fp32 sum of squares of this bucket's flat gradient, one
+        reduction (the Trainer's global-norm clip adds these per-bucket
+        scalars on the host)."""
+        f = flat._data
+        f32 = f if f.dtype == torch.float32 else f.to(torch.float32)
+        return _dispatch("trainer::bucket_sumsq", lambda: (f32 * f32).sum(),
+                         bucket=self.id)
+
+    def flatten(self, arrays, ctx):
+        """One pass: ravel and concatenate this bucket's arrays."""
+        flat = _dispatch("trainer::bucket_flatten", lambda: torch.cat(
+            [a._data.reshape(-1) for a in arrays]),
+            bucket=self.id, params=len(self.keys))
+        return NDArray(flat, ctx=ctx)
+
+    def unflatten(self, flat):
+        """Views of `flat` shaped as this bucket's arrays (the caller
+        commits each with ``_set_data``)."""
+        f = flat._data
+        out, off = [], 0
+        for n, shape in zip(self.sizes, self.shapes):
+            out.append(f[off:off + n].view(shape))
+            off += n
+        return tuple(out)

@@ -17,8 +17,8 @@ first code in the low bits; 1-bit: ``np.packbits`` order, first code in
 the high bit).
 
 The local stores keep compression params without compressing, as in the
-JAX package; the dist path that compresses each push is ROADMAP Queue 1
-item 7.
+JAX package; ``kvstore_dist.KVStoreDist`` compresses each push (and each
+shard of a split key) with its residual, and the server decompresses.
 """
 from __future__ import annotations
 

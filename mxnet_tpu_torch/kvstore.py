@@ -2,8 +2,10 @@
 
 Counterpart of ``mxnet_tpu/kvstore.py:94-342`` (reference:
 include/mxnet/kvstore.h, src/kvstore/kvstore_local.h,
-python/mxnet/kvstore.py), on one process: ``create("local")`` and
-``create("device")`` (alias ``"nccl"``).
+python/mxnet/kvstore.py): ``create("local")`` and ``create("device")``
+(alias ``"nccl"``) in one process, and ``create("dist_sync" |
+"dist_device_sync" | "dist_async" | "dist")``, the parameter-server
+store of ``kvstore_dist.py``.
 
 Semantics as in the JAX package: ``push`` merges (sums) the values given
 for a key, then applies the updater to the stored value (default
@@ -16,8 +18,8 @@ states (``Updater.get_states``/``set_states``).
 Where the stored copy lives: the reference's ``"local"`` merges on a host
 copy (CommCPU); the port keeps the stored value on the device of the
 value ``init`` was given, for both types, so a store never moves data
-to the host on its own. ``dist_*`` types raise: the distributed store is
-ROADMAP Queue 1 item 7; row-sparse pulls raise (item 11).
+to the host on its own. Row-sparse pulls raise (ROADMAP Queue 1 item
+11c).
 """
 from __future__ import annotations
 
@@ -148,7 +150,7 @@ class KVStore:
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         raise NotImplementedError(
             "row_sparse_pull needs the sparse NDArray, which the port does "
-            "not have yet (ROADMAP Queue 1 item 11)")
+            "not have yet (ROADMAP Queue 1 item 11c)")
 
     def set_updater(self, updater):
         """Install `updater(key, recv, stored)` applied on push
@@ -173,7 +175,7 @@ class KVStore:
         gradient_compression.h:37-134). Stored, as in the JAX package,
         whose local stores do not compress either: the codec
         (``gradient_compression.GradientCompression``, with error
-        feedback) acts on the dist path, ROADMAP Queue 1 item 7."""
+        feedback) acts on the dist path (``kvstore_dist.py``)."""
         self._compression_params = dict(compression_params)
 
     # -- optimizer state checkpointing ---------------------------------------
@@ -266,8 +268,10 @@ class KVStoreLocal(KVStore):
 def create(name="local"):
     """Create a KVStore (reference: kvstore.py:create). Supported:
     ``local`` (also ``local_update_cpu``, ``local_allreduce_cpu``),
-    ``device`` (also ``local_allreduce_device``, ``nccl``). ``dist_*``
-    raises NotImplementedError (ROADMAP Queue 1 item 7)."""
+    ``device`` (also ``local_allreduce_device``, ``nccl``), and the
+    multi-process ``dist_sync``, ``dist_device_sync``, ``dist_async``
+    and ``dist`` (``kvstore_dist.KVStoreDist``, which registers with the
+    scheduler of the ``DMLC_*`` contract)."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     name = name.lower()
@@ -275,10 +279,8 @@ def create(name="local"):
         return KVStoreLocal(device_mode=False)
     if name in ("device", "local_allreduce_device", "nccl"):
         return KVStoreLocal(device_mode=True)
-    if name.startswith("dist"):
-        raise NotImplementedError(
-            "kvstore %r: the distributed store (kvstore_dist, the server "
-            "and the multi-process reduce) is ROADMAP Queue 1 item 7; the "
-            "port has the single-process 'local' and 'device' stores"
-            % name)
+    if name in ("dist", "dist_sync", "dist_device_sync", "dist_async"):
+        from .kvstore_dist import KVStoreDist
+
+        return KVStoreDist(name)
     raise ValueError("unknown kvstore type %r" % name)

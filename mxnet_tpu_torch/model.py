@@ -6,10 +6,12 @@ _update_params, _create_kvstore and the legacy FeedForward API):
 ``prefix-symbol.json`` holds the graph, ``prefix-%04d.params`` the
 weights under ``arg:``/``aux:`` keys.
 
-The port updates on one context: ``_create_kvstore`` gives
-``(None, False)`` for one device and a local store, so a Module updates
-through its updater and the port's ``FusedApplier``; a ``dist*`` store
-or several devices raise, naming ROADMAP Queue 1 item 7.
+``_create_kvstore`` gives ``(None, False)`` for one device and a local
+store, so a Module updates through its updater and the port's
+``FusedApplier``; for several devices, or any ``dist*`` store, it
+creates the store with update-on-kvstore, as the JAX package does.
+``_update_params`` merges the devices' gradients on the first, updates
+there and copies the result to the others.
 """
 from __future__ import annotations
 
@@ -23,12 +25,6 @@ __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
-
-
-def _item7(what):
-    return NotImplementedError(
-        "%s: the port updates on one context; multi-device and dist_* "
-        "kvstores are ROADMAP Queue 1 item 7" % what)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
@@ -65,34 +61,50 @@ def load_checkpoint(prefix, epoch, ctx=None):
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,
-                   applier=None):
+                   applier=None, merge_bufs=None):
     """Local (non-kvstore) parameter update seam (reference
-    model.py:_update_params).
+    model.py:_update_params): merge the per-device gradients on device
+    0, apply the updater once there, copy the result to the others.
 
     ``param_arrays``/``grad_arrays`` are per-parameter lists of
     per-device NDArrays; a ``None`` entry skips that index (fixed
-    params). The port holds one device per parameter; ``num_device`` is
-    accepted for the reference's signature. With ``applier`` (a
-    ``fused_update.FusedApplier``) the eligible updates run fused, bit
-    for bit the per-index loop, and only the remainder takes the
-    per-param updater."""
+    params). ``num_device`` is accepted for the reference's signature.
+    With ``applier`` (a ``fused_update.FusedApplier``) the eligible
+    updates run fused, bit for bit the per-index loop, and only the
+    remainder takes the per-param updater. ``merge_bufs`` (a dict the
+    caller owns) keeps each merged gradient in one stable NDArray, so
+    the applier's identity-keyed plan cache stays hot."""
     entries = []
     for index, (weights, grads) in enumerate(zip(param_arrays,
                                                  grad_arrays)):
         if weights is None or grads is None or not grads:
             continue
-        if len(grads) > 1 or len(weights) > 1:
-            raise _item7("_update_params over %d devices" % len(grads))
-        entries.append((index, weights[0], grads[0]))
+        grad = grads[0]
+        if len(grads) > 1:
+            for g in grads[1:]:
+                grad = grad + g.as_in_context(grad.context)
+            if merge_bufs is not None:
+                buf = merge_bufs.get(index)
+                if buf is None:
+                    merge_bufs[index] = grad
+                else:
+                    buf._set_data(grad._data)
+                    grad = buf
+        entries.append((index, weights[0], grad))
     pending = applier.apply(entries) if applier is not None else entries
     for index, weight, grad in pending:
         updater(index, grad, weight)
+    for weights, grads in zip(param_arrays, grad_arrays):
+        if weights is None or grads is None or not grads:
+            continue
+        for w in weights[1:]:
+            w[:] = weights[0].as_in_context(w.context)
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
     """(reference model.py:_create_kvstore). Returns (kv,
     update_on_kvstore): ``(None, False)`` for no store or a local store
-    on one device."""
+    on one device; otherwise the store, updating on it."""
     from . import kvstore as kvs
 
     if kvstore is None:
@@ -103,9 +115,10 @@ def _create_kvstore(kvstore, num_device, arg_params):
         name = kvstore
     else:
         raise TypeError("kvstore must be KVStore, str or None")
-    if "dist" in name or num_device > 1:
-        raise _item7("kvstore %r over %d device(s)" % (name, num_device))
-    return None, False
+    if num_device == 1 and "dist" not in name:
+        return None, False
+    kv = kvstore if isinstance(kvstore, kvs.KVStore) else kvs.create(name)
+    return kv, True
 
 
 class FeedForward:

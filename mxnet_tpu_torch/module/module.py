@@ -1,19 +1,28 @@
-"""Module — symbolic training on one device.
+"""Module — symbolic training over one or more devices.
 
 Counterpart of ``mxnet_tpu/module/module.py`` (reference:
 python/mxnet/module/module.py — bind :364, init_optimizer :474, update
 :644). ``bind`` makes one :class:`~mxnet_tpu_torch.executor.Executor`
-through ``Symbol.simple_bind`` on the module's context; ``update`` runs
-the optimizer through ``model._update_params`` with the port's
+per context through ``Symbol.simple_bind``, and the batch is sliced
+across them (executor_group.py:_split_input_slice). ``init_optimizer``
+creates the store as ``model._create_kvstore`` does: none for one
+context and a local store, else the store (local, or ``dist_*`` across
+processes) with the optimizer on it; ``update`` then pushes every
+gradient and pulls every weight, or, without a store, runs the
+optimizer through ``model._update_params`` with the port's
 ``FusedApplier`` (``MXNET_FUSED_UPDATE``, default on), bit for bit the
-per-parameter updater, inside ``checkpoint.guard.updating()``: the
-update writes weights and states in place, so a snapshot raises there
-instead of mixing two steps.
+per-parameter updater. Either runs inside
+``checkpoint.guard.updating()``: the update writes weights and states
+in place, so a snapshot raises there instead of mixing two steps. Aux
+states of device 0 are copied to the others after each update. Under a
+``dist*_sync`` store each worker's ``rescale_grad`` is
+``1/(batch_size * num_workers)``, as in the reference's init_optimizer,
+since the server sums every worker's gradients.
 
 What differs from the JAX package:
 
-* A context list longer than one raises (ROADMAP Queue 1 item 7), as
-  the port's Trainer does; so do ``dist*`` kvstores.
+* ``group2ctxs`` placement onto other devices is ROADMAP Queue 1
+  item 7b (``executor.py``).
 * Gradients are requested as the reference's executor group requests
   them: for the parameters that are not fixed, for the data only with
   ``inputs_need_grad``, never for the labels. (The JAX package computes
@@ -40,10 +49,11 @@ from .base_module import BaseModule
 __all__ = ["Module"]
 
 
-def _item7(what):
-    return NotImplementedError(
-        "%s: the port's Module runs on one context; data parallelism over "
-        "several is ROADMAP Queue 1 item 7" % what)
+def _split_slices(batch_size, num_parts):
+    """(reference executor_manager.py:_split_input_slice)."""
+    step = (batch_size + num_parts - 1) // num_parts
+    return [slice(min(i * step, batch_size), min((i + 1) * step, batch_size))
+            for i in range(num_parts)]
 
 
 class Module(BaseModule):
@@ -59,11 +69,7 @@ class Module(BaseModule):
             context = [ctx_mod.current_context()]
         if isinstance(context, ctx_mod.Context):
             context = [context]
-        context = list(context)
-        if len(context) != 1:
-            raise _item7("Module over %d contexts %s"
-                         % (len(context), context))
-        self._context = context
+        self._context = list(context)
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -86,6 +92,7 @@ class Module(BaseModule):
         # None until init_optimizer: shared-module paths (Bucketing)
         # that install an updater directly take the per-param loop.
         self._fused_applier = None
+        self._merge_bufs = {}
         self._preload_opt_states = None
         self._preload_opt_state_blob = None
         self._grad_req = "write"
@@ -174,11 +181,16 @@ class Module(BaseModule):
             self._label_shapes = None
         shapes = dict(self._data_shapes + (self._label_shapes or []))
         self._batch_size = self._data_shapes[0][1][0]
+        self._slices = _split_slices(self._batch_size, len(self._context))
         reqs = "null" if self._grad_req == "null" else \
             self._grad_reqs(self._grad_req, inputs_need_grad)
-        self._execs = [self._symbol.simple_bind(
-            ctx=self._context[0], grad_req=reqs,
-            type_dict=self._type_dict(data_shapes, label_shapes), **shapes)]
+        types = self._type_dict(data_shapes, label_shapes)
+        self._execs = []
+        for sl, ctx in zip(self._slices, self._context):
+            dev_shapes = {n: (sl.stop - sl.start,) + tuple(shape[1:])
+                          for n, shape in shapes.items()}
+            self._execs.append(self._symbol.simple_bind(
+                ctx=ctx, grad_req=reqs, type_dict=types, **dev_shapes))
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             arg_params, aux_params = shared_module.get_params()
@@ -231,6 +243,12 @@ class Module(BaseModule):
                 initializer(_init.InitDesc(name), init_arr)
                 arr[:] = init_arr
             self._aux_params[name] = arr.copy()
+        for other in self._execs[1:]:
+            other.copy_params_from({n: ex.arg_dict[n]
+                                    for n in self._param_names},
+                                   {n: ex.aux_dict[n]
+                                    for n in self._aux_names},
+                                   allow_extra_params=True)
         self.params_initialized = True
 
     def get_params(self):
@@ -251,13 +269,20 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
+        kv, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), None)
         if isinstance(optimizer, str):
             idx2name = {i: n for i, n in enumerate(self._param_names)}
             optimizer_params = dict(optimizer_params or {})
             # Normalize gradients by the batch size (reference
-            # module.py:init_optimizer sets rescale_grad=1/batch_size).
+            # module.py:init_optimizer sets rescale_grad=1/batch_size);
+            # a sync dist store sums every worker's gradients, so there
+            # the batch is every worker's.
+            batch_size = self._batch_size
+            if kv is not None and "dist" in kv.type and "_sync" in kv.type:
+                batch_size *= kv.num_workers
             if "rescale_grad" not in optimizer_params:
-                optimizer_params["rescale_grad"] = 1.0 / self._batch_size
+                optimizer_params["rescale_grad"] = 1.0 / batch_size
             optimizer = opt.create(optimizer, param_dict=None,
                                    **optimizer_params)
             optimizer.idx2name = idx2name
@@ -271,8 +296,13 @@ class Module(BaseModule):
             self._fused_applier = _fu.FusedApplier(self._updater)
         else:
             self._fused_applier = None
-        self._kvstore, self._update_on_kvstore = _create_kvstore(
-            kvstore, len(self._context), None)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore and kv is not None
+        if kv is not None:
+            for i, name in enumerate(self._param_names):
+                kv.init(i, self._execs[0].arg_dict[name])
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             # Module.load(load_optimizer_states=True): the reference
@@ -282,55 +312,111 @@ class Module(BaseModule):
         # Optimizer state restored (checkpoint.load_module_state) before
         # the optimizer existed: apply it now.
         if self._preload_opt_state_blob is not None:
-            self._updater.set_states(self._preload_opt_state_blob)
+            self._active_updater.set_states(self._preload_opt_state_blob)
             self._preload_opt_state_blob = None
+
+    @property
+    def _active_updater(self):
+        """The updater that receives the updates: a local store's own
+        updater under update-on-kvstore (checkpointing the Module's
+        pristine one would restart momentum from zero)."""
+        if self._update_on_kvstore and self._kvstore is not None and \
+                getattr(self._kvstore, "_updater", None) is not None:
+            return self._kvstore._updater
+        return self._updater
 
     # -- compute --------------------------------------------------------------
 
     def forward(self, data_batch, is_train=None):
-        """(reference module.py:forward)."""
+        """(reference module.py:forward; the batch is sliced across the
+        contexts, executor_group.py:436)."""
         assert self.binded and self.params_initialized
         if is_train is None:
             is_train = self.for_training
-        ex = self._execs[0]
-        feed = dict(zip(self._data_names, data_batch.data))
-        for name, arr in zip(self._label_names, data_batch.label or []):
-            if name in ex.arg_dict:
-                feed[name] = arr
-        ex.forward(is_train=is_train, **feed)
+        data = data_batch.data
+        label = data_batch.label or []
+        one = len(self._execs) == 1
+        for sl, ex in zip(self._slices, self._execs):
+            feed = {}
+            for name, arr in zip(self._data_names, data):
+                feed[name] = arr if one else arr[sl.start:sl.stop]
+            for name, arr in zip(self._label_names, label):
+                if name in ex.arg_dict:
+                    feed[name] = arr if one else arr[sl.start:sl.stop]
+            ex.forward(is_train=is_train, **feed)
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
-        self._execs[0].backward(out_grads=out_grads)
+        for ex in self._execs:
+            ex.backward(out_grads=out_grads)
 
     def update(self):
-        """(reference module.py:update :644 → _update_params). Fixed
-        params keep their updater index with a None entry."""
+        """(reference module.py:update :644 → _update_params_on_kvstore
+        or _update_params). Fixed params keep their updater index with a
+        None entry."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
-        ex = self._execs[0]
-        param_arrays, grad_arrays = [], []
-        for name in self._param_names:
-            if name in self._fixed_param_names:
-                param_arrays.append(None)
-                grad_arrays.append(None)
-                continue
-            param_arrays.append([ex.arg_dict[name]])
-            grad_arrays.append([ex.grad_dict[name]])
         with _guard.updating():
-            _update_params(param_arrays, grad_arrays, self._updater,
-                           len(self._execs), applier=self._fused_applier)
+            if self._kvstore is not None and self._update_on_kvstore:
+                live = [(i, n) for i, n in enumerate(self._param_names)
+                        if n not in self._fixed_param_names]
+                # Push every gradient, then pull every weight: a sync
+                # server parks a pull until every worker pushed its key.
+                for i, name in live:
+                    self._kvstore.push(i, [ex.grad_dict[name]
+                                           for ex in self._execs])
+                for i, name in live:
+                    self._kvstore.pull(i, out=[ex.arg_dict[name]
+                                               for ex in self._execs])
+            else:
+                param_arrays, grad_arrays = [], []
+                for name in self._param_names:
+                    if name in self._fixed_param_names:
+                        param_arrays.append(None)
+                        grad_arrays.append(None)
+                        continue
+                    param_arrays.append([ex.arg_dict[name]
+                                         for ex in self._execs])
+                    grad_arrays.append([ex.grad_dict[name]
+                                        for ex in self._execs])
+                _update_params(param_arrays, grad_arrays, self._updater,
+                               len(self._execs),
+                               applier=self._fused_applier,
+                               merge_bufs=self._merge_bufs)
+            # Aux states: device 0 is authoritative.
+            for name in self._aux_names:
+                a0 = self._execs[0].aux_dict[name]
+                for other in self._execs[1:]:
+                    other.aux_dict[name][:] = a0.as_in_context(
+                        other.aux_dict[name].context)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
-        outs = list(self._execs[0].outputs)
-        return outs if merge_multi_context else [[o] for o in outs]
+        n_out = len(self._execs[0].outputs)
+        if not merge_multi_context:
+            return [[ex.outputs[i] for ex in self._execs]
+                    for i in range(n_out)]
+        if len(self._execs) == 1:
+            return list(self._execs[0].outputs)
+        from .. import ndarray as nd
+
+        ctx0 = self._context[0]
+        return [nd.concat(*[ex.outputs[i].as_in_context(ctx0)
+                            for ex in self._execs], dim=0)
+                for i in range(n_out)]
 
     def get_input_grads(self, merge_multi_context=True):
         assert self.binded and self.inputs_need_grad
-        ex = self._execs[0]
-        grads = [ex.grad_dict[name] for name in self._data_names]
-        return grads if merge_multi_context else [[g] for g in grads]
+        per = [[ex.grad_dict[name] for ex in self._execs]
+               for name in self._data_names]
+        if not merge_multi_context:
+            return per
+        from .. import ndarray as nd
+
+        ctx0 = self._context[0]
+        return [gs[0] if len(gs) == 1 else
+                nd.concat(*[g.as_in_context(ctx0) for g in gs], dim=0)
+                for gs in per]
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
@@ -382,12 +468,12 @@ class Module(BaseModule):
         from ..base import atomic_write
 
         with atomic_write(fname) as f:
-            f.write(self._updater.get_states(dump_optimizer=False))
+            f.write(self._active_updater.get_states(dump_optimizer=False))
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
         with open(fname, "rb") as f:
-            self._updater.set_states(f.read())
+            self._active_updater.set_states(f.read())
 
     def reshape(self, data_shapes, label_shapes=None):
         """(reference module.py:reshape — bucketing support)."""

@@ -31,7 +31,9 @@ and are written out here:
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -148,6 +150,45 @@ class _BatchVariance(torch.autograd.Function):
         return None, grad * centered * (2.0 / n), None
 
 
+_STAT_REDUCER = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stat_reducer(weight, all_reduce):
+    """Make train-mode BatchNorm normalise with the statistics of the
+    global batch of a data-parallel step (``parallel.TrainStep`` over a
+    ``dp`` mesh of ranks), as the JAX package's GSPMD step does: each
+    rank scales its local mean and variance by ``weight`` (its share of
+    the global batch) and ``all_reduce`` (a differentiable sum over the
+    ``dp`` group) combines them, the variance as the mean of the local
+    variances plus the spread of the local means about the global one.
+    At one rank (weight 1) every added term is an exact no-op, so the
+    values and gradients are those of the plain op bit for bit."""
+    prev = getattr(_STAT_REDUCER, "value", None)
+    _STAT_REDUCER.value = (float(weight), all_reduce)
+    try:
+        yield
+    finally:
+        _STAT_REDUCER.value = prev
+
+
+def _global_stats(data, mean_l, red, shape, reducer):
+    """(mean, centered, var) of the global batch from this rank's part.
+
+    The variance's value is the parallel-variance combination of the
+    local torch.var values; its gradient runs through the globally
+    centered values (``_BatchVariance``), which is d/dx of the mean of
+    (x - mean)^2 over the global batch: the spread term is added as a
+    constant, since that gradient already holds it."""
+    w, all_reduce = reducer
+    mean = all_reduce(mean_l * w)
+    centered = data - mean.reshape(shape)
+    var_l = _BatchVariance.apply(data, centered, red)
+    shift = mean_l.detach() - mean.detach()
+    var = all_reduce(var_l * w + shift * shift * w)
+    return mean, centered, var
+
+
 @register("BatchNorm", aliases=("batch_norm",), train_aware=True)
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
@@ -162,8 +203,13 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if training and not use_global_stats:
         red = tuple(i for i in range(data.ndim) if i != axis)
         mean = torch.mean(data, dim=red)
-        centered = data - mean.reshape(shape)
-        var = _BatchVariance.apply(data, centered, red)
+        reducer = getattr(_STAT_REDUCER, "value", None)
+        if reducer is None:
+            centered = data - mean.reshape(shape)
+            var = _BatchVariance.apply(data, centered, red)
+        else:
+            mean, centered, var = _global_stats(data, mean, red, shape,
+                                                reducer)
         # The moving stats are aux state: never part of a graph.
         new_mm = moving_mean.detach() * momentum \
             + mean.detach() * (1 - momentum)

@@ -54,16 +54,40 @@ package's counter means nothing to a ``torch.Generator``, so a state of
 the other package restores everything but its RNG entry, which is
 ignored with a warning.
 
-Not ported in this slice (ROADMAP Queue 1): meshes over more than one
-device (item 7), sharded ``state_dict`` saves (item 7), the telemetry hooks
-other than the ``train_step::data_put``/``train_step::step`` spans and
-``mx_train_step_seconds``, which the input pipeline's ``stall_fraction``
-and decode autoscaler read (the watchdog lane, health-plane readiness,
-memstats; item 9), the
-compile cache (item 10) and ``deterministic_reduction``.
+Data parallelism over ranks (``mesh`` from ``make_mesh`` after
+``parallel.dist.initialize``): each rank feeds its local slice of the
+global batch (``dist.local_slice``), as in the JAX package
+(``train_step.py:606-640`` there), and the step computes what the JAX
+package's GSPMD step computes over the global batch. The loss is the
+mean over the global batch: each rank differentiates its local mean
+times its share ``local_n / global_n``, and the gradients are summed
+over the ``dp`` group (one ``all_reduce`` per dtype). Train-mode
+BatchNorm normalises with the global batch's statistics
+(``ops.nn.batch_stat_reducer``: the local mean and variance combined
+by a differentiable all-reduce), as ``jnp.mean`` over a sharded batch
+axis is global under GSPMD, so the running-stat writes are the same on
+every rank. At one rank every share is 1 and every sum is over one
+value, so the step gives the single-device step's bits.
+
+``deterministic_reduction=True`` (the JAX package's
+``_make_deterministic_grad``): per-shard loss, gradients and
+per-shard BatchNorm statistics, gathered (``collectives.gather_slots``)
+and summed in ascending rank order, divided by the ``dp`` size; dp-only
+meshes. The random streams differ per rank (``random.set_rank``), so a
+comparison with the JAX package's step, which draws one key for the
+global batch, uses nets without dropout.
+
+Not ported here (ROADMAP Queue 1): a mesh with a ``tp`` (or any non-dp)
+axis larger than 1 and sharded saves of non-replicated state (item 7b),
+the telemetry hooks other than the ``train_step::data_put``/
+``train_step::step`` spans and ``mx_train_step_seconds``, which the
+input pipeline's ``stall_fraction`` and decode autoscaler read (the
+watchdog lane, health-plane readiness, memstats; item 9) and the
+compile cache (item 10).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 
@@ -78,6 +102,8 @@ from ..telemetry import trace as _trace
 from ..base import torch_dtype
 from ..gluon.parameter import override
 from ..ndarray.ndarray import NDArray
+from ..ops import nn as _nn_ops
+from . import collectives as _coll
 from .mesh import make_mesh, data_sharding
 
 _step_seconds = _tm.REGISTRY.histogram(
@@ -120,14 +146,22 @@ class TrainStep:
         epsilon, rescale_grad, clip_gradient and the family's own knobs
         (gamma1, rho, lamda1, ...). The learning rate is a runtime value
         (:meth:`set_learning_rate`).
-    mesh : :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` of one device
-        (default: ``make_mesh()``, every CUDA device, so one card).
+    mesh : :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` of one device, or
+        over the ranks of the process group with a ``dp`` axis (default:
+        ``make_mesh()``: the group's ranks after ``dist.initialize``,
+        else the one card).
+    param_rule : accepted for the JAX package's signature; a rule that
+        shards a parameter needs a ``tp`` axis, ROADMAP Queue 1 item 7b.
     dtype : compute dtype for mixed precision (``"bfloat16"``); masters
         and optimizer state stay fp32.
+    deterministic_reduction : per-shard gradients summed in ascending
+        rank order (dp-only meshes); see the module docstring.
     """
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
-                 mesh=None, dtype=None):
+                 mesh=None, param_rule=None, dtype=None,
+                 deterministic_reduction=False):
+        self.deterministic_reduction = bool(deterministic_reduction)
         self.net = net
         self.loss_fn = loss_fn
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -154,7 +188,31 @@ class TrainStep:
         self._dtype = None if dtype is None else torch_dtype(dtype)
         self._device = self.mesh.device
         self._data_sharding = data_sharding(self.mesh)
+        self._param_rule = param_rule
+        self._dp_group = self._check_mesh()
         self._materialized = False
+
+    def _check_mesh(self):
+        """The ``dp`` group of a mesh over ranks (None on one device);
+        raises for what the port does not run."""
+        mesh = self.mesh
+        for ax in mesh.axis_names:
+            if ax != "dp" and mesh.shape[ax] != 1:
+                if self.deterministic_reduction:
+                    raise ValueError(
+                        "deterministic_reduction supports dp-only meshes; "
+                        "got axis %r of size %d" % (ax, mesh.shape[ax]))
+                raise NotImplementedError(
+                    "TrainStep over a mesh whose %r axis has size %d: "
+                    "parameters placed across ranks (tensor parallelism) "
+                    "are ROADMAP Queue 1 item 7b; the port runs dp meshes"
+                    % (ax, mesh.shape[ax]))
+        if not getattr(mesh, "over_ranks", False):
+            return None
+        if "dp" not in mesh.axis_names:
+            raise ValueError("a TrainStep over ranks needs a 'dp' axis; "
+                             "mesh %s" % (mesh.shape,))
+        return mesh.group("dp")
 
     def _make_opt_rule(self):
         """(n_states, update_fn(param, grad, states, lr, t) -> (new_param,
@@ -404,8 +462,11 @@ class TrainStep:
                                for n, v in self._param_vals.items()}
         self._materialized = True
 
-    def _loss_and_grads(self, x, y):
-        """(mean loss, {name: fp32 gradient}, {aux name: new value})."""
+    def _loss_and_grads(self, x, y, reducer=None, share=1.0):
+        """(loss, {name: fp32 gradient}, {aux name: new value}) of the
+        local batch: the loss is its mean times `share`, and `reducer`
+        (``ops.nn.batch_stat_reducer``'s arguments) makes BatchNorm take
+        global statistics."""
         cdt = self._dtype
         ctx = self.mesh.context
 
@@ -420,13 +481,15 @@ class TrainStep:
         mapping.update({p: NDArray(self._aux_vals[p.name], ctx=ctx)
                         for p in self._aux_params})
         ov = override(mapping)
-        with autograd._differentiate(train_mode=True), ov:
+        stats = _nn_ops.batch_stat_reducer(*reducer) if reducer is not None \
+            else contextlib.nullcontext()
+        with autograd._differentiate(train_mode=True), ov, stats:
             out = self.net(NDArray(cast(x), ctx=ctx))
             if cdt is not None and torch.finfo(cdt).bits < 32:
                 # Loss math in fp32 when the compute dtype is narrower.
                 out = NDArray(out._data.to(torch.float32), ctx=ctx)
             loss = self.loss_fn(out, NDArray(y, ctx=ctx))
-            mean = loss._data.mean()
+            mean = loss._data.mean() * share
         names = list(self._param_vals)
         grads = torch.autograd.grad(
             mean, [self._param_vals[n] for n in names], allow_unused=True)
@@ -439,18 +502,58 @@ class TrainStep:
             new_aux[p.name] = nv.detach()
         return mean.detach(), grads, new_aux
 
-    def __call__(self, x, y):
-        """Run one training step; returns the mean loss as a 0-d fp32
-        tensor on the mesh's device (reading it waits for the step)."""
-        t_start = time.perf_counter()
-        x, y = _as_tensor(x), _as_tensor(y)
-        if not self._materialized:
-            self._materialize(x[:1])
-        with _trace.span("train_step::data_put"):
-            x = x.to(self._device, non_blocking=True)
-            y = y.to(self._device, non_blocking=True)
-        t = self.num_update + 1
+    def _dp_loss_and_grads(self, x, y):
+        """The dp step over ranks: global-batch loss, gradients summed
+        over the dp group, global BatchNorm statistics."""
+        group = self._dp_group
+        ndp = _coll.group_size(group)
+        # This rank's share of the global batch; the shards are equal
+        # (dist.local_slice), so local_n / global_n = 1 / ndp, and 1
+        # exactly at one rank.
+        share = x.shape[0] / (x.shape[0] * ndp)
+        loss, grads, new_aux = self._loss_and_grads(
+            x, y, reducer=(share, lambda t: _coll.all_reduce(t, group)),
+            share=share)
+        names = list(grads)
+        summed = _coll.all_reduce_flat(
+            [loss.reshape(1)] + [grads[n] for n in names], group)
+        return (summed[0].reshape(()), dict(zip(names, summed[1:])),
+                new_aux)
+
+    def _deterministic_loss_and_grads(self, x, y):
+        """Per-shard loss, gradients and BatchNorm statistics, gathered
+        and summed in ascending rank order, divided by the dp size (the
+        JAX package's ``ordered_mean``)."""
         loss, grads, new_aux = self._loss_and_grads(x, y)
+        group = self._dp_group
+        if group is None:
+            return loss, grads, new_aux
+        names = list(grads)
+        aux_names = list(new_aux)
+        parts = [loss.reshape(1)] + [grads[n] for n in names] + \
+            [new_aux[n] for n in aux_names]
+        out = []
+        for dtype in dict.fromkeys(p.dtype for p in parts):
+            idx = [i for i, p in enumerate(parts) if p.dtype == dtype]
+            flat = torch.cat([parts[i].reshape(-1) for i in idx])
+            gathered = _coll.gather_slots(flat, group)
+            acc = gathered[0]
+            for i in range(1, gathered.shape[0]):
+                acc = acc + gathered[i]
+            acc = acc / gathered.shape[0]
+            off = 0
+            for i in idx:
+                n = parts[i].numel()
+                out.append((i, acc[off:off + n].view(parts[i].shape)))
+                off += n
+        res = [t for _, t in sorted(out, key=lambda e: e[0])]
+        k = len(names)
+        return (res[0].reshape(()), dict(zip(names, res[1:1 + k])),
+                dict(zip(aux_names, res[1 + k:])))
+
+    def _apply_update(self, grads, new_aux, t):
+        """Update the masters, optimizer state and aux state in place,
+        and bump the step counter."""
         # In place from here to the counter's bump: a snapshot taken in
         # between would mix two steps (checkpoint.guard).
         with torch.no_grad(), _guard.updating():
@@ -465,6 +568,29 @@ class TrainStep:
                 # Running stats keep their stored (fp32) dtype.
                 self._aux_vals[name].copy_(v)
             self.num_update = t
+
+    def __call__(self, x, y):
+        """Run one training step; returns the mean loss as a 0-d fp32
+        tensor on the mesh's device (reading it waits for the step).
+
+        Over a mesh of ranks, `x`/`y` are this rank's local slice of the
+        global batch (``dist.local_slice`` gives the rows) and the loss
+        is the global batch's, the same on every rank."""
+        t_start = time.perf_counter()
+        x, y = _as_tensor(x), _as_tensor(y)
+        if not self._materialized:
+            self._materialize(x[:1])
+        with _trace.span("train_step::data_put"):
+            x = x.to(self._device, non_blocking=True)
+            y = y.to(self._device, non_blocking=True)
+        t = self.num_update + 1
+        if self.deterministic_reduction:
+            loss, grads, new_aux = self._deterministic_loss_and_grads(x, y)
+        elif self._dp_group is not None:
+            loss, grads, new_aux = self._dp_loss_and_grads(x, y)
+        else:
+            loss, grads, new_aux = self._loss_and_grads(x, y)
+        self._apply_update(grads, new_aux, t)
         t_end = time.perf_counter()
         _trace.complete("train_step::step", t_start, t_end, step=t)
         _step_seconds.observe(t_end - t_start)
@@ -492,6 +618,9 @@ class TrainStep:
         them), each as bytes."""
         _random.generator(self.mesh.context)
         seed, counter, gens = _random.get_state()
+        if self._dp_group is not None and \
+                _coll.group_size(self._dp_group) > 1:
+            gens = {}
         return {"seed": int(seed), "counter": int(counter),
                 "generators": {d: bytes(g.numpy().tobytes())
                                for d, g in gens.items()}}
@@ -506,8 +635,12 @@ class TrainStep:
         steps do not change. Inside the update loop this raises
         ``checkpoint.StepInProgressError`` (``checkpoint/guard.py``).
         ``sharded=True`` gives each array as a ``checkpoint.Shard`` of
-        one chunk, the whole array: one device holds all of it (sharded
-        meshes are ROADMAP Queue 1 item 7). Restore with
+        one chunk, the whole array: every array of a dp step is
+        replicated (sharded saves of non-replicated state are ROADMAP
+        Queue 1 item 7b). Over a mesh of ranks the state is the same on
+        every rank, and its RNG entry holds the root seed and host
+        counter only: each rank's device generators draw its own
+        stream (``random.set_rank``). Restore with
         :meth:`load_state_dict`."""
         if not self._materialized:
             raise RuntimeError(

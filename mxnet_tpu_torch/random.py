@@ -11,6 +11,13 @@ the same seed, so the parity tests hand both the same numpy inputs.
 ``get_state``/``set_state`` capture and restore the whole position:
 root seed, host counter and every device generator's state, so that a
 resumed run draws what the uninterrupted run would have drawn.
+
+In a process group (``parallel.dist``) rank ``r`` seeds its device
+generators from the root seed and ``r`` (:func:`set_rank`; rank 0 keeps
+the single-process stream), so two ranks draw different dropout masks
+and a rerun repeats them; the host stream, which the initializers draw
+from, stays the same on every rank, so every rank initializes the same
+weights.
 """
 from __future__ import annotations
 
@@ -19,12 +26,30 @@ import threading
 import torch
 
 __all__ = ["seed", "generator", "for_device", "advance", "host_seed",
-           "get_state", "set_state"]
+           "get_state", "set_state", "set_rank"]
 
 _lock = threading.Lock()
 _root_seed = 0
 _counter = [0]
+_rank = [0]
 _generators: dict = {}  # torch.device -> torch.Generator
+
+
+def _device_seed():
+    r = _rank[0]
+    if r == 0:
+        return _root_seed
+    return (_root_seed * 1000003 + r * 7919 + 0x5EED) & 0xFFFFFFFFFFFF
+
+
+def set_rank(rank):
+    """Make the device generators' stream this rank's: a function of
+    the root seed and `rank` (``parallel.dist.initialize`` calls it);
+    every device generator is reseeded."""
+    with _lock:
+        _rank[0] = int(rank)
+        for gen in _generators.values():
+            gen.manual_seed(_device_seed())
 
 
 def seed(seed_state, ctx="all"):
@@ -37,7 +62,7 @@ def seed(seed_state, ctx="all"):
             _root_seed = int(seed_state)
             _counter[0] = 0
             for gen in _generators.values():
-                gen.manual_seed(_root_seed)
+                gen.manual_seed(_device_seed())
         else:
             _generator_locked(ctx.torch_device).manual_seed(int(seed_state))
 
@@ -46,7 +71,7 @@ def _generator_locked(device):
     gen = _generators.get(device)
     if gen is None:
         gen = torch.Generator(device=device)
-        gen.manual_seed(_root_seed)
+        gen.manual_seed(_device_seed())
         _generators[device] = gen
     return gen
 

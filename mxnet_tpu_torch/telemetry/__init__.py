@@ -9,9 +9,11 @@ Prometheus exposition), ``trace`` (chrome-trace spans) and ``xtrace``
 ``healthplane``. The trainer and the fused optimizer apply
 record into them (``mx_trainer_update_seconds``,
 ``mx_fused_apply_compiles_total``, ``mx_trainer_fused_dispatches``).
-The rest — export, aggregation, SLOs, memstats, numerics, the flight
-recorder, the health plane's endpoints, profiling and attribution — is
-ROADMAP Queue 1 item 9.
+Since distribution, also ``export`` (``PushExporter`` and the
+``StreamingTraceWriter`` that the kvstore server imports). The rest —
+aggregation, SLOs, memstats, numerics, the flight recorder, the health
+plane's endpoints, profiling and attribution, and ``export``'s
+remote-write encoding — is ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 

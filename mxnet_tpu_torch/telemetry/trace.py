@@ -2,8 +2,10 @@
 chrome://tracing JSON.
 
 A copy of ``mxnet_tpu/telemetry/trace.py``, which imports no JAX; only
-``dump`` differs: it commits through the port's ``base.atomic_write``
-(the JAX package's ``telemetry.export`` is ROADMAP Queue 1 item 9).
+``dump`` differs: it commits through the port's ``base.atomic_write``,
+where the JAX package's goes through ``telemetry.export.commit_bytes``
+(the port's copy of ``telemetry.export`` commits its streamed segment
+files that way).
 Where the text below says jax.profiler, the port's device truth is
 torch.profiler.
 

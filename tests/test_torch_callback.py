@@ -149,5 +149,8 @@ def test_module_checkpoint_and_manager_name_the_roadmap(tmp_path):
         mod.init_params()
         mx.callback.module_checkpoint(mod, str(tmp_path / "m"))(0)
         assert (tmp_path / "m-0001.params").exists()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            mx.mod.Module(sym, context=[mx.cpu(0), mx.cpu(1)])
+        # A Module over two contexts binds an executor on each.
+        two = mx.mod.Module(sym, context=[mx.cpu(0), mx.cpu(1)])
+        two.bind(data_shapes=[("data", (4, 3))],
+                 label_shapes=[("softmax_label", (4,))])
+        assert [ex._ctx for ex in two._execs] == [mx.cpu(0), mx.cpu(1)]

@@ -103,7 +103,15 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.examples.neural_style, "
         "mxnet_tpu_torch.examples.adversarial_fgsm, "
         "mxnet_tpu_torch.examples.train_multi_task, "
-        "mxnet_tpu_torch.examples.bi_lstm_sort\n"
+        "mxnet_tpu_torch.examples.bi_lstm_sort, "
+        "mxnet_tpu_torch.parallel.dist, mxnet_tpu_torch.parallel.launch, "
+        "mxnet_tpu_torch.parallel.mesh, "
+        "mxnet_tpu_torch.parallel.collectives, "
+        "mxnet_tpu_torch.kvstore_dist, mxnet_tpu_torch.kvstore_server, "
+        "mxnet_tpu_torch.telemetry.export, "
+        "mxnet_tpu_torch.examples.train_resnet_trainstep\n"
+        "import importlib\n"
+        "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"
         "d.DataPipeline, d.DecodePool, d.DevicePrefetcher, d.RecordDataset, "
         "d.DecodeAutoscaler, d.stall_fraction\n"

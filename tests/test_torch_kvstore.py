@@ -174,9 +174,46 @@ def test_compression_params_are_stored_and_validated():
 
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async",
                                   "dist_device_sync"])
-def test_dist_stores_name_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        mx.kv.create(name)
+def test_dist_stores_name_the_roadmap(name, monkeypatch):
+    # create() gives the parameter-server store now: a scheduler and a
+    # server of this process (threads) serve one worker, whose sparse
+    # paths name their roadmap item. tests/test_torch_kvstore_dist.py
+    # runs the stores across processes.
+    import threading
+
+    from mxnet_tpu_torch.kvstore_server import KVStoreServer, Scheduler
+    from mxnet_tpu_torch.parallel.launch import free_port
+
+    port = free_port()
+    for k, v in (("DMLC_PS_ROOT_URI", "127.0.0.1"),
+                 ("DMLC_PS_ROOT_PORT", str(port)),
+                 ("DMLC_NUM_WORKER", "1"), ("DMLC_NUM_SERVER", "1")):
+        monkeypatch.setenv(k, v)
+    sched = Scheduler(1, 1, host="127.0.0.1", port=port)
+    threads = [threading.Thread(target=sched.run, daemon=True),
+               threading.Thread(target=KVStoreServer(
+                   ("127.0.0.1", port), num_workers=1).run, daemon=True)]
+    for t in threads:
+        t.start()
+    kv = mx.kv.create(name)
+    try:
+        assert kv.type == name and kv.num_workers == 1 and kv.rank == 0
+        with mx.cpu():
+            kv.init("w", mx.nd.ones((2,)))
+            out = mx.nd.zeros((2,))
+        kv.pull("w", out=out)
+        np.testing.assert_array_equal(out.asnumpy(), np.ones(2))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
+            kv.row_sparse_pull("w", out=out, row_ids=out)
+        # The server's profiler answers dumps; the device trace's
+        # commands name their roadmap item.
+        assert isinstance(kv.server_profiler_command("dumps")[0], str)
+        with pytest.raises(RuntimeError, match="item 9"):
+            kv.server_profiler_command("set_config", {"filename": "x"})
+    finally:
+        kv.close()
+    for t in threads:
+        t.join(timeout=30)
 
 
 def test_unknown_store_and_row_sparse_pull_raise():

@@ -516,7 +516,9 @@ def test_sgld_step_adds_noise_of_the_langevin_scale():
 @pytest.mark.parametrize("axes,devices", [
     ({"dp": 2}, 2), ({"dp": 1, "tp": 2}, 2), ({"dp": -1}, 3)])
 def test_multi_device_mesh_names_the_roadmap(axes, devices):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # One process runs one device: a mesh over several is a mesh over the
+    # ranks of parallel.dist (tests/test_torch_dist.py).
+    with pytest.raises(NotImplementedError, match="one device per process"):
         make_mesh(axes, devices=[mx.cpu()] * devices)
 
 

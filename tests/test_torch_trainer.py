@@ -560,14 +560,18 @@ def test_jax_trainer_states_load_into_the_port(tmp_path):
 
 
 def test_multi_context_and_dist_name_the_roadmap():
+    # Several contexts and dist stores train now (tests/
+    # test_torch_trainer_contexts.py, tests/test_torch_kvstore_dist.py);
+    # row-sparse gradients still name their roadmap item.
     with mx.cpu():
         net = mx.gluon.nn.Dense(2, in_units=3)
     net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        mx.gluon.Trainer(net.collect_params(), "sgd")
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd")
+    assert tr._contexts == [mx.cpu(0), mx.cpu(1)]
+    net.weight._grad_stype = "row_sparse"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
+        tr.step(1)
     net2 = _port_net(13, 7, 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        mx.gluon.Trainer(net2.collect_params(), "sgd", kvstore="dist_sync")
     tr = mx.gluon.Trainer(net2.collect_params(), "sgd",
                           update_on_kvstore=True)
     with pytest.raises(ValueError, match="update_on_kvstore"):
