@@ -238,7 +238,44 @@ phase falls back to the host or to a plain version):
    workers. One JSON line per part, with the card's name and power
    limit. Labelled one card, N ranks: never a multi-card figure.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19) is driven with
+20. detection: SSD300-VGG16 (``SSD300``: Liu et al., arXiv:1512.02325,
+   as the reference's example/ssd builds it, vgg16_reduced at 300;
+   built here from the port's gluon layers as a measurement
+   configuration: VGG-16 conv1_1-conv5_3 with pool3 in the "full"
+   convention, pool5 3x3 s1 p1, fc6 3x3 dilation 6 of 1024, fc7 1x1 of
+   1024, L2Normalization on relu4_3 with a learned scale from 20, four
+   extra 1x1/3x3 pairs, maps 38, 19, 10, 5, 3, 1, 8 732 anchors, 21
+   classes; MultiBoxTarget with hard-negative mining 3:1; softmax
+   cross-entropy over the non-ignored anchors plus smooth-L1, both over
+   their count; SGD lr 0.004, momentum 0.9, wd 5e-4; synthetic 300x300
+   noise scenes of 1-4 boxes from the seed, no dataset): (1) train img/s
+   at b32 through ``gluon.Trainer``, fp32 (TF32 off) and bf16 over fp32
+   masters, 3 warmup steps and the median of 5 windows of 8, the last
+   window's mean loss ``SSD300["loss_drop"]`` below the first's, one
+   torch.profiler line each (device ms, idle share, top kernels); (2) one
+   float64 step at b2 from the same weights on card and host (relative
+   L2 of loss, outputs and gradients within ``ZOO_F64_REL_L2``); (3)
+   ``MultiBoxDetection`` (nms_threshold 0.45, nms_topk 400) of a b32
+   forward: ms, D1 launched once, the output bit for bit the plain
+   route's on the card; (4) ``-n 2 -s 1``: two workers train it (fp32,
+   b32 each) through ``gluon.Trainer(kvstore="dist_sync")``, 2 + 5
+   steps, img/s summed, push, pull and server-apply ms, the workers bit
+   for bit every step, rank 0's losses those of one process stepping on
+   both batches' mean gradient (``SSD300["dist_witness_rtol"]``),
+   scheduler and server recording CUDA uninitialised; (5) every detection operator (13 operators, the 33
+   names of ``DETECTION_NAMES``) once at its model's width on the card
+   against the host, both in float64, forward and gradient within
+   ``SURFACE_TOL`` (SSD300's priors, targets and detections at b32;
+   Proposal over a 38x63 map with the JAX defaults; ROIPooling/ROIAlign
+   7x7 over (1, 512, 38, 63) with 300 ROIs; DeformableConvolution 512 ->
+   512; R-FCN's deformable PS-ROI; FlowNetC's correlation); (6)
+   ``examples.train_rcnn`` 20 steps on the card; then D1 (greedy NMS) at
+   the SSD decode's and Proposal's shapes and D2 (ROIPooling forward and
+   backward, fp32) against their plain versions on the card: D1's keep
+   masks and D2's forward bit for bit, D2's gradient within
+   ``D2_BWD_TOL``; times, plain times and bounds.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -2278,14 +2315,16 @@ PCIE_GT_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
 
 def _all_launches():
     """Every launch counter of the port's kernels: K1-K3, K4 (rtc), the
-    fused BN+ReLU and the elementwise rtc kernels."""
+    fused BN+ReLU, the elementwise rtc kernels, and the detection kernels
+    (D1, D2 forward, D2 backward)."""
     from mxnet_tpu_torch import rtc
     from mxnet_tpu_torch.examples import fused_bn_relu, rtc_kernels
 
     return {"k1_k2_k3": _launches(), "rtc": rtc.LAUNCHES,
             "bn_relu": fused_bn_relu.LAUNCHES,
             "scale_add": rtc_kernels.LAUNCHES["scale_add"],
-            "relu": rtc_kernels.LAUNCHES["relu"]}
+            "relu": rtc_kernels.LAUNCHES["relu"],
+            "d1_d2": _det_launches()}
 
 
 def _reset_all_launches():
@@ -2293,6 +2332,7 @@ def _reset_all_launches():
     from mxnet_tpu_torch.examples import fused_bn_relu, rtc_kernels
 
     _reset_launches()
+    _reset_det_launches()
     rtc.LAUNCHES = 0
     fused_bn_relu.LAUNCHES = 0
     rtc_kernels.LAUNCHES["scale_add"] = rtc_kernels.LAUNCHES["relu"] = 0
@@ -5350,22 +5390,7 @@ def _dist_part_kvstore(outdir, lr=None):
                     ctx=mx.gpu(0))
     trainer = gluon.Trainer(net.collect_params(), "sgd", dict(opt),
                             kvstore=kv)
-    wire = {"push_s": 0.0, "pull_s": 0.0, "push_bytes": 0}
-    push, pull = kv.push, kv.pull
-
-    def timed_push(key, value, priority=0):
-        vals = value if isinstance(value, (list, tuple)) else [value]
-        wire["push_bytes"] += vals[0].size * vals[0]._data.element_size()
-        t0 = time.perf_counter()
-        push(key, value, priority)
-        wire["push_s"] += time.perf_counter() - t0
-
-    def timed_pull(key, out=None, priority=0, ignore_sparse=True):
-        t0 = time.perf_counter()
-        pull(key, out=out, priority=priority)
-        wire["pull_s"] += time.perf_counter() - t0
-
-    kv.push, kv.pull = timed_push, timed_pull
+    wire, restore = _time_wire(kv)
 
     def digest(n):
         # The pulled weights: the trainable parameters. BatchNorm's
@@ -5431,16 +5456,10 @@ def _dist_part_kvstore(outdir, lr=None):
         for k, v in sorted(mod.get_params()[0].items()):
             h.update(v.asnumpy().tobytes())
         out["module_digest"] = h.hexdigest()
-    kv.push, kv.pull = push, pull
+    restore()
     _dist_result(out)
     kv.close()
-    # The launcher kills every role once the workers are gone: wait for
-    # the scheduler's and the servers' records (`_dist_role_record`).
-    deadline = time.time() + 60
-    want = {"scheduler": 1, "server": int(os.environ["DMLC_NUM_SERVER"])}
-    while time.time() < deadline and any(
-            len(v) < want[k] for k, v in _dist_role_records(outdir).items()):
-        time.sleep(0.1)
+    _await_role_records(outdir)
 
 
 def _dist_role_record(outdir):
@@ -5549,8 +5568,7 @@ def _dist_plain_witness(outdir, rates):
     return got
 
 
-_DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
-               "kvstore": _dist_part_kvstore}
+
 
 
 def _dist_launch(part, workers, servers, outdir, extra=()):
@@ -5567,13 +5585,13 @@ def _dist_launch(part, workers, servers, outdir, extra=()):
                                capture=True)
     errs = "\n".join("--- worker %d ---\n%s" % (i, err[-4000:])
                      for i, (_, err) in enumerate(outs))
-    check(codes == [0] * workers, "phase 19 part %s: worker exit codes %s\n"
+    check(codes == [0] * workers, "dist part %s: worker exit codes %s\n"
           "%s" % (part, codes, errs))
     results = []
     for so, _ in outs:
         lines = [ln[len("DIST_RESULT "):] for ln in so.splitlines()
                  if ln.startswith("DIST_RESULT ")]
-        check(len(lines) == 1, "phase 19 part %s: a worker printed %d "
+        check(len(lines) == 1, "dist part %s: a worker printed %d "
               "results\n%s" % (part, len(lines), errs))
         results.append(json.loads(lines[0]))
     return results
@@ -5752,8 +5770,1069 @@ def phase_distributed(card_line):
         shutil.rmtree(outdir, ignore_errors=True)
 
 
+
+# -- phase 20: detection -------------------------------------------------------
+
+# SSD300-VGG16 as a measurement configuration of this script (not a model
+# of the package). Source: SSD300 in Liu et al., "SSD: Single Shot
+# MultiBox Detector" (arXiv:1512.02325), as the reference's example/ssd
+# builds it (symbol_factory.py, vgg16_reduced at 300; train.py defaults):
+# VGG-16 conv1_1-conv5_3 with pool3 in the "full" (ceil) convention
+# (75 -> 38), pool5 3x3 stride 1 pad 1, fc6 a 3x3 conv of 1024 with
+# dilation 6 and pad 6, fc7 a 1x1 conv of 1024; L2Normalization (channel)
+# on relu4_3 with a learned scale initialised to 20; the extra layers a
+# 1x1 conv to n/2 then a 3x3 conv to n, n = 512, 256, 256, 256 with
+# strides 2, 2, 1, 1 and pads 1, 1, 0, 0; feature maps 38, 19, 10, 5, 3,
+# 1; 8 732 anchors; 21 classes (VOC's 20 and the background).
+SSD300 = {
+    "side": 300, "classes": 21, "batch": 32,
+    "vgg": ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512)),
+    "extras": ((512, 2, 1), (256, 2, 1), (256, 1, 0), (256, 1, 0)),
+    "sizes": ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+              (.71, .79), (.88, .961)),
+    "ratios": ((1, 2, .5), (1, 2, .5, 3, 1 / 3), (1, 2, .5, 3, 1 / 3),
+               (1, 2, .5, 3, 1 / 3), (1, 2, .5), (1, 2, .5)),
+    "steps": (8, 16, 32, 64, 100, 300),
+    "anchors": 8732,
+    "target": {"overlap_threshold": .5, "negative_mining_ratio": 3,
+               "negative_mining_thresh": .5, "ignore_label": -1,
+               "variances": (.1, .1, .2, .2)},
+    "detect": {"nms_threshold": .45, "nms_topk": 400},
+    "opt": {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4},
+    "warmup": 3, "windows": 5, "iters": 8, "profile_iters": 3,
+    "f64_batch": 2, "dist_warmup": 2, "dist_steps": 5,
+    # Part 1 holds the mean loss of the last timed window this far below
+    # the first's. A step's loss is not one objective (mining takes the
+    # negatives scored worst just then) and climbs for ~5 steps after the
+    # warmup and where mining switches sets (probe_ssd_loss); over 5
+    # windows of 8 the last fell 16%, 10% and 21% below the first (fp32,
+    # fp32 with cuDNN deterministic, bf16; one H100 at 700 W).
+    "loss_drop": 0.05,
+    # Part 4: rank 0's losses against the in-process witness training the
+    # two workers' batches on their mean gradient (relative).
+    "dist_witness_rtol": 1e-3,
+}
+# Faster R-CNN's and R-FCN's and FlowNetC's widths for the op sweep: a
+# 600x1000 image at stride 16 (a 38x63 map of 512 channels), 300 ROIs,
+# the JAX Proposal defaults (12 anchors, pre-NMS 6 000, post-NMS 300),
+# R-FCN's deformable PS-ROI (21 outputs, group and pooled 7, 4 samples a
+# part, trans_std 0.1), FlowNetC's correlation (k 1, max displacement
+# 20, stride2 2, pad 20, 256 channels at 48x64).
+RCNN_MAP = (1, 512, 38, 63)
+FLOWNET = (1, 256, 48, 64)
+RCNN_IMAGE = (600.0, 1000.0)
+RCNN_ROIS = 300
+# D2's backward against its plain version: atomics add a pixel's bins
+# in no fixed order (fp32: rtol, atol as a share of max |want|).
+D2_BWD_TOL = (1e-5, 1e-6)
+# Operations of one IoU test of D1 (min, max, subtractions, clamps,
+# products, the union, the division and the comparison), counted once
+# for every pair this run's data needs: a kept box against every later
+# box of its image.
+D1_OPS_PER_PAIR = 20
+# The registry names of mxnet_tpu/ops/detection_ops.py (19) and
+# rcnn_ops.py (14), aliases included.
+DETECTION_NAMES = (
+    "_contrib_MultiBoxPrior", "_contrib_multibox_prior", "MultiBoxPrior",
+    "_contrib_bipartite_matching",
+    "_contrib_MultiBoxTarget", "_contrib_multibox_target", "MultiBoxTarget",
+    "_contrib_box_nms", "_contrib_box_non_maximum_suppression", "box_nms",
+    "_contrib_box_iou", "box_iou",
+    "_contrib_MultiBoxDetection", "_contrib_multibox_detection",
+    "MultiBoxDetection",
+    "ROIPooling", "roi_pooling", "_contrib_ROIAlign", "_contrib_roi_align",
+    "_contrib_Proposal", "Proposal", "_contrib_proposal",
+    "_contrib_MultiProposal", "MultiProposal", "_contrib_multi_proposal",
+    "_contrib_DeformableConvolution", "DeformableConvolution",
+    "_contrib_deformable_convolution",
+    "_contrib_DeformablePSROIPooling", "DeformablePSROIPooling",
+    "_contrib_deformable_psroi_pooling",
+    "Correlation", "_contrib_Correlation")
+
+
+def _ssd300(mx, ctx, seed=SEED):
+    """SSD300-VGG16 (SSD300 above) from the port's gluon layers,
+    initialized on `ctx` from `seed` (Xavier; the L2 scale 20)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    nn = gluon.nn
+    c = SSD300
+
+    class L2Scale(gluon.HybridBlock):
+        def __init__(self, channels, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.scale = self.params.get(
+                    "scale", shape=(1, channels, 1, 1),
+                    init=mx.init.Constant(20.0))
+
+        def hybrid_forward(self, F, x, scale):
+            return F.broadcast_mul(F.L2Normalization(x, mode="channel"),
+                                   scale)
+
+    def convs(seq, n, ch):
+        for _ in range(n):
+            seq.add(nn.Conv2D(ch, 3, padding=1, activation="relu"))
+
+    class SSD(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.to_conv4 = nn.HybridSequential()
+                for i, (n, ch) in enumerate(c["vgg"][:4]):
+                    convs(self.to_conv4, n, ch)
+                    if i < 3:
+                        self.to_conv4.add(nn.MaxPool2D(2, 2,
+                                                       ceil_mode=i == 2))
+                self.norm4 = L2Scale(512)
+                self.to_fc7 = nn.HybridSequential()
+                self.to_fc7.add(nn.MaxPool2D(2, 2))
+                convs(self.to_fc7, *c["vgg"][4])
+                self.to_fc7.add(
+                    nn.MaxPool2D(3, 1, padding=1),
+                    nn.Conv2D(1024, 3, padding=6, dilation=6,
+                              activation="relu"),
+                    nn.Conv2D(1024, 1, activation="relu"))
+                self.extras = nn.HybridSequential()
+                for ch, stride, pad in c["extras"]:
+                    block = nn.HybridSequential()
+                    block.add(nn.Conv2D(ch // 2, 1, activation="relu"),
+                              nn.Conv2D(ch, 3, strides=stride, padding=pad,
+                                        activation="relu"))
+                    self.extras.add(block)
+                self.cls_heads = nn.HybridSequential()
+                self.loc_heads = nn.HybridSequential()
+                for sizes, ratios in zip(c["sizes"], c["ratios"]):
+                    a = len(sizes) + len(ratios) - 1
+                    self.cls_heads.add(nn.Conv2D(a * c["classes"], 3,
+                                                 padding=1))
+                    self.loc_heads.add(nn.Conv2D(a * 4, 3, padding=1))
+
+        def hybrid_forward(self, F, x):
+            x = self.to_conv4(x)
+            sources = [self.norm4(x)]
+            x = self.to_fc7(x)
+            sources.append(x)
+            for block in self.extras:
+                x = block(x)
+                sources.append(x)
+            anchors, cls_preds, loc_preds = [], [], []
+            b = sources[0].shape[0]
+            for i, s in enumerate(sources):
+                step = c["steps"][i] / c["side"]
+                anchors.append(F.contrib.MultiBoxPrior(
+                    s, sizes=c["sizes"][i], ratios=c["ratios"][i],
+                    steps=(step, step)))
+                cls_preds.append(self.cls_heads[i](s).transpose(
+                    (0, 2, 3, 1)).reshape((b, -1, c["classes"])))
+                loc_preds.append(self.loc_heads[i](s).transpose(
+                    (0, 2, 3, 1)).reshape((b, -1)))
+            return (F.concat(*anchors, dim=1), F.concat(*cls_preds, dim=1),
+                    F.concat(*loc_preds, dim=1))
+
+    mx.random.seed(seed)
+    net = SSD()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with autograd.pause():
+        anchors, _, _ = net(nd.zeros((1, 3, c["side"], c["side"]), ctx=ctx))
+    check(anchors.shape == (1, c["anchors"], 4),
+          "SSD300 anchors %s" % (anchors.shape,))
+    return net
+
+
+def _ssd_scenes(batch, seed):
+    """Synthetic 300x300 RGB noise scenes with 1-4 boxes of random VOC
+    classes, each box a flat color of its class: (x (B, 3, 300, 300),
+    label (B, 4, 5) [class, x1, y1, x2, y2] padded with -1)."""
+    side = SSD300["side"]
+    rng = np.random.default_rng(seed)
+    x = rng.random((batch, 3, side, side), dtype=np.float32) * 0.3
+    y = -np.ones((batch, 4, 5), np.float32)
+    for i in range(batch):
+        for k in range(int(rng.integers(1, 5))):
+            cls = int(rng.integers(0, SSD300["classes"] - 1))
+            w, h = rng.uniform(0.1, 0.6, 2)
+            x1, y1 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            y[i, k] = [cls, x1, y1, x1 + w, y1 + h]
+            r0, r1 = int(y1 * side), int((y1 + h) * side)
+            c0, c1 = int(x1 * side), int((x1 + w) * side)
+            x[i, :, r0:r1, c0:c1] += np.array(
+                [(cls % 3) / 2, (cls // 3 % 3) / 2, (cls // 9) / 2],
+                np.float32)[:, None, None]
+    return x, y
+
+
+def _ssd_targets(anchors, cls_preds, y):
+    """MultiBoxTarget (SSD300["target"]) outside the graph: (box targets,
+    box mask, class targets; -1 ignored). Hard-negative mining picks the
+    negatives from `cls_preds`, so the targets move as the net learns."""
+    from mxnet_tpu_torch import autograd, nd
+
+    with autograd.pause():
+        return nd.contrib.MultiBoxTarget(
+            anchors, y, cls_preds.transpose((0, 2, 1)), **SSD300["target"])
+
+
+def _ssd_loss_terms(cls_preds, loc_preds, targets):
+    """(cross-entropy sum, smooth-L1 sum, non-ignored anchors)."""
+    from mxnet_tpu_torch import nd
+
+    box_t, box_m, cls_t = targets
+    valid = cls_t >= 0      # at least the matched anchors: every box has one
+    logp = nd.log_softmax(cls_preds, axis=-1)
+    ce = -nd.pick(logp, nd.relu(cls_t), axis=-1) * valid
+    loc = nd.smooth_l1((loc_preds - box_t) * box_m, scalar=1.0)
+    return ce.sum(), loc.sum(), valid.sum()
+
+
+def _ssd_loss(mx, anchors, cls_preds, loc_preds, y, targets=None):
+    """Softmax cross-entropy over the non-ignored anchors plus smooth-L1
+    (sigma 1) on the matched boxes' offsets, both over the count of
+    non-ignored anchors; against `targets`, else this forward's
+    (:func:`_ssd_targets`)."""
+    if targets is None:
+        targets = _ssd_targets(anchors, cls_preds, y)
+    ce, loc, valid = _ssd_loss_terms(cls_preds, loc_preds, targets)
+    return (ce + loc) / valid
+
+
+def _ssd_eval(mx, net, x, y, targets=None, bf16=False):
+    """The loss of a forward outside autograd against `targets` (this
+    forward's own when None): (loss, the targets). Fixed targets make
+    the loss one objective from step to step; a step's own are not,
+    since mining picks the negatives the net scores worst just then."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.pause():
+        anchors, cls_preds, loc_preds = net(x)
+        if bf16:
+            cls_preds = cls_preds.astype("float32")
+            loc_preds = loc_preds.astype("float32")
+        if targets is None:
+            targets = _ssd_targets(anchors, cls_preds, y)
+        loss = _ssd_loss(mx, anchors, cls_preds, loc_preds, y, targets)
+    return float(loss.asnumpy().ravel()[0]), targets
+
+
+def _ssd_step(mx, net, trainer, x, y, bf16=False, workers=1):
+    """One step; the loss is a mean already, so the update takes the
+    mean of the `workers`' gradients."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        anchors, cls_preds, loc_preds = net(x)
+        if bf16:
+            cls_preds = cls_preds.astype("float32")
+            loc_preds = loc_preds.astype("float32")
+        loss = _ssd_loss(mx, anchors, cls_preds, loc_preds, y)
+    loss.backward()
+    trainer.step(workers)
+    return loss
+
+
+def _ssd_rates(mx, card_line):
+    """Part 1: train img/s at b32 through gluon.Trainer (fp32 with TF32
+    off, bf16 over fp32 masters): warmup steps, then the median of
+    windows each closed by a host readback; one torch.profiler line a
+    dtype."""
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.profile_serving import _profile
+
+    c = SSD300
+    xs, ys = _ssd_scenes(c["batch"], SEED)
+    y = nd.array(ys, ctx=mx.gpu(0))
+    out = {}
+    for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
+        net = _ssd300(mx, mx.gpu(0))
+        if dtype:
+            net.cast(dtype)
+        x = nd.array(xs, ctx=mx.gpu(0), dtype=dtype or "float32")
+        trainer = gluon.Trainer(net.collect_params(), "sgd", dict(
+            c["opt"], multi_precision=dtype is not None))
+
+        def step():
+            return _ssd_step(mx, net, trainer, x, y, dtype is not None)
+
+        loss = step()
+        initial = float(loss.asnumpy().ravel()[0])  # before any update
+        for _ in range(c["warmup"] - 1):
+            loss = step()
+        first = float(loss.asnumpy().ravel()[0])
+        rates, means = [], []
+        for _ in range(c["windows"]):
+            t0 = time.perf_counter()
+            held = [step().detach() for _ in range(c["iters"])]
+            last = float(held[-1].asnumpy().ravel()[0])   # closes the window
+            rates.append(c["batch"] * c["iters"] /
+                         (time.perf_counter() - t0))
+            means.append(float(np.mean([l.asnumpy().ravel()[0]
+                                        for l in held])))
+        check(np.all(np.isfinite(means)) and last < initial and
+              means[-1] <= (1 - c["loss_drop"]) * means[0],
+              "SSD300 %s: the loss did not fall by %g over the timed "
+              "windows: first step %r, window means %s"
+              % (tag, c["loss_drop"], initial, means))
+        prof = _profile("ssd300 train %s b%d" % (tag, c["batch"]), step,
+                        iters=c["profile_iters"])
+        out[tag] = {"img_s": sorted(rates)[len(rates) // 2],
+                    "img_s_windows": rates,
+                    "ms_per_step": c["batch"] * 1e3 /
+                    sorted(rates)[len(rates) // 2],
+                    "loss_first_step": initial,
+                    "loss_after_warmup": first, "loss_last": last,
+                    "loss_window_means": means,
+                    "device_ms": prof["device_ms"],
+                    "idle_share": prof["idle_share"],
+                    "top_kernels": prof["top_kernels"][:3],
+                    "card": card_line}
+        log(json.dumps({"check": "ssd300 train", "dtype": tag, **out[tag]}))
+        del net, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_ssd_loss(card_line, steps=24, deterministic=False, bf16=False):
+    """Part 1's fp32 (or bf16) training at b32, step by step, with no
+    check: each step's loss, its cross-entropy and smooth-L1 sums, the
+    matched and the mined anchors, and the loss of the same weights
+    against the targets frozen after the warmup. With `deterministic`,
+    cuDNN's deterministic algorithms without autotuning. Not run by
+    main(): `python3 -c "import chip_smoke as c; c.phase_build();
+    c.probe_ssd_loss(c.phase_device(), deterministic=True)"`."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    c = SSD300
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = deterministic
+    if deterministic:
+        torch.backends.cudnn.benchmark = False
+    try:
+        xs, ys = _ssd_scenes(c["batch"], SEED)
+        dtype = "bfloat16" if bf16 else None
+        net = _ssd300(mx, mx.gpu(0))
+        if dtype:
+            net.cast(dtype)
+        x = nd.array(xs, ctx=mx.gpu(0), dtype=dtype or "float32")
+        y = nd.array(ys, ctx=mx.gpu(0))
+        trainer = gluon.Trainer(net.collect_params(), "sgd", dict(
+            c["opt"], multi_precision=bf16))
+        frozen, rows = None, []
+        for i in range(c["warmup"] + steps):
+            if i == c["warmup"]:
+                _, frozen = _ssd_eval(mx, net, x, y, bf16=bf16)
+            fixed = _ssd_eval(mx, net, x, y, frozen, bf16)[0] \
+                if frozen is not None else None
+            with autograd.record():
+                anchors, cls_preds, loc_preds = net(x)
+                if bf16:
+                    cls_preds = cls_preds.astype("float32")
+                    loc_preds = loc_preds.astype("float32")
+                targets = _ssd_targets(anchors, cls_preds, y)
+                ce, loc, valid = _ssd_loss_terms(cls_preds, loc_preds,
+                                                 targets)
+                loss = (ce + loc) / valid
+            loss.backward()
+            trainer.step(1)
+            matched = float(targets[1].sum().asnumpy().ravel()[0]) / 4
+            rows.append({
+                "step": i, "loss": float(loss.asnumpy().ravel()[0]),
+                "ce_sum": float(ce.asnumpy().ravel()[0]),
+                "loc_sum": float(loc.asnumpy().ravel()[0]),
+                "matched": matched,
+                "mined": float(valid.asnumpy().ravel()[0]) - matched,
+                "loss_frozen_targets": fixed})
+        line = {"probe": "ssd300_loss", "card": card_line,
+                "dtype": "bfloat16" if bf16 else "float32",
+                "cudnn_deterministic": deterministic, "steps": rows}
+        log(json.dumps(line))
+        return line
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _ssd_f64_step(mx):
+    """Part 2: one float64 step at b2 from the same weights on the card
+    and on the host: relative L2 of the loss, the outputs and every
+    gradient."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon.utils import params_from_numpy, relative_names
+
+    c = SSD300
+    xs, ys = _ssd_scenes(c["f64_batch"], SEED + 1)
+    got = {}
+    weights = None
+    for where, ctx in (("card", mx.gpu(0)), ("host", mx.cpu())):
+        with ctx:
+            net = _ssd300(mx, ctx)
+            if weights is None:
+                weights = {n: p.data(ctx).asnumpy()
+                           for n, p in net.collect_params().items()}
+                prefix = net.prefix
+            else:
+                params_from_numpy(net, weights, prefix=prefix)
+            net.cast("float64")
+            x = nd.array(xs, ctx=ctx, dtype="float64")
+            y = nd.array(ys, ctx=ctx, dtype="float64")
+            with autograd.record():
+                anchors, cls_preds, loc_preds = net(x)
+                loss = _ssd_loss(mx, anchors, cls_preds, loc_preds, y)
+            loss.backward()
+            rel = relative_names(list(net.collect_params().keys()),
+                                 net.prefix)
+            got[where] = {
+                "loss": loss.asnumpy(), "cls": cls_preds.asnumpy(),
+                "loc": loc_preds.asnumpy(),
+                "grads": np.concatenate([
+                    p.grad(ctx).asnumpy().ravel() for n, p in sorted(
+                        net.collect_params().items(),
+                        key=lambda kv: rel[kv[0]])])}
+            del net
+    errs = {k: _rel_l2({k: got["card"][k]}, {k: got["host"][k]})
+            for k in ("loss", "cls", "loc", "grads")}
+    for k, err in errs.items():
+        check(err <= ZOO_F64_REL_L2, "SSD300 float64 %s on the card vs the "
+              "host: relative L2 %.3g" % (k, err))
+    return errs
+
+
+class _NmsRoute:
+    """Within: D1's calls go to its plain version (on the same tensors),
+    and each call's arguments are kept in `calls`."""
+
+    def __init__(self, plain=False):
+        self.plain, self.calls = plain, []
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import detection_ops as det
+
+        self._kernel = det.nms_sorted
+
+        def route(boxes, valid, cls_ids, thresh, iou_mode=det.IOU_CORNER,
+                  quota=None):
+            args = (boxes, valid, cls_ids, thresh, iou_mode, quota)
+            self.calls.append(args)
+            if self.plain:
+                return det.nms_sorted_reference(
+                    *args[:5], valid.shape[1] if quota is None else quota)
+            return self._kernel(*args)
+
+        det.nms_sorted = route
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.ops import detection_ops as det
+
+        det.nms_sorted = self._kernel
+
+
+def _ssd_decode(mx):
+    """Part 3: MultiBoxDetection (SSD300["detect"]) over a b32 forward of
+    the trained net's shape: ms, D1's launches on that path, and the
+    kernel route's output equal to the plain route's on the card bit
+    for bit. Returns (row, D1's inputs as the path gave them)."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    c = SSD300
+    net = _ssd300(mx, mx.gpu(0))
+    xs, _ = _ssd_scenes(c["batch"], SEED + 2)
+    with autograd.pause():
+        anchors, cls_preds, loc_preds = net(nd.array(xs, ctx=mx.gpu(0)))
+        cls_prob = cls_preds.softmax(axis=-1).transpose((0, 2, 1))
+
+        def decode():
+            return nd.contrib.MultiBoxDetection(
+                cls_prob, loc_preds, anchors, **c["detect"])
+
+        det.NMS_LAUNCHES = 0            # the main path starts here
+        with _NmsRoute() as kernel_route:
+            got = decode()
+            torch.cuda.synchronize()
+        launches = det.NMS_LAUNCHES     # read just after it
+        with _NmsRoute(plain=True):
+            want = decode()
+        ms = time_ms(decode, iters=10)
+    same = torch.equal(got._data, want._data)
+    kept = int((got._data[..., 0] >= 0).sum())
+    check(same, "MultiBoxDetection: the kernel route's output differs from "
+          "the plain route's on the card")
+    check(launches == 1, "MultiBoxDetection launched D1 %d times" % launches)
+    del net
+    torch.cuda.empty_cache()
+    return {"batch": c["batch"], "anchors": c["anchors"], **c["detect"],
+            "ms": ms, "d1_launches": launches, "detections_kept": kept,
+            "kernel_equals_plain_route": same}, kernel_route.calls[0]
+
+
+def _time_wire(kv):
+    """Time kv.push and kv.pull in place: returns the totals (reset them
+    to start a window) and a function that restores the store."""
+    wire = {"push_s": 0.0, "pull_s": 0.0, "push_bytes": 0}
+    push, pull = kv.push, kv.pull
+
+    def timed_push(key, value, priority=0):
+        vals = value if isinstance(value, (list, tuple)) else [value]
+        wire["push_bytes"] += vals[0].size * vals[0]._data.element_size()
+        t0 = time.perf_counter()
+        push(key, value, priority)
+        wire["push_s"] += time.perf_counter() - t0
+
+    def timed_pull(key, out=None, priority=0, ignore_sparse=True):
+        t0 = time.perf_counter()
+        pull(key, out=out, priority=priority)
+        wire["pull_s"] += time.perf_counter() - t0
+
+    def restore():
+        kv.push, kv.pull = push, pull
+
+    kv.push, kv.pull = timed_push, timed_pull
+    return wire, restore
+
+
+def _await_role_records(outdir):
+    """In a worker, after kv.close(): wait for the scheduler's and the
+    servers' records (the launcher kills every role once the workers are
+    gone)."""
+    import os
+
+    deadline = time.time() + 60
+    want = {"scheduler": 1, "server": int(os.environ["DMLC_NUM_SERVER"])}
+    while time.time() < deadline and any(
+            len(v) < want[k] for k, v in _dist_role_records(outdir).items()):
+        time.sleep(0.1)
+
+
+def _dist_part_ssd(outdir):
+    """Phase 20 part 4, a worker of `-n 2 -s 1`: SSD300-VGG16 fp32 (TF32
+    off) at b32 through gluon.Trainer(kvstore="dist_sync")."""
+    import hashlib
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = SSD300
+    kv = mx.kv.create("dist_sync")
+    r = kv.rank
+    net = _ssd300(mx, mx.gpu(0))
+    xs, ys = _ssd_scenes(c["batch"], SEED + 10 + r)
+    x, y = nd.array(xs, ctx=mx.gpu(0)), nd.array(ys, ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(c["opt"]),
+                            kvstore=kv)
+    wire, restore = _time_wire(kv)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def digest():
+        h = hashlib.sha256()
+        for p in params:
+            h.update(p.data()._data.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    d0 = (det.NMS_LAUNCHES, det.ROI_POOL_LAUNCHES, det.ROI_POOL_BWD_LAUNCHES)
+    losses, digests, step_s, apply_s = [], [], [], []
+    for i in range(c["dist_warmup"] + c["dist_steps"]):
+        if i == c["dist_warmup"]:
+            wire.update(push_s=0.0, pull_s=0.0, push_bytes=0)
+        a0 = sum(s["apply_seconds"] for s in kv.server_stats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _ssd_step(mx, net, trainer, x, y, workers=kv.num_workers)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(loss.asnumpy().ravel()[0]))
+        digests.append(digest())
+        if i >= c["dist_warmup"]:
+            step_s.append(dt)
+            apply_s.append(sum(s["apply_seconds"]
+                               for s in kv.server_stats()) - a0)
+    restore()
+    n = c["dist_steps"]
+    _dist_result({
+        "part": "dist_sync_ssd300", "rank": r,
+        "img_s": c["batch"] * n / sum(step_s),
+        "step_ms": [s * 1e3 for s in step_s],
+        "push_ms_per_step": wire["push_s"] * 1e3 / n,
+        "pull_ms_per_step": wire["pull_s"] * 1e3 / n,
+        "server_apply_ms_per_step": float(np.mean(apply_s)) * 1e3,
+        "push_mb_per_step": wire["push_bytes"] / n / 1e6,
+        "losses": losses, "digests": digests,
+        "d1_d2_launches": [a - b for a, b in zip(
+            (det.NMS_LAUNCHES, det.ROI_POOL_LAUNCHES,
+             det.ROI_POOL_BWD_LAUNCHES), d0)]})
+    kv.close()
+    _await_role_records(outdir)
+
+
+def _ssd_dist_witness(steps):
+    """Rank 0's losses as one process on the card gives them: both
+    workers' batches from the same weights, each step on the mean of
+    their losses (the mean of their gradients, which the server
+    applies), through a ``gluon.Trainer`` without a store."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    c = SSD300
+    net = _ssd300(mx, mx.gpu(0))
+    batches = [[nd.array(a, ctx=mx.gpu(0))
+                for a in _ssd_scenes(c["batch"], SEED + 10 + r)]
+               for r in range(2)]
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(c["opt"]))
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            per = [_ssd_loss(mx, *net(x), y) for x, y in batches]
+            loss = (per[0] + per[1]) / 2
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(per[0].asnumpy().ravel()[0]))
+    del net, trainer
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _ssd_dist(card_line):
+    """Part 4: two workers sharing the card, one server and the scheduler
+    on the host; rank 0's losses against :func:`_ssd_dist_witness`."""
+    import shutil
+    import tempfile
+
+    outdir = tempfile.mkdtemp(prefix="phase20_")
+    try:
+        t0 = time.perf_counter()
+        res = _dist_launch("ssd", 2, 1, outdir)
+        roles = _dist_role_records(outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    rank0 = next(p for p in res if p["rank"] == 0)
+    line = {"part": "dist_sync_ssd300", "card": card_line,
+            "batch_per_worker": SSD300["batch"], "dtype": "float32",
+            "img_s_summed": sum(p["img_s"] for p in res),
+            "img_s_per_worker": [p["img_s"] for p in res],
+            "losses_rank0": rank0["losses"],
+            "workers_bit_for_bit_every_step":
+                res[0]["digests"] == res[1]["digests"],
+            "cuda_initialised_in": roles,
+            "d1_d2_launches_per_worker": [p["d1_d2_launches"] for p in res],
+            "seconds": time.perf_counter() - t0}
+    witness = _ssd_dist_witness(len(rank0["losses"]))
+    line["witness_losses"] = witness
+    line["witness_max_rel_gap"] = max(
+        abs(a - b) / abs(b) for a, b in zip(rank0["losses"], witness))
+    for k in ("push_ms_per_step", "pull_ms_per_step",
+              "server_apply_ms_per_step", "push_mb_per_step"):
+        line[k] = [p[k] for p in res]
+    log(json.dumps(line))
+    check(line["workers_bit_for_bit_every_step"],
+          "phase 20 dist_sync: the workers' pulled weights differ")
+    check(all(np.isfinite(rank0["losses"])) and
+          rank0["losses"][-1] < rank0["losses"][0],
+          "phase 20 dist_sync: loss %s" % rank0["losses"])
+    check(line["witness_max_rel_gap"] <= SSD300["dist_witness_rtol"],
+          "phase 20 dist_sync: rank 0's losses %s against the in-process "
+          "mean-gradient witness's %s" % (rank0["losses"], witness))
+    check(len(roles["scheduler"]) == 1 and len(roles["server"]) == 1,
+          "phase 20 dist_sync: the scheduler and the server did not both "
+          "record their CUDA state at exit: %s" % roles)
+    check(not any(roles["scheduler"] + roles["server"]),
+          "phase 20 dist_sync: a scheduler or server process initialised "
+          "CUDA: %s" % roles)
+    return line
+
+
+def _det_rois(gen, dev, n, dtype):
+    """`n` ROIs [0, x1, y1, x2, y2] in a RCNN_IMAGE (height, width) image:
+    corners uniform, sides 16-400 pixels."""
+    h, w = RCNN_IMAGE
+    wh = torch.empty((n, 2), device=dev, dtype=dtype).uniform_(
+        16, 400, generator=gen)
+    xy = torch.rand((n, 2), device=dev, dtype=dtype, generator=gen) * \
+        (torch.tensor([w, h], device=dev, dtype=dtype) - wh)
+    return torch.cat([torch.zeros((n, 1), device=dev, dtype=dtype), xy,
+                      xy + wh], dim=1)
+
+
+def _det_cases(mx):
+    """One _Case per detection operator (13 operators, 33 names) at the
+    widths of its model, in float64 on the card."""
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    f64 = torch.float64
+    c = SSD300
+    b, a = c["batch"], c["anchors"]
+    cases = []
+
+    def add(op, family, make, grad=None, wrt=None):
+        cases.append(_Case(op, family, make, grad=grad, wrt=wrt,
+                           rows=False))
+
+    def priors(dev):
+        ps = []
+        for i, side in enumerate((38, 19, 10, 5, 3, 1)):
+            step = c["steps"][i] / c["side"]
+            ps.append(det._multibox_prior(
+                torch.zeros((1, 1, side, side), device=dev),
+                sizes=c["sizes"][i], ratios=c["ratios"][i],
+                steps=(step, step)))
+        return torch.cat(ps, dim=1).to(f64)
+
+    def labels(gen, dev):
+        _, ys = _ssd_scenes(b, SEED + 3)
+        return torch.from_numpy(ys).to(dev, f64)
+
+    def detections(gen, dev):
+        """SSD's decoded boxes (B, A, 6) [cls, score, corners]."""
+        probs = torch.softmax(torch.randn((b, a, c["classes"]), device=dev,
+                                          dtype=f64, generator=gen) * 3, -1)
+        score, cls = probs[..., 1:].max(-1)
+        cx, cy = torch.rand((2, b, a), device=dev, dtype=f64, generator=gen)
+        wh = torch.empty((2, b, a), device=dev, dtype=f64).uniform_(
+            0.05, 0.5, generator=gen)
+        return torch.stack([cls.to(f64), score, cx - wh[0] / 2,
+                            cy - wh[1] / 2, cx + wh[0] / 2, cy + wh[1] / 2],
+                           dim=-1)
+
+    add("_contrib_MultiBoxPrior", "nn", lambda gen, dev: (
+        [torch.zeros((1, 512, 38, 38), device=dev, dtype=f64)],
+        {"sizes": c["sizes"][0], "ratios": c["ratios"][0],
+         "steps": (8 / 300, 8 / 300)}))
+    add("_contrib_MultiBoxTarget", "nn", lambda gen, dev: (
+        [priors(dev), labels(gen, dev),
+         torch.randn((b, c["classes"], a), device=dev, dtype=f64,
+                     generator=gen)], dict(c["target"])))
+    add("_contrib_bipartite_matching", "ordering", lambda gen, dev: (
+        [det._box_iou(priors(dev)[0], labels(gen, dev)[:, :, 1:])],
+        {"threshold": 1e-12}))
+    add("_contrib_box_iou", "nn", lambda gen, dev: (
+        [priors(dev)[0], labels(gen, dev)[:, :, 1:].reshape(-1, 4)], {}))
+    add("_contrib_box_nms", "matrix", lambda gen, dev: (
+        [detections(gen, dev)],
+        {"overlap_thresh": c["detect"]["nms_threshold"],
+         "topk": c["detect"]["nms_topk"], "valid_thresh": 0.01,
+         "coord_start": 2, "score_index": 1, "id_index": 0}))
+    add("_contrib_MultiBoxDetection", "nn", lambda gen, dev: (
+        [torch.softmax(torch.randn((b, c["classes"], a), device=dev,
+                                   dtype=f64, generator=gen) * 3, 1),
+         torch.randn((b, a * 4), device=dev, dtype=f64, generator=gen)
+         * 0.5, priors(dev)], dict(c["detect"])))
+    feat = lambda gen, dev: torch.randn(  # noqa: E731
+        RCNN_MAP, device=dev, dtype=f64, generator=gen)
+    add("ROIPooling", "matrix", lambda gen, dev: (
+        [feat(gen, dev), _det_rois(gen, dev, RCNN_ROIS, f64)],
+        {"pooled_size": (7, 7), "spatial_scale": 1 / 16}), "head", [0])
+    add("_contrib_ROIAlign", "resampling", lambda gen, dev: (
+        [feat(gen, dev), _det_rois(gen, dev, RCNN_ROIS, f64)],
+        {"pooled_size": (7, 7), "spatial_scale": 1 / 16,
+         "sample_ratio": 2}), "head", [0])
+    ch, hh, ww = RCNN_MAP[1:]
+
+    def rpn(gen, dev, n):
+        return [torch.rand((n, 24, hh, ww), device=dev, dtype=f64,
+                           generator=gen),
+                torch.randn((n, 48, hh, ww), device=dev, dtype=f64,
+                            generator=gen) * 0.2,
+                torch.tensor([[RCNN_IMAGE[0], RCNN_IMAGE[1], 1.0]] * n,
+                             device=dev, dtype=f64)]
+
+    add("_contrib_Proposal", "nn", lambda gen, dev: (
+        rpn(gen, dev, 1), {"output_score": True}))
+    add("_contrib_MultiProposal", "nn", lambda gen, dev: (
+        rpn(gen, dev, 2), {"output_score": True}))
+    add("_contrib_DeformableConvolution", "nn", lambda gen, dev: (
+        [feat(gen, dev),
+         torch.randn((1, 18, hh, ww), device=dev, dtype=f64,
+                     generator=gen) * 2,
+         torch.randn((ch, ch, 3, 3), device=dev, dtype=f64,
+                     generator=gen) * 0.02,
+         torch.randn((ch,), device=dev, dtype=f64, generator=gen)],
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": ch}), "head")
+    add("_contrib_DeformablePSROIPooling", "resampling", lambda gen, dev: (
+        [torch.randn((1, 21 * 49, hh, ww), device=dev, dtype=f64,
+                     generator=gen), _det_rois(gen, dev, RCNN_ROIS, f64),
+         torch.randn((RCNN_ROIS, 2, 7, 7), device=dev, dtype=f64,
+                     generator=gen)],
+        {"spatial_scale": 1 / 16, "output_dim": 21, "group_size": 7,
+         "pooled_size": 7, "part_size": 7, "sample_per_part": 4,
+         "trans_std": 0.1}), "head", [0, 2])
+    add("Correlation", "nn", lambda gen, dev: (
+        [torch.randn(FLOWNET, device=dev, dtype=f64, generator=gen)
+         for _ in range(2)],
+        {"kernel_size": 1, "max_displacement": 20, "stride1": 1,
+         "stride2": 2, "pad_size": 20}), "head")
+    return cases
+
+
+def _det_sweep(mx, dev="cuda"):
+    """Part 5: each detection operator once on the card against the host
+    in float64, forward and, where it has one, gradient, within
+    SURFACE_TOL; every one of the 33 names resolves to one of them."""
+    from mxnet_tpu_torch.ops import registry
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst, seconds = {}, {}
+    for case in _det_cases(mx):
+        t0 = time.perf_counter()
+        inputs, attrs = case.make(gen, dev)
+        heads = []
+
+        def card_head(shape, like):
+            h = torch.empty(shape, dtype=like.dtype,
+                            device=like.device).uniform_(0.5, 1.5,
+                                                         generator=gen)
+            heads.append(h)
+            return h
+
+        def host_head(shape, like):
+            return _to_host(heads[0], like.dtype).reshape(shape)
+
+        got = _run_case(mx, case, inputs, attrs, mx.gpu(0), card_head)
+        host_in = [_to_host(t, case.host_dtype) for t in inputs]
+        with mx.cpu():
+            want = _run_case(mx, case, host_in, attrs, mx.cpu(), host_head)
+        share = _compare_case(case, got, want, host_in, None)
+        check(share <= 1.0, "detection op %s on the card vs the host: %.3g "
+              "of its limit" % (case.op, share))
+        worst[case.op] = share
+        seconds[case.op] = time.perf_counter() - t0
+        del got, want, inputs, host_in
+        torch.cuda.empty_cache()
+    ops = {registry.get(n).name for n in DETECTION_NAMES}
+    check(set(worst) == ops and len(DETECTION_NAMES) == 33,
+          "phase 20 sweep: operators %s, registered %s"
+          % (sorted(worst), sorted(ops)))
+    return {"names": len(DETECTION_NAMES), "operators": len(worst),
+            "worst_share_of_limit": worst, "seconds": seconds}
+
+
+def _nms_pairs(keep_idx, n_kept, n):
+    """IoU tests the data needs: each kept box against every later box
+    of its image."""
+    pos = torch.arange(keep_idx.shape[1], device=keep_idx.device)
+    later = (n - 1 - keep_idx).clamp_min(0)
+    return int(torch.where(pos[None] < n_kept[:, None], later,
+                           torch.zeros_like(later)).sum())
+
+
+def _d1_row(card, calls):
+    """D1 against its plain version on the card at each path's shape:
+    keep, kept positions and counts bit for bit; time, plain time and
+    the bound at the first shape (SSD's decode); every shape listed."""
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    shapes, row = [], None
+    for tag, args in calls:
+        boxes, valid, cls_ids, thresh, mode, quota = args
+        b, n = valid.shape
+        got = det.nms_sorted(*args)
+        want = det.nms_sorted_reference(*args[:5], n if quota is None
+                                        else quota)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        check(same, "D1 at %s: the keep mask differs from the plain "
+              "version's" % tag)
+        pairs = _nms_pairs(got[1], got[2], n)
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     [boxes, valid] + ([cls_ids] if cls_ids is not None
+                                       else []) + list(got))
+        peak = PEAKS["H100" if "H100" in card else "H200"]
+        bound = max(nbytes / peak["bytes"],
+                    pairs * D1_OPS_PER_PAIR / peak["float32"]) * 1e3
+        ms = time_ms(lambda: det.nms_sorted(*args), iters=10)
+        plain_ms = time_ms(lambda: det.nms_sorted_reference(
+            *args[:5], n if quota is None else quota), iters=2, warmup=1)
+        shape = {"path": tag, "batch": b, "boxes": n, "quota": quota,
+                 "iou": "legacy" if mode == det.IOU_LEGACY else "corner",
+                 "dtype": str(boxes.dtype).split(".")[1],
+                 "kept": int(got[2].sum()), "iou_pairs_needed": pairs,
+                 "ms": ms, "device_ms": time_queued(
+                     lambda: det.nms_sorted(*args), reps=5, iters=5),
+                 "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": "bytes" if nbytes / peak["bytes"] >
+                 pairs * D1_OPS_PER_PAIR / peak["float32"] else "operations",
+                 "bound_share": bound / ms, "bit_for_bit": same}
+        shapes.append(shape)
+        if row is None:
+            row = {"name": "D1 nms_mask_kernel + nms_scan_kernel",
+                   "route": "cuda",
+                   "source": "mxnet_tpu_torch/csrc/detection.cu",
+                   "replaces": "mxnet_tpu/ops/detection_ops.py:234 "
+                               "(_nms_mask, XLA; no Pallas kernel)",
+                   "max_abs_err": 0.0, "library_ms": None,
+                   **{k: shape[k] for k in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")}}
+    row["shapes"] = shapes
+    row["library"] = "none: torch has no NMS call"
+    return row
+
+
+def _d2_rows(card, dev="cuda"):
+    """D2's forward and backward against their plain versions on the card
+    at Faster R-CNN's ROIPooling shape (fp32): the forward and its
+    argmax bit for bit, the gradient within D2_BWD_TOL; times, plain
+    times and bytes bounds."""
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    data = torch.randn(RCNN_MAP, device=dev, generator=gen)
+    rois = _det_rois(gen, dev, RCNN_ROIS, torch.float32)
+    pooled, scale = (7, 7), 1 / 16
+    out, am = det.roi_pool_forward(data, rois, pooled, scale)
+    want, want_am = det.roi_pool_forward_reference(data, rois, pooled, scale)
+    fwd_same = torch.equal(out, want) and torch.equal(am, want_am)
+    check(fwd_same, "D2 forward differs from its plain version")
+    grad = torch.rand(out.shape, device=dev, generator=gen)
+    gk = det.roi_pool_backward(grad, am, data.shape)
+    gp = det.roi_pool_backward_reference(grad, am, data.shape)
+    rtol, atol_rel = D2_BWD_TOL
+    share = _share(gk, gp, rtol, atol_rel)
+    check(share <= 1.0, "D2 backward: %.3g of its tolerance" % share)
+    peak = PEAKS["H100" if "H100" in card else "H200"]
+    common = {"route": "cuda", "source": "mxnet_tpu_torch/csrc/detection.cu",
+              "replaces": "mxnet_tpu/ops/detection_ops.py:376 (ROIPooling, "
+                          "XLA; no Pallas kernel)",
+              "library_ms": None,
+              "library": "none: torch has no ROI pooling call",
+              "shape": {"data": list(RCNN_MAP), "rois": RCNN_ROIS,
+                        "pooled": list(pooled), "spatial_scale": scale,
+                        "dtype": "float32"},
+              "bound_by": "bytes"}
+    fwd_bytes = sum(t.numel() * t.element_size()
+                    for t in (data, rois, out, am))
+    bwd_bytes = sum(t.numel() * t.element_size() for t in (grad, am, gk))
+    rows = []
+    for name, fn, plain, nbytes, err in (
+            ("D2 roi_pool_fwd_kernel",
+             lambda: det.roi_pool_forward(data, rois, pooled, scale),
+             lambda: det.roi_pool_forward_reference(data, rois, pooled,
+                                                    scale),
+             fwd_bytes, 0.0),
+            ("D2 roi_pool_bwd_kernel",
+             lambda: det.roi_pool_backward(grad, am, data.shape),
+             lambda: det.roi_pool_backward_reference(grad, am, data.shape),
+             bwd_bytes, float((gk - gp).abs().max()))):
+        ms = time_ms(fn, iters=10)
+        bound = nbytes / peak["bytes"] * 1e3
+        rows.append({"name": name, **common, "ms": ms,
+                     "device_ms": time_queued(fn, reps=5, iters=5),
+                     "plain_ms": time_ms(plain, iters=3, warmup=1),
+                     "bound_ms": bound, "bound_share": bound / ms,
+                     "bytes": nbytes, "max_abs_err": err})
+    rows[0]["bit_for_bit"] = fwd_same
+    rows[1]["tolerance"] = D2_BWD_TOL
+    rows[1]["share_of_tolerance"] = share
+    return rows
+
+
+def _det_launches():
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    return (det.NMS_LAUNCHES, det.ROI_POOL_LAUNCHES,
+            det.ROI_POOL_BWD_LAUNCHES)
+
+
+def _reset_det_launches():
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    det.NMS_LAUNCHES = det.ROI_POOL_LAUNCHES = det.ROI_POOL_BWD_LAUNCHES = 0
+
+
+def _proposal_nms_call(mx, dev="cuda"):
+    """D1's arguments as Proposal gives them at the JAX defaults over a
+    38x63 map (fp32), and its rois."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray, _invoke
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    hh, ww = RCNN_MAP[2:]
+    inputs = [torch.rand((1, 24, hh, ww), device=dev, generator=gen),
+              torch.randn((1, 48, hh, ww), device=dev, generator=gen)
+              * 0.2, torch.tensor([[RCNN_IMAGE[0], RCNN_IMAGE[1], 1.0]],
+                                  device=dev)]
+    with _NmsRoute() as route, mx.gpu(0):
+        _invoke("_contrib_Proposal", [NDArray(t, ctx=mx.gpu(0))
+                                      for t in inputs])
+    return route.calls[0]
+
+
+def phase_detection(card_line):
+    """Phase 20: detection on the card (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import train_rcnn
+
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    card = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    seconds = {}
+    result = {"phase": "detection", "card": card_line,
+              "config": "SSD300-VGG16, 21 classes, 8732 anchors, b32"}
+    launches = {}
+
+    def part(name, fn, path=True):
+        t0 = time.perf_counter()
+        if path:
+            _reset_det_launches()       # the path starts here
+        out = fn()
+        if path:
+            launches[name] = _det_launches()    # read just after it
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    result["train"] = part("ssd300_train", lambda: _ssd_rates(mx, card_line))
+    result["f64_rel_l2"] = part("ssd300_f64_step", lambda: _ssd_f64_step(mx))
+    result["decode"], ssd_call = part("ssd300_decode",
+                                      lambda: _ssd_decode(mx), path=False)
+    # The decode path is its one MultiBoxDetection call, read there.
+    launches["ssd300_decode"] = (result["decode"]["d1_launches"], 0, 0)
+    result["dist"] = part("ssd300_dist_sync", lambda: _ssd_dist(card_line))
+    result["dist_worker_launches"] = result["dist"][
+        "d1_d2_launches_per_worker"]
+    result["sweep"] = part("op_sweep", lambda: _det_sweep(mx))
+    result["rcnn_example_rpn_losses"] = part(
+        "rcnn_example", lambda: train_rcnn.run(steps=20, ctx=mx.gpu(0)))
+    kernels = part("kernels", lambda: [_d1_row(card, [
+        ("ssd300_decode", ssd_call),
+        ("proposal_op", _proposal_nms_call(mx))])] + _d2_rows(card),
+        path=False)
+    result["launches"] = launches
+    result["seconds_by_part"] = seconds
+    result["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(result))
+    for row in kernels:
+        log(json.dumps({"check": "detection kernel", **row}))
+    check(launches["ssd300_train"] == (0, 0, 0), "SSD300 training launched "
+          "D1/D2: %s" % (launches["ssd300_train"],))
+    check(launches["ssd300_decode"][0] > 0, "the SSD decode path did not "
+          "launch D1")
+    check(launches["op_sweep"][0] > 0 and launches["op_sweep"][1] > 0 and
+          launches["op_sweep"][2] > 0, "the op sweep did not launch D1 and "
+          "D2: %s" % (launches["op_sweep"],))
+    # The example trains its head on pooled features outside the graph,
+    # as the JAX package's does: D2's backward is not on its path.
+    check(launches["rcnn_example"][0] > 0 and launches["rcnn_example"][1] > 0,
+          "the Faster R-CNN example did not launch D1 and D2's forward: %s"
+          % (launches["rcnn_example"],))
+    for row, k in zip(kernels, range(3)):
+        row["launches_by_path"] = {p: n[k] for p, n in launches.items()}
+        row["launches_by_path"]["ssd300_dist_sync_workers"] = sum(
+            w[k] for w in result["dist_worker_launches"])
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["card"] = card_line
+    return kernels
+
+
+# Each rank of a phase-19 or phase-20 part runs this file with
+# --dist-part <key>.
+_DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
+               "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd}
+
+
 def main():
     t_start = time.perf_counter()
+    _reset_det_launches()   # phases 1-12's path starts here
     card_line = phase_device()
     card = torch.cuda.get_device_name(0)
     phase_build()
@@ -5768,13 +6847,22 @@ def main():
     ckpt = phase_checkpoint_served()
     trainer = phase_resnet_trainer(card_line)
     attn_trainer, attn_trainer_ms = phase_attention_trainer(card_line)
+    det_reads = {"phases_1_12": _det_launches()}   # read just after it
     pipeline = phase_input_pipeline(card_line, synthetic)
     ckpt_path = phase_checkpoint(card_line)
     module = phase_module(card_line, trainer["fp32"]["img_s_b32"])
     recurrent = phase_recurrent(card_line)
     core = phase_core_surface(card_line, trainer["fp32"]["img_s_b32"])
     zoo = phase_model_zoo(card_line, synthetic["fp32"]["img_s_b32"])
+    _reset_det_launches()   # phase 19's path in this process starts here
     distributed = phase_distributed(card_line)
+    det_reads["distributed"] = _det_launches()    # read just after it
+    check(all(n == (0, 0, 0) for n in det_reads.values()),
+          "D1/D2 launched before phase 20: %s" % det_reads)
+    detection = phase_detection(card_line)
+    for k, entry in enumerate(detection):
+        for path, n in det_reads.items():
+            entry["launches_by_path"][path] = n[k]
     rtc_entries["scale_add"]["launches"] = direct["scale_add"]
     rtc_entries["relu"]["launches"] = direct["relu"]
     rtc_entries["bn_relu"]["launches"] = \
@@ -5816,22 +6904,25 @@ def main():
     # The input pipeline's (phase 13), the checkpoint's (14), the
     # Module's (15), the recurrent (16), the core surface's (17) and the
     # model zoo's (18) paths launch none of them.
+    # The detection kernels (D1, D2 forward, D2 backward) are read there
+    # too, and launch on phase 20's paths only.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
                        ("recurrent", recurrent["launches"]),
                        ("core_surface", core["launches"]),
                        ("model_zoo", zoo["launches"])):
-        for entry, n in zip([fwd, dkv, dq] + rtc_list,
+        for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],
                                                       read["scale_add"],
-                                                      read["relu"]]):
+                                                      read["relu"]]
+                            + list(read["d1_d2"])):
             entry.setdefault("launches_by_path", {})[path] = n
             entry["launches"] += n
     for entry in [fwd, dkv, dq] + rtc_list:
         entry["card"] = card_line
-    log(json.dumps({"kernels": [fwd, dkv, dq] + rtc_list,
+    log(json.dumps({"kernels": [fwd, dkv, dq] + rtc_list + detection,
                     "attention_train_step_ms": attn_step_ms,
                     "attention_trainer_step_ms": attn_trainer_ms}))
     log("total_seconds", round(time.perf_counter() - t_start, 3))

@@ -26,13 +26,19 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 
-# Every source of the port built by nvcc: the attention kernels and the
+# Every source of the port built by nvcc: the attention kernels, the
 # host-side launcher of the rtc kernels (which NVRTC compiles at run
-# time, csrc/rtc/).
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "rtc_launch")
+# time, csrc/rtc/) and the detection kernels.
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "rtc_launch",
+           "detection")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Flags of one source beside NVCC_FLAGS. The detection kernels round
+# every product and sum on their own (no FMA contraction), as their plain
+# PyTorch versions do, so that their results equal those bit for bit.
+EXTRA_FLAGS = {"detection": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -46,10 +52,14 @@ def _nvcc():
                        "build on a machine with the CUDA toolkit")
 
 
+def _flags(name):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name):
     """Library path of `name`, keyed by its source, every header under
     csrc/ (the kernels share them) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for path in [name + ".cu"] + headers:
         with open(os.path.join(CSRC, path), "rb") as f:
@@ -68,7 +78,7 @@ def build(names=SOURCES):
         procs = {}
         for name, target in missing.items():
             tmp = "%s.tmp%d" % (target, os.getpid())
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+            cmd = [nvcc, *_flags(name), "-o", tmp,
                    os.path.join(CSRC, name + ".cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,

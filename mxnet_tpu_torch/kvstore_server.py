@@ -744,13 +744,17 @@ class KVStoreServer:
 
     # -- I/O threads: enqueue only, never import ------------------------------
 
-    def _reader(self, conn):
+    def _reader(self, conn, on_close=None):
+        """Enqueue every message of `conn`; at its end, enqueue
+        `on_close` if given (the scheduler's connection: a scheduler that
+        is gone ends the job, as its "shutdown" would)."""
         try:
             while True:
                 msg = conn.recv()
                 self._queue.put((conn, msg))
         except (EOFError, OSError):
-            return
+            if on_close is not None:
+                self._queue.put((conn, on_close))
 
     def run(self):
         """Register with the scheduler, then execute requests on this
@@ -779,7 +783,7 @@ class KVStoreServer:
                                  daemon=True).start()
 
         threading.Thread(target=accept_loop, daemon=True).start()
-        threading.Thread(target=self._reader, args=(sched,),
+        threading.Thread(target=self._reader, args=(sched, ("shutdown",)),
                          daemon=True).start()
         # With MXNET_TRACE_DIR set, the server streams its own spans
         # (kvstore::apply under the round's trace context) as segments

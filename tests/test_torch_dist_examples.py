@@ -40,3 +40,27 @@ def test_train_imagenet_dist_sync_benchmark():
         m = re.search(r"^benchmark: resnet18 b4 float32 dist_sync on cpu\(0\):"
                       r" ([0-9.]+) img/s \(this worker\)$", o, re.M)
         assert m and float(m.group(1)) > 0, o
+
+
+def test_train_ssd_dist_sync_workers_hold_the_same_weights():
+    """Two workers train train_ssd against one server: both finish, rank
+    0 prints final-loss, and their weights are identical."""
+    code = (
+        "import hashlib\n"
+        "from mxnet_tpu_torch.examples import train_ssd as t\n"
+        "out = t.train(t.parse_args(['--device', 'cpu', '--kv-store', "
+        "'dist_sync', '--num-examples', '64', '--num-epochs', '2', "
+        "'--batch-size', '16']))\n"
+        "h = hashlib.sha256()\n"
+        "for p in out['net'].collect_params().values():\n"
+        "    h.update(p.data().asnumpy().tobytes())\n"
+        "print('weights', h.hexdigest())\n")
+    codes, outs = launch_local(2, 1, [sys.executable, "-c", code],
+                               env_extra=ENV, timeout=120, capture=True)
+    assert codes == [0, 0], "worker exit codes %s\n%s" % (
+        codes, "\n".join(err[-4000:] for _, err in outs))
+    digests = [re.search(r"^weights ([0-9a-f]+)$", o, re.M).group(1)
+               for o, _ in outs]
+    assert digests[0] == digests[1]
+    assert sum(bool(re.search(r"^final-loss [0-9.]+ recall [0-9.]+$", o,
+                              re.M)) for o, _ in outs) == 1

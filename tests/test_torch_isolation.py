@@ -109,7 +109,11 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.parallel.collectives, "
         "mxnet_tpu_torch.kvstore_dist, mxnet_tpu_torch.kvstore_server, "
         "mxnet_tpu_torch.telemetry.export, "
-        "mxnet_tpu_torch.examples.train_resnet_trainstep\n"
+        "mxnet_tpu_torch.examples.train_resnet_trainstep, "
+        "mxnet_tpu_torch.ops.detection_ops, mxnet_tpu_torch.ops.rcnn_ops, "
+        "mxnet_tpu_torch.image.detection, "
+        "mxnet_tpu_torch.examples.train_ssd, "
+        "mxnet_tpu_torch.examples.train_rcnn\n"
         "import importlib\n"
         "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"
