@@ -275,7 +275,32 @@ phase falls back to the host or to a plain version):
    masks and D2's forward bit for bit, D2's gradient within
    ``D2_BWD_TOL``; times, plain times and bounds.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) is driven with
+21. model placement, the ranks started by the port's launcher and
+   sharing the card over gloo (NCCL refuses two ranks on one card): (1)
+   ResNet-50 v1 b32 fp32 (TF32 off, cuDNN deterministic, SGD at
+   ``DIST_RESNET["opt"]``) at ``{"dp": 1, "tp": 2}``, 3 steps, the
+   gathered state after each step bit for bit that of a single-device
+   TrainStep on the same batch and weights (run first in rank 0); step
+   ms beside the single step's, the bytes of weights and optimizer
+   state a rank holds against the single step's, peak memory; (2) the
+   attention layer of phase 19 (bf16 over fp32 masters) at tp2, K1/K2/K3
+   once a step per rank, losses and state within phase 19's tolerances
+   of a single-device run (step ms beside it); (3) ResNet-50 at
+   ``{"dp": 2, "tp": 2}`` (four ranks, global batch 64, 2 steps) bit
+   for bit a ``{"dp": 2}`` run of the same batches (step ms of both),
+   then ``state_dict(sharded=True)`` through a four-process
+   ``CheckpointManager.save``, restored in rank 0 into a single-device
+   TrainStep: its state bit for bit the gathered one, its next loss
+   within 1e-5 of dp2 x tp2's; (4) in this process, ``group2ctx``:
+   tests/test_executor_groups.py's two-group symbol at ``{dev1:
+   gpu(0), dev2: cpu(0)}`` and the reverse against a bind on the card
+   (``PLACE_GROUPS_TOL``), outputs and gradients on their groups'
+   devices; ``examples.model_parallel_lstm`` with its groups on card,
+   host, card, host at phase 16's LM widths (step ms, bytes crossing a
+   step) and, over the example's vocabulary of 20, its own check that
+   the nll falls (``PLACE_LM``).
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -6824,10 +6849,539 @@ def phase_detection(card_line):
     return kernels
 
 
-# Each rank of a phase-19 or phase-20 part runs this file with
+# -- phase 21: model placement -------------------------------------------------
+
+# ResNet-50 v1 (fp32, TF32 off, cuDNN deterministic, SGD at
+# DIST_RESNET["opt"]): part 1 at {"dp": 1, "tp": 2} on one fixed batch of
+# 32 for `tp_steps`; part 3 at {"dp": 2, "tp": 2} and its {"dp": 2}
+# reference on global batches of 64 for `dp_steps`, then one more step
+# after the sharded checkpoint; then `dp_steps` more at {"dp": 2, "tp":
+# 2} under cuDNN's default algorithms, whose replicas must stay equal.
+PLACE_RESNET = {"batch": 32, "tp_steps": 3, "global_batch": 64,
+                "dp_steps": 2}
+# Part 4: examples.model_parallel_lstm, its groups alternating the card
+# and the host, at phase 16's LM widths (LM: vocabulary 10 000, embed and
+# hidden 200, 2 layers, batch 32, 20 steps long): `width_steps` timed
+# steps. Its data (a copy task: the next token repeats the current one,
+# 10% noise) is learnt per token there: each of the 10 000 tokens has its
+# own embedding row and output row, and 30 steps of 640 tokens show each
+# token about twice, so the nll stays at ln(10 000) (also over 90 steps
+# and at rates 0.3-1000 on the host). The example's own check (the nll
+# falls over `steps`) runs at the same widths over its vocabulary of 20.
+PLACE_LM = {"steps": 30, "width_steps": 10, "learn_vocab": 20}
+# group2ctx's two-group symbol against one device (tests/test_executor_
+# groups.py's tolerances: forward rtol, gradients rtol, atol).
+PLACE_GROUPS_TOL = (1e-5, 1e-4, 1e-5)
+
+
+def _place_setup():
+    """Bit-for-bit comparisons across processes: fp32 without TF32 and
+    cuDNN's deterministic algorithms, chosen by its heuristics. Returns
+    the flags it replaced (`_place_restore`)."""
+    b = torch.backends
+    old = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+           b.cudnn.deterministic, b.cudnn.benchmark)
+    b.cuda.matmul.allow_tf32 = False
+    b.cudnn.allow_tf32 = False
+    b.cudnn.deterministic = True
+    b.cudnn.benchmark = False
+    return old
+
+
+def _place_restore(old):
+    b = torch.backends
+    (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic,
+     b.cudnn.benchmark) = old
+
+
+def _replica_digests(step):
+    """{key: sha256} of this rank's own live state (no gather): "p:",
+    "s<i>:" and "a:" keys, as tests/torch_tp_prog.py's live_arrays."""
+    import hashlib
+
+    def digest(t):
+        return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+
+    out = {}
+    for n, v in step._param_vals.items():
+        out["p:" + n] = digest(v)
+        for i, s in enumerate(step._opt_state[n]):
+            out["s%d:%s" % (i, n)] = digest(s)
+    out.update({"a:" + n: digest(v) for n, v in step._aux_vals.items()})
+    return out
+
+
+def _replicas_apart(parts, split, tp_of):
+    """The state keys whose replicas differ: a replicated one between
+    any two ranks, a split block between the ranks of one tp index."""
+    apart = set()
+    for r, d in enumerate(parts):
+        for q, e in enumerate(parts):
+            apart.update(k for k in d if d[k] != e[k] and (
+                k.split(":", 1)[1] not in split or tp_of[r] == tp_of[q]))
+    return sorted(apart)
+
+
+def _held_bytes(step):
+    """Bytes of the parameters and optimizer state a TrainStep holds."""
+    n = 0
+    for name, v in step._param_vals.items():
+        n += v.numel() * v.element_size() + sum(
+            s.numel() * s.element_size() for s in step._opt_state[name])
+    return n
+
+
+def _place_batches(n, batch, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.random((batch, 3, 224, 224), dtype=np.float32),
+             rng.integers(0, 1000, batch).astype(np.float32))
+            for _ in range(n)]
+
+
+def _place_resnet(mesh):
+    """A ResNet-50 v1 TrainStep from SEED over `mesh`; the names restart,
+    so every net of a process keys its state alike."""
+    import mxnet_tpu_torch as mx
+
+    _fresh_names()
+    return mx.parallel.TrainStep(
+        _resnet50(), mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        dict(DIST_RESNET["opt"]), mesh=mesh)
+
+
+def _on_card(x, y, rows=None):
+    lo, hi = rows or (0, x.shape[0])
+    return (torch.from_numpy(x[lo:hi]).cuda(),
+            torch.from_numpy(y[lo:hi]).cuda())
+
+
+def _timed_step(step, x, y):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(x, y))
+    return loss, (time.perf_counter() - t0) * 1e3
+
+
+def _same_state(a, b):
+    """Two state_to_host() triples equal bit for bit."""
+    return all(sorted(x) == sorted(y) and all(
+        np.array_equal(np.asarray(x[k]), np.asarray(y[k])) for k in x)
+        for x, y in zip(a, b))
+
+
+def _sum_reads(reads):
+    """One launch read ({"k1_k2_k3": [...], "rtc": n, ...}) summed over
+    ranks."""
+    out = {}
+    for k, v in reads[0].items():
+        if isinstance(v, list):
+            out[k] = [sum(r[k][i] for r in reads) for i in range(len(v))]
+        else:
+            out[k] = sum(r[k] for r in reads)
+    return out
+
+
+def _place_part_tp2(outdir):
+    """Parts 1 and 2, and part 3's {"dp": 2} reference: two ranks on the
+    one card over gloo."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import TrainStep, dist, make_mesh
+
+    _place_setup()
+    check(dist.initialize(backend="gloo", platform="gpu"),
+          "no gloo group was formed")
+    r = dist.rank()
+    out = {"rank": r}
+    tp = make_mesh({"dp": 1, "tp": 2})
+    single = make_mesh({"dp": 1}, devices=[mx.gpu(0)])
+    c = PLACE_RESNET
+    # Part 1: the single-device reference first, in rank 0 only, its
+    # state kept on the host after every step; then the tp2 steps.
+    batches = [_on_card(x, y) for x, y in
+               _place_batches(c["tp_steps"], c["batch"], SEED)]
+    want, single_ms = [], []
+    if r == 0:
+        step = _place_resnet(single)
+        for x, y in batches:
+            loss, t = _timed_step(step, x, y)
+            single_ms.append(t)
+            want.append((loss, step.state_to_host()))
+        out["single_step_ms_median"] = float(np.median(single_ms[1:]))
+        out["single_bytes"] = _held_bytes(step)
+        out["single_max_memory"] = torch.cuda.max_memory_allocated()
+        del step
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = _place_resnet(tp)
+    _reset_all_launches()       # this path starts here
+    losses, ms, same = [], [], []
+    for k, (x, y) in enumerate(batches):
+        loss, t = _timed_step(step, x, y)
+        losses.append(loss)
+        ms.append(t)
+        state = step.state_to_host()        # gathered, on every rank
+        if r == 0:
+            same.append(loss == want[k][0] and _same_state(state,
+                                                           want[k][1]))
+    out["resnet"] = {"launches": _all_launches(),     # read just after
+                     "losses": losses, "step_ms": ms,
+                     "step_ms_median": float(np.median(ms[1:])),
+                     "held_bytes": _held_bytes(step),
+                     "max_memory": torch.cuda.max_memory_allocated(),
+                     "bit_for_bit_every_step": same}
+    del step, batches, want
+    torch.cuda.empty_cache()
+    # Part 2: the attention layer, bf16 over fp32 masters.
+    a = DIST_ATTN
+    ref = None
+    if r == 0:
+        net, x, y = _dist_attention(mx)
+        step = TrainStep(net, gluon.loss.L2Loss(), "sgd", dict(a["opt"]),
+                         mesh=single, dtype="bfloat16")
+        losses, ms = _dist_steps(step, x, y, a["steps"])
+        ref = (losses, _dist_state(step, net))
+        out["attention_single_step_ms_median"] = float(np.median(ms[1:]))
+        del step, net
+        torch.cuda.empty_cache()
+    net, x, y = _dist_attention(mx)
+    step = TrainStep(net, gluon.loss.L2Loss(), "sgd", dict(a["opt"]),
+                     mesh=tp, dtype="bfloat16")
+    _reset_all_launches()       # this path starts here
+    losses, ms = _dist_steps(step, x, y, a["steps"])
+    launches = _all_launches()  # read just after it
+    state = _dist_state(step, net)
+    out["attention"] = {"launches": launches, "losses": losses,
+                        "step_ms": ms,
+                        "step_ms_median": float(np.median(ms[1:])),
+                        "held_bytes": _held_bytes(step)}
+    if r == 0:
+        out["attention"]["loss_share_of_tolerance"] = float(np.max(
+            np.abs(np.subtract(losses, ref[0])) /
+            (1e-6 + 1e-5 * np.abs(ref[0]))))
+        out["attention"]["state_share_of_tolerance"] = _dist_close(
+            state, ref[1], 1e-5, 1e-4)
+    del step, net
+    torch.cuda.empty_cache()
+    # Part 3's reference: {"dp": 2} on the global batches of part 3.
+    dp = make_mesh({"dp": 2})
+    step = _place_resnet(dp)
+    rows = dp.local_slice(c["global_batch"])
+    timed = [_timed_step(step, *_on_card(x, y, rows)) for x, y in
+             _place_batches(c["dp_steps"], c["global_batch"], SEED + 1)]
+    losses = [loss for loss, _ in timed]
+    out["dp2_step_ms"] = [t for _, t in timed]
+    params, opt, aux = step.state_to_host()
+    if r == 0:
+        np.savez(os.path.join(outdir, "dp2.npz"), losses=np.array(losses),
+                 **{"p:" + n: v for n, v in params.items()},
+                 **{"s:" + n: v[0] for n, v in opt.items()},
+                 **{"a:" + n: v for n, v in aux.items()})
+    _dist_result(out)
+
+
+def _place_part_dp2tp2(outdir):
+    """Part 3: four ranks on the one card over gloo, {"dp": 2, "tp": 2};
+    then the sharded checkpoint, restored on one device in rank 0."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import dist, make_mesh
+
+    defaults = _place_setup()
+    check(dist.initialize(backend="gloo", platform="gpu"),
+          "no gloo group was formed")
+    r = dist.rank()
+    c = PLACE_RESNET
+    mesh = make_mesh({"dp": 2, "tp": 2})
+    rows = mesh.local_slice(c["global_batch"])
+    batches = _place_batches(c["dp_steps"] + 1, c["global_batch"], SEED + 1)
+    step = _place_resnet(mesh)
+    _reset_all_launches()       # this path starts here
+    losses, ms = [], []
+    for x, y in batches[:-1]:
+        loss, t = _timed_step(step, *_on_card(x, y, rows))
+        losses.append(loss)
+        ms.append(t)
+    out = {"rank": r, "launches": _all_launches(),    # read just after
+           "losses": losses, "step_ms": ms, "held_bytes": _held_bytes(step),
+           "max_memory": torch.cuda.max_memory_allocated()}
+    state = step.state_to_host()
+    if r == 0:
+        ref = np.load(os.path.join(outdir, "dp2.npz"))
+        params, opt, aux = state
+        out["dp2_bit_for_bit"] = bool(
+            np.array_equal(ref["losses"], np.array(losses)) and all(
+                np.array_equal(ref[pre + n], v) for pre, d in (
+                    ("p:", params), ("s:", {n: s[0] for n, s in opt.items()}),
+                    ("a:", aux)) for n, v in d.items()))
+    t0 = time.perf_counter()
+    manager = CheckpointManager(os.path.join(outdir, "ckpt"))
+    manager.save(c["dp_steps"], step.state_dict(sharded=True), sync=True)
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    x, y = batches[-1]
+    out["next_loss"] = float(step(*_on_card(x, y, rows)))
+    dist.barrier()                  # every part of the save is written
+    if r == 0:
+        single = _place_resnet(make_mesh({"dp": 1}, devices=[mx.gpu(0)]))
+        _, restored = manager.restore()
+        single.load_state_dict(restored)
+        out["restored_bit_for_bit"] = _same_state(single.state_to_host(),
+                                                  state)
+        out["restored_next_loss"] = float(single(*_on_card(x, y)))
+        del single
+    # The replicas under cuDNN's default algorithms (TF32, not
+    # deterministic): each rank's own state after `dp_steps` steps, with
+    # the step's replica broadcast and, as a reading, without it.
+    del step
+    torch.cuda.empty_cache()
+    _place_restore(defaults)
+    for key, sync in (("replicas", True), ("replicas_unsynced", False)):
+        step = _place_resnet(mesh)
+        if not sync:
+            step._sync_replicas = lambda loss, grads, aux: (loss, grads, aux)
+        out[key + "_step_ms"] = [_timed_step(step, *_on_card(x, y, rows))[1]
+                                 for x, y in batches[:-1]]
+        out[key] = _replica_digests(step)
+        out["split"] = sorted(n for n in step._param_vals
+                              if step._split(n) is not None)
+        del step
+        torch.cuda.empty_cache()
+    _dist_result(out)
+
+
+def _two_group_symbol(mx):
+    """tests/test_executor_groups.py's symbol: fc1 and its relu in group
+    dev1, fc2 in dev2."""
+    x = mx.sym.Variable("x")
+    with mx.AttrScope(ctx_group="dev1"):
+        h = mx.sym.FullyConnected(x, num_hidden=6, name="fc1")
+        h = mx.sym.Activation(h, act_type="relu", name="act1")
+    with mx.AttrScope(ctx_group="dev2"):
+        out = mx.sym.FullyConnected(h, num_hidden=3, name="fc2")
+    return out
+
+
+def _tol_share(got, want, rtol, atol):
+    """max |got - want| / (atol + rtol |want|) of two NDArrays: <= 1 is
+    within the tolerance."""
+    g, w = got.asnumpy(), want.asnumpy()
+    return float((np.abs(g - w) / (atol + rtol * np.abs(w))).max())
+
+
+def _place_two_groups(mx):
+    """The two-group symbol at {dev1: gpu(0), dev2: cpu(0)} and the
+    reverse against a bind on gpu(0): values, gradients, and each
+    output's and gradient's device."""
+    from mxnet_tpu_torch import executor
+
+    rng = np.random.RandomState(7)
+    arrays = {"x": rng.randn(4, 5), "fc1_weight": rng.randn(6, 5),
+              "fc1_bias": rng.randn(6), "fc2_weight": rng.randn(3, 6),
+              "fc2_bias": rng.randn(3)}
+    group = {"x": "dev1", "fc1_weight": "dev1", "fc1_bias": "dev1",
+             "fc2_weight": "dev2", "fc2_bias": "dev2"}
+
+    def run(g2c, ctx):
+        where = {k: g2c[group[k]] if g2c else ctx for k in arrays}
+        args = {k: mx.nd.array(v.astype(np.float32), ctx=where[k])
+                for k, v in arrays.items()}
+        grads = {k: mx.nd.zeros(v.shape, ctx=where[k])
+                 for k, v in arrays.items()}
+        ex = _two_group_symbol(mx).bind(ctx, args, args_grad=grads,
+                                        group2ctx=g2c)
+        before = sum(executor.CROSS_DEVICE_BYTES)
+        out = ex.forward(is_train=True)[0]
+        ex.backward()
+        crossed = sum(executor.CROSS_DEVICE_BYTES) - before
+        return out, ex.grad_dict, where, crossed
+
+    rtol, grtol, atol = PLACE_GROUPS_TOL
+    want, want_g, _, _ = run(None, mx.gpu(0))
+    line = {}
+    for tag, g2c in (("card_then_host", {"dev1": mx.gpu(0),
+                                         "dev2": mx.cpu(0)}),
+                     ("host_then_card", {"dev1": mx.cpu(0),
+                                         "dev2": mx.gpu(0)})):
+        out, grads, where, crossed = run(g2c, mx.gpu(0))
+        fwd = _tol_share(out, want, rtol, atol)
+        bwd = max(_tol_share(grads[k], want_g[k], grtol, atol)
+                  for k in arrays)
+        devices = out._data.device == g2c["dev2"].torch_device and all(
+            grads[k]._data.device == where[k].torch_device for k in arrays)
+        line[tag] = {"forward_share_of_tolerance": fwd,
+                     "gradient_share_of_tolerance": bwd,
+                     "devices_are_the_groups": devices,
+                     "output_context": str(out.context),
+                     "bytes_crossed": crossed}
+        check(fwd <= 1.0 and bwd <= 1.0,
+              "part 4: group2ctx %s against one device: forward %.3g, "
+              "gradients %.3g of the tolerance" % (tag, fwd, bwd))
+        check(devices and crossed > 0,
+              "part 4: group2ctx %s left an output or gradient off its "
+              "group's device, or crossed no boundary" % tag)
+    return line
+
+
+def _place_groups(card_line):
+    """Part 4 in this process: group2ctx, then the model-parallel LSTM."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import model_parallel_lstm
+
+    _reset_all_launches()       # this path starts here
+    line = {"part": "group2ctx", "card": card_line,
+            "two_groups": _place_two_groups(mx)}
+    c = PLACE_LM
+
+    def flags(vocab, steps):
+        return ["--vocab", str(vocab), "--embed", str(LM["embed"]),
+                "--hidden", str(LM["hidden"]), "--layers", str(LM["layers"]),
+                "--batch-size", str(LM["batch"]), "--seq-len", "20",
+                "--steps", str(steps)]
+
+    for tag, run, vocab, steps in (
+            ("lstm_lm_widths", model_parallel_lstm.train, LM["vocab"],
+             c["width_steps"]),
+            ("lstm_learns", model_parallel_lstm.main, c["learn_vocab"],
+             c["steps"])):
+        got = run(flags(vocab, steps))      # main raises unless it learns
+        line[tag] = {
+            "vocab": vocab, "steps": steps, "placement": got["placement"],
+            "nll_first": got["first"], "nll_last": got["last"],
+            "nll": got["history"],
+            "step_ms_median": float(np.median(got["step_ms"][1:])),
+            "bytes_crossed_per_step": got["cross_bytes_per_step"][-1]}
+    read = _all_launches()      # read just after it
+    log(json.dumps(line))
+    return read
+
+
+def phase_placement(card_line):
+    """Phase 21: tensor-parallel TrainStep, sharded checkpoints and
+    group2ctx. The ranks run in child processes of the port's launcher
+    (gloo: NCCL refuses two ranks on one card); part 4 runs here.
+    Returns each path's launch read."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="phase21_")
+    try:
+        p2 = _dist_launch("place2", 2, 0, outdir)
+        p2 = sorted(p2, key=lambda p: p["rank"])
+        r0 = p2[0]
+        line1 = {"part": "resnet50_tp2", "card": card_line,
+                 "mesh": {"dp": 1, "tp": 2}, "batch": PLACE_RESNET["batch"],
+                 "dtype": "float32",
+                 "step_ms_median_per_rank": [p["resnet"]["step_ms_median"]
+                                             for p in p2],
+                 "losses": r0["resnet"]["losses"],
+                 "bit_for_bit_every_step":
+                     r0["resnet"]["bit_for_bit_every_step"],
+                 "held_bytes_per_rank": [p["resnet"]["held_bytes"]
+                                         for p in p2],
+                 "single_bytes": r0["single_bytes"],
+                 "single_step_ms_median": r0["single_step_ms_median"],
+                 "held_share_per_rank": [p["resnet"]["held_bytes"] /
+                                         r0["single_bytes"] for p in p2],
+                 "max_memory_per_rank": [p["resnet"]["max_memory"]
+                                         for p in p2],
+                 "single_max_memory": r0["single_max_memory"]}
+        log(json.dumps(line1))
+        check(r0["resnet"]["bit_for_bit_every_step"] ==
+              [True] * PLACE_RESNET["tp_steps"],
+              "part 1: the tp2 ResNet-50 state is not the single-device "
+              "step's bit for bit: %s" % r0["resnet"]["bit_for_bit_every_step"])
+        a = r0["attention"]
+        line2 = {"part": "attention_tp2", "card": card_line,
+                 "mesh": {"dp": 1, "tp": 2}, "dtype": "bfloat16",
+                 "step_ms_median_per_rank": [p["attention"]["step_ms_median"]
+                                             for p in p2],
+                 "single_step_ms_median":
+                     r0["attention_single_step_ms_median"],
+                 "launches_per_rank": [p["attention"]["launches"]["k1_k2_k3"]
+                                       for p in p2],
+                 "losses": a["losses"],
+                 "loss_share_of_tolerance": a["loss_share_of_tolerance"],
+                 "state_share_of_tolerance": a["state_share_of_tolerance"],
+                 "held_bytes_per_rank": [p["attention"]["held_bytes"]
+                                         for p in p2]}
+        log(json.dumps(line2))
+        check(a["loss_share_of_tolerance"] <= 1.0 and
+              a["state_share_of_tolerance"] <= 1.0,
+              "part 2: tp2 against the single-device run: loss %.3g, state "
+              "%.3g of the tolerance" % (a["loss_share_of_tolerance"],
+                                         a["state_share_of_tolerance"]))
+        for p in p2:
+            check(tuple(p["attention"]["launches"]["k1_k2_k3"]) ==
+                  (DIST_ATTN["steps"],) * 3,
+                  "part 2: K1/K2/K3 launches %s per rank, not once a step "
+                  "each" % (p["attention"]["launches"]["k1_k2_k3"],))
+        p4 = sorted(_dist_launch("place4", 4, 0, outdir),
+                    key=lambda p: p["rank"])
+        q0 = p4[0]
+        gap = abs(q0["restored_next_loss"] - q0["next_loss"])
+        line3 = {"part": "resnet50_dp2_tp2", "card": card_line,
+                 "mesh": {"dp": 2, "tp": 2},
+                 "global_batch": PLACE_RESNET["global_batch"],
+                 "losses": q0["losses"],
+                 "step_ms_per_rank": [p["step_ms"] for p in p4],
+                 "dp2_step_ms_per_rank": [p["dp2_step_ms"] for p in p2],
+                 "held_bytes_per_rank": [p["held_bytes"] for p in p4],
+                 "max_memory_per_rank": [p["max_memory"] for p in p4],
+                 "dp2_bit_for_bit": q0["dp2_bit_for_bit"],
+                 "sharded_save_ms_per_rank": [p["save_ms"] for p in p4],
+                 "restored_bit_for_bit": q0["restored_bit_for_bit"],
+                 "next_loss": q0["next_loss"],
+                 "restored_next_loss": q0["restored_next_loss"],
+                 "next_loss_share_of_tolerance":
+                     gap / (1e-6 + 1e-5 * abs(q0["next_loss"]))}
+        log(json.dumps(line3))
+        check(q0["dp2_bit_for_bit"], "part 3: dp2 x tp2 is not the dp2 "
+              "step bit for bit")
+        check(q0["restored_bit_for_bit"], "part 3: the sharded save "
+              "restored on one device is not the gathered state")
+        check(line3["next_loss_share_of_tolerance"] <= 1.0,
+              "part 3: the restored step's next loss %.7g against dp2 x "
+              "tp2's %.7g" % (q0["restored_next_loss"], q0["next_loss"]))
+        tp_of = [p["rank"] % 2 for p in p4]
+        split = set(q0["split"])
+        apart = _replicas_apart([p["replicas"] for p in p4], split, tp_of)
+        unsynced = _replicas_apart([p["replicas_unsynced"] for p in p4],
+                                   split, tp_of)
+        log(json.dumps({"part": "resnet50_dp2_tp2_default_algorithms",
+                        "card": card_line, "state_keys": len(q0["replicas"]),
+                        "step_ms_per_rank": [p["replicas_step_ms"]
+                                             for p in p4],
+                        "step_ms_per_rank_without_the_broadcast": [
+                            p["replicas_unsynced_step_ms"] for p in p4],
+                        "replicas_apart": len(apart),
+                        "replicas_apart_without_the_broadcast": len(unsynced),
+                        "apart_without_the_broadcast_first": unsynced[:8]}))
+        check(not apart, "part 3: under cuDNN's default algorithms the "
+              "replicas differ across ranks: %s" % apart[:8])
+        groups = _place_groups(card_line)
+        log("phase 21 seconds", round(time.perf_counter() - t_phase, 3))
+        return {"placement_resnet_tp2":
+                    _sum_reads([p["resnet"]["launches"] for p in p2]),
+                "placement_attention_tp2":
+                    _sum_reads([p["attention"]["launches"] for p in p2]),
+                "placement_resnet_dp2_tp2":
+                    _sum_reads([p["launches"] for p in p4]),
+                "placement_group2ctx": groups}
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+# Each rank of a phase-19, phase-20 or phase-21 part runs this file with
 # --dist-part <key>.
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
-               "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd}
+               "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd,
+               "place2": _place_part_tp2, "place4": _place_part_dp2tp2}
 
 
 def main():
@@ -6860,6 +7414,7 @@ def main():
     check(all(n == (0, 0, 0) for n in det_reads.values()),
           "D1/D2 launched before phase 20: %s" % det_reads)
     detection = phase_detection(card_line)
+    placement = phase_placement(card_line)
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -6905,13 +7460,15 @@ def main():
     # Module's (15), the recurrent (16), the core surface's (17) and the
     # model zoo's (18) paths launch none of them.
     # The detection kernels (D1, D2 forward, D2 backward) are read there
-    # too, and launch on phase 20's paths only.
+    # too, and launch on phase 20's paths only. Phase 21's paths (each
+    # summed over its ranks) launch K1-K3 on the tp2 attention path only.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
                        ("recurrent", recurrent["launches"]),
                        ("core_surface", core["launches"]),
-                       ("model_zoo", zoo["launches"])):
+                       ("model_zoo", zoo["launches"]),
+                       *placement.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

@@ -27,6 +27,7 @@ from . import name
 from . import engine
 from . import util
 from .ndarray import NDArray
+from .attribute import AttrScope
 
 _LAZY = {
     "gluon": ".gluon",

@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/attribute.py`` (reference
 python/mxnet/attribute.py, AttrScope): a context manager that stamps
 attributes, most importantly ``ctx_group``, onto every symbol created
-inside the scope. The port's Executor accepts ``group2ctx`` only where
-every group maps to its own device (see ``executor.py``).
+inside the scope; ``bind(group2ctx=...)`` places each group's ops on its
+device (see ``executor.py``).
 """
 from __future__ import annotations
 

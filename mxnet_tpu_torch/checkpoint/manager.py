@@ -44,9 +44,11 @@ What differs from the JAX package, and why:
   The port has no ``ml_dtypes``; a restored bfloat16 leaf comes back as
   a CPU ``torch.bfloat16`` tensor (every other array leaf as numpy).
 * ``process_index``/``process_count`` default from ``parallel.dist``
-  when a group is formed, else 0/1, as in the JAX package. Sharded saves
-  of non-replicated state are ROADMAP Queue 1 item 7b; a dp step's state
-  is replicated.
+  when a group is formed, else 0/1, as in the JAX package. A tensor-
+  parallel ``TrainStep.state_dict(sharded=True)`` gives each rank's
+  block of a split array as a :class:`Shard` chunk, from the ranks that
+  hold its first replica only; the others give ``chunks=[]``, and
+  process 0 stitches the manifest from whichever processes wrote.
 
 The format is the JAX package's: the ``manifest.json`` keys, ``_FORMAT``
 (the string names the format, not the package), the shard file names

@@ -26,9 +26,19 @@ and the control-flow operators run their sub-graphs through it
 ``MXNET_SUBGRAPH_BACKEND`` naming a registered backend, the graph is
 partitioned at bind, as in the JAX package and the reference.
 
-``group2ctx`` is accepted only where every group maps to the executor's
-own device: model-parallel placement across devices is ROADMAP Queue
-1 item 7b.
+``group2ctx`` places the graph across devices, as the JAX package's
+executor does (its ``executor.py:119-144, 196-203``; reference
+AssignContext and ``_CrossDeviceCopy``): at bind each op node gets the
+context of its ``__ctx_group__`` (the executor's own for an op without a
+group), and each op's inputs move to its device before it runs
+(:class:`_CrossDeviceCopy`, whose backward carries the gradient back, so
+a gradient lands on its argument's device). A group with no entry raises
+``MXNetError``; a device this process does not have raises at bind
+(``Context.torch_device``). Output arrays carry the context of the group
+that produced them: ``cpu(1)`` and ``cpu(2)`` are one torch device but
+two contexts. A ``_subgraph`` fragment runs where its inputs are, as in
+the JAX package. ``CROSS_DEVICE_BYTES`` counts the bytes that cross a
+device boundary, forward and backward.
 """
 from __future__ import annotations
 
@@ -44,6 +54,54 @@ from .ndarray.ndarray import NDArray, array as nd_array
 from .ops import registry as _registry
 
 __all__ = ["Executor"]
+
+# Bytes moved between devices at group boundaries: [forward, backward].
+CROSS_DEVICE_BYTES = [0, 0]
+
+
+class _CrossDeviceCopy(torch.autograd.Function):
+    """A tensor moved to an op's device; the gradient moves back."""
+
+    @staticmethod
+    def forward(ctx, t, device):
+        ctx.src = t.device
+        CROSS_DEVICE_BYTES[0] += t.numel() * t.element_size()
+        return t.to(device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        CROSS_DEVICE_BYTES[1] += grad.numel() * grad.element_size()
+        return grad.to(ctx.src), None
+
+
+def _to_device(t, device):
+    if not isinstance(t, torch.Tensor) or t.device == device:
+        return t
+    return _CrossDeviceCopy.apply(t, device)
+
+
+def _placement(symbol, group2ctx, default):
+    """{op node uid: Context}: the context of each op node's group, or
+    `default` for an op without one; {} without group2ctx or groups.
+    ``_subgraph`` fragments are not placed. Raises MXNetError for a
+    group with no entry, and RuntimeError for a device this process
+    does not have."""
+    if not group2ctx:
+        return {}
+    nodes = symbol._topo()
+    used = {n._attrs.get("__ctx_group__") for n in nodes} - {None}
+    if not used:
+        return {}
+    unknown = used - set(group2ctx)
+    if unknown:
+        raise MXNetError("bind: symbol uses ctx_group(s) %s with no "
+                         "entry in group2ctx %s"
+                         % (sorted(unknown), sorted(group2ctx)))
+    ctxs = {g: Context(c) for g, c in group2ctx.items()}
+    for c in list(ctxs.values()) + [default]:
+        c.torch_device      # raises for an absent device
+    return {n._uid: ctxs.get(n._attrs.get("__ctx_group__"), default)
+            for n in nodes if n._op not in (None, "_subgraph")}
 
 
 def _auto_partition(symbol):
@@ -76,7 +134,7 @@ class Executor:
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
-        self._check_group2ctx(symbol, group2ctx)
+        self._node_ctx = _placement(symbol, group2ctx, self._ctx)
 
         if isinstance(args, dict):
             self.arg_arrays = [args[n] for n in self.arg_names]
@@ -131,32 +189,39 @@ class Executor:
         self._recorded = None  # (leaves by name, output tensors)
         self._last_train = None
         self._plans = {}  # is_train -> compiled evaluation plan
+        self._out_ctxs = self._output_contexts()
 
-    def _check_group2ctx(self, symbol, group2ctx):
-        if not group2ctx:
-            return
-        used = {n._attrs.get("__ctx_group__") for n in symbol._topo()
-                if n._attrs.get("__ctx_group__") is not None}
-        unknown = used - set(group2ctx)
-        if unknown:
-            raise MXNetError("bind: symbol uses ctx_group(s) %s with no "
-                             "entry in group2ctx %s"
-                             % (sorted(unknown), sorted(group2ctx)))
-        elsewhere = {g: c for g, c in group2ctx.items()
-                     if Context(c) != self._ctx}
-        if elsewhere:
-            raise NotImplementedError(
-                "group2ctx places groups %s on devices other than the "
-                "executor's %s: model-parallel placement is not ported yet "
-                "(ROADMAP Queue 1 item 7b)" % (sorted(elsewhere), self._ctx))
+    def _output_contexts(self):
+        """The context of each output: the group of the op that makes
+        it; a fragment's is its first input's, a variable's its array's.
+        Without placement, the executor's."""
+        outs = self._symbol.outputs
+        if not self._node_ctx:
+            return [self._ctx] * len(outs)
+        arrays = dict(zip(self.arg_names, self.arg_arrays))
+        arrays.update(zip(self.aux_names, self.aux_arrays))
+        memo = {}
+
+        def ctx_of(node):
+            if node._uid not in memo:
+                if node._op is None:
+                    memo[node._uid] = arrays[node._name].context
+                elif node._uid in self._node_ctx:
+                    memo[node._uid] = self._node_ctx[node._uid]
+                else:
+                    memo[node._uid] = ctx_of(node._inputs[0]) \
+                        if node._inputs else self._ctx
+            return memo[node._uid]
+
+        return [ctx_of(s) for s in outs]
 
     # -- graph evaluation -----------------------------------------------------
 
     def _plan(self, training):
         plan = self._plans.get(training)
         if plan is None:
-            plan = self._plans[training] = _compile(self._symbol.outputs,
-                                                    training)
+            plan = self._plans[training] = _compile(
+                self._symbol.outputs, training, self._node_ctx)
         return plan
 
     def _grad_names(self):
@@ -195,11 +260,12 @@ class Executor:
         for n, arr in zip(self.aux_names, self.aux_arrays):
             new = aux_writes.get(n)
             if new is not None and new is not arr._data:
-                arr._set_data(new.detach())
+                arr._set_data(new.detach().to(arr._data.device))
         self._recorded = (leaves, outs) if record else None
         self._last_train = bool(is_train)
         self.num_forwards += 1
-        self.outputs = [NDArray(o.detach(), ctx=self._ctx) for o in outs]
+        self.outputs = [NDArray(o.detach(), ctx=c)
+                        for o, c in zip(outs, self._out_ctxs)]
         if self._monitor_callback is not None:
             for name, out in zip(self.output_names, self.outputs):
                 self._monitor_callback(name, out)
@@ -234,8 +300,8 @@ class Executor:
             heads = [g._data if isinstance(g, NDArray)
                      else torch.as_tensor(g, device=o.device)
                      for g, o in zip(out_grads, outs)]
-        pairs = [(o, h.to(o.dtype)) for o, h in zip(outs, heads)
-                 if o.requires_grad]
+        pairs = [(o, h.to(device=o.device, dtype=o.dtype))
+                 for o, h in zip(outs, heads) if o.requires_grad]
         names = [n for n in grad_names if n in leaves]
         got = [None] * len(names)
         if pairs and names:
@@ -253,11 +319,14 @@ class Executor:
                 g = torch.zeros_like(self.arg_arrays[i]._data)
             target = self.grad_arrays[i]
             if target is None:
-                self.grad_arrays[i] = NDArray(g.detach(), ctx=self._ctx)
+                self.grad_arrays[i] = NDArray(
+                    g.detach(), ctx=self.arg_arrays[i].context)
             elif req == "add":
-                target._set_data(target._data + g.detach())
+                target._set_data(target._data +
+                                 g.detach().to(target._data.device))
             else:  # write
-                target._set_data(g.detach().to(target._data.dtype))
+                target._set_data(g.detach().to(device=target._data.device,
+                                               dtype=target._data.dtype))
 
     # -- utilities ------------------------------------------------------------
 
@@ -344,12 +413,13 @@ def _topo(out_syms):
     return [n for n in order if n._op != "_group"]
 
 
-def _compile(out_syms, training):
+def _compile(out_syms, training, node_ctx=None):
     """The DAG as a flat plan, built once per executor and mode: values
     live in numbered slots; each step is (fn, input slots, attrs, output
     slots, aux names, fragment, the operator when dispatch owes it a
-    ``device=`` or ``generator=`` keyword, slots to free), run by
-    :func:`_execute`.
+    ``device=`` or ``generator=`` keyword, the torch device its inputs
+    move to under ``group2ctx`` placement (`node_ctx`, node uid ->
+    Context) or None, slots to free), run by :func:`_execute`.
     A value's slot is freed after its last consumer (or at once, when it
     has none and is not an output), so a forward holds no more than the
     values still to be read and what autograd saved for the backward.
@@ -371,7 +441,7 @@ def _compile(out_syms, training):
             fn = getattr(node, "_sub_fn", None)
             if fn is None:
                 fn = _subdag_fn(node, training)
-            steps.append((fn, ins, {}, outs, (), node, None))
+            steps.append((fn, ins, {}, outs, (), node, None, None))
             continue
         op = _registry.get(node._attrs.get("_op_name", node._op))
         attrs = node._clean_attrs()
@@ -381,8 +451,10 @@ def _compile(out_syms, training):
             # Only a train-aware op (BatchNorm) returns new aux values.
             aux = tuple(i._name for i in node._inputs
                         if i._op is None and i._is_aux)
+        ctx = (node_ctx or {}).get(node._uid)
         steps.append((op.fn, ins, attrs, outs, aux, None,
-                      op if op.needs_rng or op.creates else None))
+                      op if op.needs_rng or op.creates else None,
+                      None if ctx is None else ctx.torch_device))
     heads = [slot(s, s._out_index) for s in out_syms]
     last = {}
     for k, step in enumerate(steps):
@@ -422,12 +494,15 @@ def _execute(plan, env):
         vals[s] = env[name]
     aux_writes = {}
     ops = 0
-    for fn, ins, attrs, outs, aux, fragment, keyed, free in steps:
+    for fn, ins, attrs, outs, aux, fragment, keyed, place, free in steps:
         args = [vals[i] for i in ins]
+        if place is not None:
+            args = [_to_device(a, place) for a in args]
         if keyed is not None:
             if device is None and keyed.creates:
                 device = current_context().torch_device
-            attrs = _registry.device_attrs(keyed, args, attrs, device)
+            attrs = _registry.device_attrs(keyed, args, attrs,
+                                           place or device)
         raw = fn(*args, **attrs)
         if fragment is not None:
             got = raw if isinstance(raw, (list, tuple)) else [raw]

@@ -5,7 +5,8 @@ python/mxnet/module/bucketing_module.py — one Module per bucket key,
 all sharing parameters via shared_module rebinds;
 docs/faq/bucketing.md). As in the JAX package, each bucket binds its
 own Executor and the weights are shared by copying through the default
-bucket's arrays; the buckets share one updater.
+bucket's arrays; the buckets share one updater. ``group2ctxs`` is
+accepted and ignored, as in the JAX package.
 """
 from __future__ import annotations
 

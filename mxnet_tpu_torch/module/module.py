@@ -19,10 +19,12 @@ states of device 0 are copied to the others after each update. Under a
 ``1/(batch_size * num_workers)``, as in the reference's init_optimizer,
 since the server sums every worker's gradients.
 
+``group2ctxs`` is accepted and ignored, as in the JAX package (its
+``module.py`` reads it nowhere); ``Symbol.bind(group2ctx=...)`` is the
+place where op groups are put on devices (``executor.py``).
+
 What differs from the JAX package:
 
-* ``group2ctxs`` placement onto other devices is ROADMAP Queue 1
-  item 7b (``executor.py``).
 * Gradients are requested as the reference's executor group requests
   them: for the parameters that are not fixed, for the data only with
   ``inputs_need_grad``, never for the labels. (The JAX package computes

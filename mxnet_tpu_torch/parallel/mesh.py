@@ -18,10 +18,16 @@ is one of two things:
   is collective).
 
 ``shard_params`` and ``P`` keep the JAX package's Megatron rule
-(``mesh.py:55-74`` there) as placement specs: a tuple of axis names (or
-None) per dimension. Placing a ``tp``-sharded weight, and a TrainStep
-over a mesh whose ``tp`` axis is larger than 1, are ROADMAP Queue 1
-item 7b.
+(``mesh.py:55-74`` there) as placement specs: one entry per dimension,
+an axis name, a tuple of axis names or None, as ``PartitionSpec``
+takes. A spec bound to its mesh (:class:`NamedSharding`) gives this
+rank's block of a global array (:meth:`NamedSharding.bounds`);
+:func:`place` cuts that block out of a full value (the JAX package's
+``make_array_from_callback`` placement), and :func:`gather` rebuilds the
+full value from every rank's block (``collectives.gather``). A
+dimension its axes do not divide raises ``ValueError``, as
+``jax.device_put`` does. A mesh of several devices in one process is
+not built (:func:`make_mesh`): the port runs one device per process.
 """
 from __future__ import annotations
 
@@ -31,9 +37,19 @@ import torch
 
 from ..context import Context
 from . import dist as _dist
+from .collectives import BATCH_AXES
 
 __all__ = ["Mesh", "make_mesh", "data_sharding", "replicate",
-           "shard_params", "P", "NamedSharding"]
+           "shard_params", "P", "NamedSharding", "place", "gather"]
+
+
+def spec_axes(entry):
+    """The mesh axes of one spec entry, major first: () for None."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
 
 
 class P(tuple):
@@ -62,6 +78,51 @@ class NamedSharding:
     def __repr__(self):
         return "NamedSharding(%r, %r)" % (self.mesh.shape, self.spec)
 
+    @property
+    def axes(self):
+        """Every mesh axis the spec splits a dimension over."""
+        return tuple(a for e in self.spec for a in spec_axes(e))
+
+    def bounds(self, shape, rank=None):
+        """((start, stop), ...) per dimension of `shape`: the block of
+        the global array that `rank` (default: this process) holds.
+        Raises ValueError where a dimension's axes do not divide it, as
+        ``jax.device_put`` does."""
+        mesh = self.mesh
+        mesh.validate()
+        if len(self.spec) > len(shape):
+            raise ValueError("spec %r has more entries than shape %s has "
+                             "dimensions" % (self.spec, tuple(shape)))
+        coords = mesh.coords(rank) if mesh.over_ranks else {}
+        out = []
+        for d, dim in enumerate(shape):
+            entry = self.spec[d] if d < len(self.spec) else None
+            n, i = 1, 0
+            for ax in spec_axes(entry):
+                if ax not in mesh.shape:
+                    raise ValueError("spec %r names axis %r, which mesh %s "
+                                     "lacks" % (self.spec, ax, mesh.shape))
+                n *= mesh.shape[ax]
+                i = i * mesh.shape[ax] + coords.get(ax, 0)
+            if dim % n:
+                raise ValueError(
+                    "sharding %r implies that the global size of dimension "
+                    "%d should be divisible by %d, but it is %d (full "
+                    "shape %s)" % (self, d, n, dim, tuple(shape)))
+            per = dim // n
+            out.append((i * per, (i + 1) * per))
+        return tuple(out)
+
+    def holds_primary(self, rank=None):
+        """True where `rank` holds the first replica of its block: its
+        index is 0 on every mesh axis the spec does not split over (the
+        JAX package's ``replica_id == 0``)."""
+        if not self.mesh.over_ranks:
+            return True
+        coords = self.mesh.coords(rank)
+        used = set(self.axes)
+        return all(i == 0 for a, i in coords.items() if a not in used)
+
 
 class Mesh:
     """Named axes over a list of devices (one device), or over the
@@ -73,6 +134,16 @@ class Mesh:
         self.shape = dict(zip(self.axis_names, sizes))
         self.ranks = None if ranks is None else list(ranks)
         self._groups = {}
+
+    def validate(self):
+        """Raise ValueError unless the axis sizes multiply to the number
+        of devices (one device) or ranks the mesh lies over."""
+        n = len(self.ranks) if self.ranks is not None else len(self.devices)
+        what = "ranks" if self.ranks is not None else "device(s)"
+        if math.prod(self.shape.values()) != n:
+            raise ValueError(
+                "mesh %s over %d %s: the axis sizes multiply to %d"
+                % (self.shape, n, what, math.prod(self.shape.values())))
 
     @property
     def over_ranks(self):
@@ -120,6 +191,15 @@ class Mesh:
                 flat = flat * self.shape[n] + c[n]
             out.append(self.ranks[flat] if self.ranks is not None else flat)
         return out
+
+    def local_slice(self, n_rows):
+        """The [start, stop) rows of a global batch of `n_rows` this
+        rank feeds: its block under :func:`data_sharding`, so the ranks
+        of a ``tp`` group feed the same rows. The whole batch on a
+        one-device mesh."""
+        if not self.over_ranks:
+            return 0, n_rows
+        return data_sharding(self).bounds((n_rows,))[0]
 
     def group(self, name=None):
         """The process group of axis `name` containing this rank (the
@@ -223,13 +303,14 @@ def make_mesh(axes=None, devices=None):
     return Mesh(devices, names, sizes)
 
 
-def data_sharding(mesh, batch_axes=("dp",)):
+def data_sharding(mesh):
     """Placement of a [batch, ...] array: on a one-device mesh, the
     mesh's device; over ranks, the batch split over the data axes
-    present (each rank holds its rows on its own device)."""
+    (``collectives.BATCH_AXES``) present (each rank holds its rows on
+    its own device)."""
     if not mesh.over_ranks:
         return mesh.device
-    axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+    axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
     return NamedSharding(mesh, P(axes if axes else None))
 
 
@@ -260,3 +341,27 @@ def shard_params(mesh, named_shapes, rule=None):
     rule = rule or _default_param_rule
     return {name: NamedSharding(mesh, rule(name, shape, mesh))
             for name, shape in named_shapes.items()}
+
+
+def place(value, sharding):
+    """This rank's block of the full tensor `value` under `sharding`, a
+    new contiguous tensor on the mesh's device (on a one-device mesh,
+    or for a torch device as the sharding, the whole value there)."""
+    if not isinstance(sharding, NamedSharding):
+        return value.detach().to(sharding).clone()
+    mesh = sharding.mesh
+    sl = tuple(slice(a, b) for a, b in sharding.bounds(value.shape))
+    return value.detach()[sl].to(mesh.device).clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather(shard, sharding):
+    """The full value of an array whose blocks the ranks hold under
+    `sharding` (not differentiable; ``collectives.gather`` is). Every
+    rank of the mesh calls it."""
+    from . import collectives
+
+    if not isinstance(sharding, NamedSharding):
+        return shard.detach()
+    with torch.no_grad():
+        return collectives.gather([shard.detach()], [sharding])[0]

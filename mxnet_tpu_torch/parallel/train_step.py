@@ -69,6 +69,40 @@ axis is global under GSPMD, so the running-stat writes are the same on
 every rank. At one rank every share is 1 and every sum is over one
 value, so the step gives the single-device step's bits.
 
+Tensor parallelism (a mesh over ranks with a ``tp`` axis larger than
+1): each trainable parameter is placed by ``shard_params``'s rule (the
+JAX package's Megatron rule, ``param_rule`` to override it), and each
+rank keeps only its block of a split parameter (``mesh.place``) and of
+its optimizer state, which is sized by the block. The batch is split
+over ``dp`` only (``mesh.local_slice``), so the ranks of a ``tp`` group
+feed the same rows. In the forward each split parameter enters as
+``collectives.gather`` of its block, cast to the compute dtype first
+(the cast is elementwise, so it gives the same values, in half the bytes
+under bf16); the gather's backward hands each rank its block of the
+full gradient, which the ``dp`` all-reduce then sums over the group.
+BatchNorm's global statistics stay over ``dp``. Then, along each other
+axis, the rank at index 0 broadcasts the loss, the gradients of the
+parameters not split over that axis and the new aux values
+(``_sync_replicas``): a replicated parameter, its optimizer state and
+the aux state stay one array by construction, even where the ranks'
+forwards and backwards differ in their last bits (cuDNN's default
+algorithms are not deterministic). The update is local and
+elementwise on the block, except lbsgd's trust ratio, which takes the
+norms of the whole weight and gradient: their sums of squares are added
+over the axis groups first (``collectives.sq_sum``), so lbsgd agrees
+with the dp step to rounding, not bit for bit. SGLD draws each block's
+noise from its rank's own stream (``random.set_rank``), as the dp step
+draws each rank's, so its replicas differ by their noise. Where every
+rank's arithmetic is deterministic (cuDNN's deterministic algorithms,
+as on the host), every other family gives the bits of the dp step on
+the same global batch: the forward sees the same full weights, and a
+block of a sum over ``dp`` is the sum of the blocks. Axes other than
+``dp`` and ``tp`` (``sp``, ``ep``, ``pp``) of size larger than 1
+replicate the parameters and the batch, as in the JAX step, unless the
+rule splits over them. A rule that splits a parameter over ``dp``
+itself is honored: that parameter's gradient is summed over ``dp`` in
+the gather's backward and left out of the ``dp`` all-reduce.
+
 ``deterministic_reduction=True`` (the JAX package's
 ``_make_deterministic_grad``): per-shard loss, gradients and
 per-shard BatchNorm statistics, gathered (``collectives.gather_slots``)
@@ -77,13 +111,11 @@ meshes. The random streams differ per rank (``random.set_rank``), so a
 comparison with the JAX package's step, which draws one key for the
 global batch, uses nets without dropout.
 
-Not ported here (ROADMAP Queue 1): a mesh with a ``tp`` (or any non-dp)
-axis larger than 1 and sharded saves of non-replicated state (item 7b),
-the telemetry hooks other than the ``train_step::data_put``/
-``train_step::step`` spans and ``mx_train_step_seconds``, which the
-input pipeline's ``stall_fraction`` and decode autoscaler read (the
-watchdog lane, health-plane readiness, memstats; item 9) and the
-compile cache (item 10).
+Not ported here (ROADMAP Queue 1): the telemetry hooks other than the
+``train_step::data_put``/``train_step::step`` spans and
+``mx_train_step_seconds``, which the input pipeline's ``stall_fraction``
+and decode autoscaler read (the watchdog lane, health-plane readiness,
+memstats; item 9) and the compile cache (item 10).
 """
 from __future__ import annotations
 
@@ -104,7 +136,9 @@ from ..gluon.parameter import override
 from ..ndarray.ndarray import NDArray
 from ..ops import nn as _nn_ops
 from . import collectives as _coll
-from .mesh import make_mesh, data_sharding
+from . import dist as _dist
+from .mesh import (make_mesh, data_sharding, shard_params, place,
+                   NamedSharding, P)
 
 _step_seconds = _tm.REGISTRY.histogram(
     "mx_train_step_seconds",
@@ -147,11 +181,12 @@ class TrainStep:
         (gamma1, rho, lamda1, ...). The learning rate is a runtime value
         (:meth:`set_learning_rate`).
     mesh : :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` of one device, or
-        over the ranks of the process group with a ``dp`` axis (default:
-        ``make_mesh()``: the group's ranks after ``dist.initialize``,
-        else the one card).
-    param_rule : accepted for the JAX package's signature; a rule that
-        shards a parameter needs a ``tp`` axis, ROADMAP Queue 1 item 7b.
+        over the ranks of the process group with a ``dp`` axis and any
+        others (``tp``, ``sp``, ``ep``, ``pp``) (default: ``make_mesh()``:
+        the group's ranks after ``dist.initialize``, else the one card).
+    param_rule : ``rule(name, shape, mesh) -> P`` placing each trainable
+        parameter (default: ``shard_params``'s Megatron rule, which
+        splits large weights over ``tp``).
     dtype : compute dtype for mixed precision (``"bfloat16"``); masters
         and optimizer state stay fp32.
     deterministic_reduction : per-shard gradients summed in ascending
@@ -190,23 +225,23 @@ class TrainStep:
         self._data_sharding = data_sharding(self.mesh)
         self._param_rule = param_rule
         self._dp_group = self._check_mesh()
+        self._shardings = {}
+        self._shapes = {}
         self._materialized = False
 
     def _check_mesh(self):
         """The ``dp`` group of a mesh over ranks (None on one device);
-        raises for what the port does not run."""
+        raises for an inconsistent mesh, and for
+        ``deterministic_reduction`` on a mesh with another axis larger
+        than 1, as the JAX package does."""
         mesh = self.mesh
+        mesh.validate()
         for ax in mesh.axis_names:
-            if ax != "dp" and mesh.shape[ax] != 1:
-                if self.deterministic_reduction:
-                    raise ValueError(
-                        "deterministic_reduction supports dp-only meshes; "
-                        "got axis %r of size %d" % (ax, mesh.shape[ax]))
-                raise NotImplementedError(
-                    "TrainStep over a mesh whose %r axis has size %d: "
-                    "parameters placed across ranks (tensor parallelism) "
-                    "are ROADMAP Queue 1 item 7b; the port runs dp meshes"
-                    % (ax, mesh.shape[ax]))
+            if ax != "dp" and mesh.shape[ax] != 1 and \
+                    self.deterministic_reduction:
+                raise ValueError(
+                    "deterministic_reduction supports dp-only meshes; "
+                    "got axis %r of size %d" % (ax, mesh.shape[ax]))
         if not getattr(mesh, "over_ranks", False):
             return None
         if "dp" not in mesh.axis_names:
@@ -215,9 +250,11 @@ class TrainStep:
         return mesh.group("dp")
 
     def _make_opt_rule(self):
-        """(n_states, update_fn(param, grad, states, lr, t) -> (new_param,
-        new_states)) over the bodies of ops/optimizer_ops.py: the bodies
-        the Trainer's update ops run."""
+        """(n_states, update_fn(param, grad, states, lr, t, split) ->
+        (new_param, new_states)) over the bodies of ops/optimizer_ops.py:
+        the bodies the Trainer's update ops run. `split` is the
+        parameter's sharding where it is split across ranks, else None
+        (lbsgd's norms read it)."""
         from ..ops import optimizer_ops as oo
         from .. import random as _random
 
@@ -246,10 +283,10 @@ class TrainStep:
             if mom > 0:
                 body = oo._sgd_mom_update if name == "sgd" \
                     else oo._nag_mom_update
-                return 1, lambda p, g, s, lr, t: _as_pair(
+                return 1, lambda p, g, s, lr, t, split: _as_pair(
                     body(p, g, s[0], lr=lr, momentum=mom, wd=wd,
                          rescale_grad=rs, clip_gradient=clip))
-            return 0, lambda p, g, s, lr, t: (
+            return 0, lambda p, g, s, lr, t, split: (
                 oo._sgd_update(p, g, lr=lr, wd=wd, rescale_grad=rs,
                                clip_gradient=clip), ())
         if name in ("signum", "signsgd"):
@@ -262,18 +299,18 @@ class TrainStep:
                 sig_mom = 0.9 if name == "signum" else 0.0
             wd_lh = float(ex.get("wd_lh", 0.0))
             if sig_mom > 0:
-                return 1, lambda p, g, s, lr, t: _as_pair(
+                return 1, lambda p, g, s, lr, t, split: _as_pair(
                     oo._signum_update(p, g, s[0], lr=lr, momentum=sig_mom,
                                       wd=wd, rescale_grad=rs,
                                       clip_gradient=clip, wd_lh=wd_lh))
-            return 0, lambda p, g, s, lr, t: (
+            return 0, lambda p, g, s, lr, t, split: (
                 oo._signsgd_update(p, g, lr=lr, wd=wd, rescale_grad=rs,
                                    clip_gradient=clip), ())
         if name == "adam":
             check_extra()
             e = eps(1e-8)
 
-            def adam(p, g, s, lr, t):
+            def adam(p, g, s, lr, t, split):
                 lr_t = lr * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t)
                 w, m, v = oo._adam_update(
                     p, g, s[0], s[1], lr=lr_t, beta1=b1, beta2=b2,
@@ -288,7 +325,7 @@ class TrainStep:
             cw = float(ex.get("clip_weights", -1.0))
             e = eps(1e-8)
             if ex.get("centered", False):
-                def rmsc(p, g, s, lr, t):
+                def rmsc(p, g, s, lr, t, split):
                     w, n, gb, d = oo._rmspropalex_update(
                         p, g, s[0], s[1], s[2], lr=lr, gamma1=g1,
                         gamma2=g2, epsilon=e, wd=wd, rescale_grad=rs,
@@ -296,7 +333,7 @@ class TrainStep:
                     return w, (n, gb, d)
 
                 return 3, rmsc
-            return 1, lambda p, g, s, lr, t: _as_pair(
+            return 1, lambda p, g, s, lr, t, split: _as_pair(
                 oo._rmsprop_update(p, g, s[0], lr=lr, gamma1=g1,
                                    epsilon=e, wd=wd, rescale_grad=rs,
                                    clip_gradient=clip, clip_weights=cw))
@@ -304,7 +341,7 @@ class TrainStep:
             check_extra("eps")
             # AdaGrad spells its knob "eps"; "epsilon" is honored too.
             e = float(ex.get("eps", eps(1e-7)))
-            return 1, lambda p, g, s, lr, t: _as_pair(
+            return 1, lambda p, g, s, lr, t, split: _as_pair(
                 oo._adagrad_update(p, g, s[0], lr=lr, epsilon=e, wd=wd,
                                    rescale_grad=rs, clip_gradient=clip))
         if name == "adadelta":
@@ -312,7 +349,7 @@ class TrainStep:
             rho = float(ex.get("rho", 0.90))
             e = eps(1e-5)
 
-            def adad(p, g, s, lr, t):
+            def adad(p, g, s, lr, t, split):
                 w, ag, ad = oo._adadelta_update(
                     p, g, s[0], s[1], rho=rho, epsilon=e, wd=wd,
                     rescale_grad=rs, clip_gradient=clip)
@@ -324,7 +361,7 @@ class TrainStep:
             lam = float(ex.get("lamda1", 0.01))
             beta = float(ex.get("beta", 1.0))
 
-            def ftrl(p, g, s, lr, t):
+            def ftrl(p, g, s, lr, t, split):
                 w, z, n = oo._ftrl_update(
                     p, g, s[0], s[1], lr=lr, lamda1=lam, beta=beta,
                     wd=wd, rescale_grad=rs, clip_gradient=clip)
@@ -336,7 +373,7 @@ class TrainStep:
             e = eps(1e-8)
             fb1 = self.beta1 if "beta1" in self._explicit else 0.6
 
-            def ftml(p, g, s, lr, t):
+            def ftml(p, g, s, lr, t, split):
                 w, d, v, z = oo._ftml_update(
                     p, g, s[0], s[1], s[2], lr=lr, beta1=fb1, beta2=b2,
                     epsilon=e, wd=wd, rescale_grad=rs, clip_grad=clip,
@@ -351,7 +388,7 @@ class TrainStep:
             # The running schedule product is state starting at 1.0.
             self._opt_init = lambda v: (f32(v), f32(v), f32(v) + 1.0)
 
-            def nadam(p, g, s, lr, t):
+            def nadam(p, g, s, lr, t, split):
                 mean, var, sched = s
                 g = g * rs + wd * p
                 if clip > 0:
@@ -377,7 +414,7 @@ class TrainStep:
             self._opt_init = lambda v: (
                 f32(v), v.detach().to(torch.float32).clone())
 
-            def dcasgd(p, g, s, lr, t):
+            def dcasgd(p, g, s, lr, t, split):
                 mom_s, prev = s
                 g = g * rs
                 if clip > 0:
@@ -394,7 +431,7 @@ class TrainStep:
             check_extra()
             ctx = self.mesh.context
 
-            def sgld(p, g, s, lr, t):
+            def sgld(p, g, s, lr, t, split):
                 g = g * rs
                 if clip > 0:
                     g = g.clamp(-clip, clip)
@@ -410,22 +447,28 @@ class TrainStep:
             check_extra("warmup_strategy", "warmup_epochs", "batch_scale",
                         "updates_per_epoch", "begin_epoch", "num_epochs")
 
-            def lars_lr(p, g, lr):
-                wnorm = torch.linalg.vector_norm(p)
-                gnorm = torch.linalg.vector_norm(g) * rs
+            def lars_lr(p, g, lr, split):
+                if split is None:
+                    wnorm = torch.linalg.vector_norm(p)
+                    gnorm = torch.linalg.vector_norm(g) * rs
+                else:
+                    # A block of a split weight: the whole weight's norm.
+                    wnorm = torch.sqrt(_coll.sq_sum(p, split))
+                    gnorm = torch.sqrt(_coll.sq_sum(g, split)) * rs
                 ratio = torch.clamp(
                     wnorm / (gnorm + wd * wnorm + 1e-9), max=10.0)
                 return torch.where((wnorm > 0) & (gnorm > 0), lr * ratio,
                                    torch.full_like(ratio, lr))
 
             if mom > 0:
-                return 1, lambda p, g, s, lr, t: _as_pair(
-                    oo._sgd_mom_update(p, g, s[0], lr=lars_lr(p, g, lr),
+                return 1, lambda p, g, s, lr, t, split: _as_pair(
+                    oo._sgd_mom_update(p, g, s[0],
+                                       lr=lars_lr(p, g, lr, split),
                                        momentum=mom, wd=wd,
                                        rescale_grad=rs,
                                        clip_gradient=clip))
-            return 0, lambda p, g, s, lr, t: (
-                oo._sgd_update(p, g, lr=lars_lr(p, g, lr), wd=wd,
+            return 0, lambda p, g, s, lr, t, split: (
+                oo._sgd_update(p, g, lr=lars_lr(p, g, lr, split), wd=wd,
                                rescale_grad=rs, clip_gradient=clip), ())
         raise ValueError(
             "TrainStep supports sgd/nag/signum/signsgd/adam/rmsprop/"
@@ -434,7 +477,8 @@ class TrainStep:
 
     def _materialize(self, x_example):
         """Collect the parameters (inferring deferred shapes with one
-        forward if needed) and copy them onto the mesh's device."""
+        forward if needed) and place them on the mesh's device: this
+        rank's block of each parameter the rule splits."""
         net = self.net
         params = list(net.collect_params().values())
         if any(p._data is None and p._deferred_init is not None
@@ -446,10 +490,13 @@ class TrainStep:
         self._train_params = [p for p in params if p.grad_req != "null"]
         self._aux_params = [p for p in params if p.grad_req == "null"]
         dev = self._device
+        self._shapes = {p.name: tuple(p.shape) for p in self._train_params}
+        self._shardings = shard_params(self.mesh, self._shapes,
+                                       rule=self._param_rule)
         # Masters keep the parameter's own (fp32) dtype; they are leaves
         # of the step's graph, updated in place.
         self._param_vals = {
-            p.name: p.data()._data.detach().to(dev).clone()
+            p.name: place(p.data()._data, self._shardings[p.name])
             .requires_grad_(True) for p in self._train_params}
         self._aux_vals = {p.name: p.data()._data.detach().to(dev).clone()
                           for p in self._aux_params}
@@ -474,8 +521,12 @@ class TrainStep:
             return a.to(cdt) if cdt is not None and a.is_floating_point() \
                 else a
 
-        mapping = {p: NDArray(cast(self._param_vals[p.name]), ctx=ctx)
-                   for p in self._train_params}
+        names = [p.name for p in self._train_params]
+        # A split parameter enters as the gather of its cast block.
+        full = _coll.gather([cast(self._param_vals[n]) for n in names],
+                            [self._shardings[n] for n in names])
+        mapping = {p: NDArray(v, ctx=ctx)
+                   for p, v in zip(self._train_params, full)}
         # Aux (BatchNorm running stats) stays fp32: it sits only on the
         # moving-average path, so the moments accumulate in fp32.
         mapping.update({p: NDArray(self._aux_vals[p.name], ctx=ctx)
@@ -514,11 +565,36 @@ class TrainStep:
         loss, grads, new_aux = self._loss_and_grads(
             x, y, reducer=(share, lambda t: _coll.all_reduce(t, group)),
             share=share)
-        names = list(grads)
+        # A parameter split over dp had its gradient summed in the
+        # gather's backward.
+        names = [n for n in grads
+                 if "dp" not in self._shardings[n].axes]
         summed = _coll.all_reduce_flat(
             [loss.reshape(1)] + [grads[n] for n in names], group)
-        return (summed[0].reshape(()), dict(zip(names, summed[1:])),
-                new_aux)
+        grads.update(zip(names, summed[1:]))
+        return self._sync_replicas(summed[0].reshape(()), grads, new_aux)
+
+    def _sync_replicas(self, loss, grads, new_aux):
+        """The loss, gradients and aux values of the rank at index 0 of
+        every non-batch axis a tensor is not split over, broadcast over
+        that axis: the replicas of a parameter, its optimizer state and
+        the aux state are then one array by construction, whatever bits
+        each rank's forward and backward gave (cuDNN's default
+        algorithms are not deterministic). A no-op on a dp-only mesh."""
+        mesh = self.mesh
+        aux_names = list(new_aux)
+        for ax in mesh.axis_names:
+            if ax in _coll.BATCH_AXES or mesh.shape[ax] == 1:
+                continue
+            names = [n for n in grads if ax not in self._shardings[n].axes]
+            got = _coll.broadcast_flat(
+                [loss.reshape(1)] + [grads[n] for n in names] +
+                [new_aux[n] for n in aux_names],
+                mesh.axis_ranks(ax)[0], mesh.group(ax))
+            loss = got[0].reshape(())
+            grads.update(zip(names, got[1:1 + len(names)]))
+            new_aux.update(zip(aux_names, got[1 + len(names):]))
+        return loss, grads, new_aux
 
     def _deterministic_loss_and_grads(self, x, y):
         """Per-shard loss, gradients and BatchNorm statistics, gathered
@@ -560,7 +636,7 @@ class TrainStep:
             for name, p in self._param_vals.items():
                 g = grads[name].to(torch.float32)
                 new_p, new_s = self._opt_update(p, g, self._opt_state[name],
-                                                self.lr, t)
+                                                self.lr, t, self._split(name))
                 p.copy_(new_p)
                 for s, ns in zip(self._opt_state[name], new_s):
                     s.copy_(ns)
@@ -574,7 +650,8 @@ class TrainStep:
         tensor on the mesh's device (reading it waits for the step).
 
         Over a mesh of ranks, `x`/`y` are this rank's local slice of the
-        global batch (``dist.local_slice`` gives the rows) and the loss
+        global batch, its block along ``dp`` (``mesh.local_slice`` gives
+        the rows; ``dist.local_slice`` on a dp-only mesh), and the loss
         is the global batch's, the same on every rank."""
         t_start = time.perf_counter()
         x, y = _as_tensor(x), _as_tensor(y)
@@ -599,16 +676,43 @@ class TrainStep:
     def set_learning_rate(self, lr):
         self.lr = float(lr)
 
-    def state_to_host(self):
-        """(params, opt_state, aux) as host numpy dicts."""
-        def host(t):
-            return t.detach().to(torch.float32).cpu().numpy() \
-                if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+    def _split(self, name):
+        """The sharding of parameter `name` where it is split across
+        ranks, else None."""
+        s = self._shardings.get(name)
+        return s if s is not None and s.axes and self.mesh.over_ranks \
+            else None
 
-        return ({n: host(v) for n, v in self._param_vals.items()},
-                {n: tuple(host(s) for s in st)
-                 for n, st in self._opt_state.items()},
-                {n: host(v) for n, v in self._aux_vals.items()})
+    def _full_state(self):
+        """(params, opt_state, aux) as full arrays on the step's device:
+        the split ones gathered (every rank of the mesh calls this), the
+        rest the live tensors."""
+        names = list(self._param_vals)
+        k = self._opt_n_states
+        blocks = [self._param_vals[n] for n in names] + \
+            [self._opt_state[n][i] for n in names for i in range(k)]
+        shardings = [self._shardings[n] for n in names] + \
+            [self._shardings[n] for n in names for _ in range(k)]
+        with torch.no_grad():
+            full = [t.detach() for t in _coll.gather(blocks, shardings)]
+        params = dict(zip(names, full[:len(names)]))
+        rest = iter(full[len(names):])
+        opt = {n: tuple(next(rest) for _ in range(k)) for n in names}
+        return params, opt, dict(self._aux_vals)
+
+    def state_to_host(self):
+        """(params, opt_state, aux) as host numpy dicts of the full
+        arrays (over a mesh of ranks, every rank calls it): copies, which
+        later steps do not change."""
+        def host(t):
+            if t.dtype == torch.bfloat16:
+                t = t.to(torch.float32)
+            return t.detach().to("cpu", copy=True).numpy()
+
+        params, opt, aux = self._full_state()
+        return ({n: host(v) for n, v in params.items()},
+                {n: tuple(host(s) for s in st) for n, st in opt.items()},
+                {n: host(v) for n, v in aux.items()})
 
     # -- checkpoint state (mxnet_tpu_torch.checkpoint) ------------------------
 
@@ -618,8 +722,7 @@ class TrainStep:
         them), each as bytes."""
         _random.generator(self.mesh.context)
         seed, counter, gens = _random.get_state()
-        if self._dp_group is not None and \
-                _coll.group_size(self._dp_group) > 1:
+        if self.mesh.over_ranks and len(self.mesh.ranks) > 1:
             gens = {}
         return {"seed": int(seed), "counter": int(counter),
                 "generators": {d: bytes(g.numpy().tobytes())
@@ -634,14 +737,18 @@ class TrainStep:
         them to the host at ``save``), so the dict is a snapshot later
         steps do not change. Inside the update loop this raises
         ``checkpoint.StepInProgressError`` (``checkpoint/guard.py``).
-        ``sharded=True`` gives each array as a ``checkpoint.Shard`` of
-        one chunk, the whole array: every array of a dp step is
-        replicated (sharded saves of non-replicated state are ROADMAP
-        Queue 1 item 7b). Over a mesh of ranks the state is the same on
-        every rank, and its RNG entry holds the root seed and host
-        counter only: each rank's device generators draw its own
-        stream (``random.set_rank``). Restore with
-        :meth:`load_state_dict`."""
+        By default the arrays are full: over a mesh of ranks the split
+        ones are gathered, so every rank calls this. ``sharded=True``
+        gives each array as a ``checkpoint.Shard`` of its global shape
+        holding this rank's block, where the rank holds the block's
+        first replica (index 0 on every mesh axis the array is not split
+        over, the JAX package's ``replica_id == 0``), and no chunk
+        elsewhere: a replicated array comes whole from rank 0 only. The
+        manager writes each rank's chunks and stitches them; restore
+        takes full arrays, on any mesh. Over a mesh of several ranks
+        the RNG entry holds the root seed and host counter only: each
+        rank's device generators draw its own stream
+        (``random.set_rank``). Restore with :meth:`load_state_dict`."""
         if not self._materialized:
             raise RuntimeError(
                 "run one step before state_dict so there is state to "
@@ -650,43 +757,59 @@ class TrainStep:
         if sharded:
             from ..checkpoint.manager import Shard
 
-            def conv(t):
-                return Shard(t.shape, t.dtype,
-                             [(tuple((0, d) for d in t.shape), t)])
+            whole = NamedSharding(self.mesh, P())
+
+            def conv(t, name=None):
+                s = self._shardings.get(name, whole)
+                shape = self._shapes.get(name, tuple(t.shape))
+                chunks = [(s.bounds(shape), t)] if s.holds_primary() \
+                    else []
+                return Shard(shape, t.dtype, chunks)
+
+            params, opt, aux = (self._param_vals, self._opt_state,
+                                self._aux_vals)
         else:
-            def conv(t):
+            def conv(t, name=None):
                 return t.detach().clone()
+
+            params, opt, aux = self._full_state()
         with torch.no_grad():
             return {
-                "params": {n: conv(v) for n, v in self._param_vals.items()},
-                "opt": {n: {str(i): conv(sv) for i, sv in enumerate(st)}
-                        for n, st in self._opt_state.items()},
-                "aux": {n: conv(v) for n, v in self._aux_vals.items()},
+                "params": {n: conv(v, n) for n, v in params.items()},
+                "opt": {n: {str(i): conv(sv, n) for i, sv in enumerate(st)}
+                        for n, st in opt.items()},
+                "aux": {n: conv(v) for n, v in aux.items()},
                 "num_update": int(self.num_update),
                 "rng": self._rng_entry(),
             }
 
     def _install(self, params, opt, aux, num_update, rng):
-        """Copy a restored state into the step's tensors, in their live
-        dtypes. Everything is converted and shape-checked before the
-        first write, so a mismatched state raises cleanly instead of
-        leaving a half-loaded step."""
+        """Copy a restored state (full arrays) into the step's tensors,
+        in their live dtypes: this rank's block of a split one.
+        Everything is converted and shape-checked before the first
+        write, so a mismatched state raises cleanly instead of leaving a
+        half-loaded step."""
         from ..checkpoint.state import to_tensor
 
         dev = self._device
 
-        def conv(value, like, name):
+        def conv(value, like, name, split=None):
             t = to_tensor(value, dev, like.dtype)
-            if tuple(t.shape) != tuple(like.shape):
+            want = self._shapes[name] if split is not None \
+                else tuple(like.shape)
+            if tuple(t.shape) != tuple(want):
                 raise ValueError("%s: checkpoint shape %s, step holds %s"
-                                 % (name, tuple(t.shape), tuple(like.shape)))
+                                 % (name, tuple(t.shape), tuple(want)))
+            if split is not None:
+                t = t[tuple(slice(a, b) for a, b in split.bounds(t.shape))]
             return t
 
         writes = []
         for n, v in self._param_vals.items():
-            writes.append((v, conv(params[n], v, n)))
+            split = self._split(n)
+            writes.append((v, conv(params[n], v, n, split)))
             for i, sv in enumerate(self._opt_state[n]):
-                writes.append((sv, conv(opt(n, i), sv, n)))
+                writes.append((sv, conv(opt(n, i), sv, n, split)))
         for n, v in self._aux_vals.items():
             writes.append((v, conv(aux[n], v, n)))
         gens = None
@@ -738,7 +861,9 @@ class TrainStep:
         seed and host counter), ``arg:<name>``, ``opt:<i>:<name>`` and
         ``aux:<name>``; the device generators' states follow as
         ``step:rng_state:<device>`` (uint8), which the JAX package does
-        not read. Returns the filename."""
+        not read. Over a mesh of ranks every rank gathers (the arrays
+        are full) and rank 0 writes, as in the JAX package. Returns the
+        filename."""
         from .. import ndarray as nd
         from ..context import cpu
 
@@ -762,10 +887,13 @@ class TrainStep:
                 flat["opt:%d:%s" % (i, n)] = st[str(i)]
         for n, v in state["aux"].items():
             flat["aux:" + n] = v
-        nd.save(path, {k: NDArray(v.cpu(), ctx=host)
-                       if isinstance(v, torch.Tensor)
-                       else nd.array(v, ctx=host, dtype=v.dtype)
-                       for k, v in flat.items()})
+        if not self.mesh.over_ranks or _dist.rank() == 0:
+            nd.save(path, {k: NDArray(v.cpu(), ctx=host)
+                           if isinstance(v, torch.Tensor)
+                           else nd.array(v, ctx=host, dtype=v.dtype)
+                           for k, v in flat.items()})
+        if self.mesh.over_ranks:
+            _dist.barrier()
         return path
 
     def load_checkpoint(self, path):
@@ -795,9 +923,15 @@ class TrainStep:
 
     def sync_to_net(self):
         """Copy the step's parameter and aux values back into the net's
-        Parameters."""
+        Parameters (full values: over a mesh of ranks, every rank calls
+        it)."""
+        names = list(self._param_vals)
+        with torch.no_grad():
+            full = _coll.gather([self._param_vals[n] for n in names],
+                                [self._shardings[n] for n in names])
+        params = {n: t.detach() for n, t in zip(names, full)}
         for p in self._train_params:
-            p.set_data(NDArray(self._param_vals[p.name].detach().clone(),
+            p.set_data(NDArray(params[p.name].clone(),
                                ctx=self.mesh.context))
         for p in self._aux_params:
             p.set_data(NDArray(self._aux_vals[p.name].clone(),

@@ -216,9 +216,14 @@ def test_world_size_one_is_the_single_device_step_bit_for_bit(
 
 
 def test_tp_axis_names_item_7b():
+    # A one-device mesh whose axis sizes multiply to 2 is inconsistent;
+    # a tp axis (tests/test_torch_tp.py trains over one) still refuses
+    # deterministic_reduction, as the JAX package does.
     mesh = mx.parallel.Mesh([mx.cpu()], ("dp", "tp"), (1, 2))
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(ValueError,
+                       match=r"\{'dp': 1, 'tp': 2\} over 1 device.*to 2"):
         TrainStep(dense_bn_dense(mx), mx.gluon.loss.L2Loss(), mesh=mesh)
+    ranks = mx.parallel.Mesh([mx.cpu()], ("dp", "tp"), (1, 2), ranks=[0, 1])
     with pytest.raises(ValueError, match="dp-only"):
-        TrainStep(dense_bn_dense(mx), mx.gluon.loss.L2Loss(), mesh=mesh,
+        TrainStep(dense_bn_dense(mx), mx.gluon.loss.L2Loss(), mesh=ranks,
                   deterministic_reduction=True)

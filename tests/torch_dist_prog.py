@@ -30,13 +30,14 @@ PROG = os.path.abspath(__file__)
 
 
 def launch(num_workers, num_servers, mode, out, data=None, kv_type=None,
-           env=None, timeout=120):
-    """Run this program as `num_workers` workers (and a scheduler with
-    `num_servers` servers) through the port's launcher, with free ports
-    and a timeout; asserts every worker exited 0, with their stderr."""
+           env=None, timeout=120, prog=PROG):
+    """Run `prog` (default: this program) as `num_workers` workers (and a
+    scheduler with `num_servers` servers) through the port's launcher,
+    with free ports and a timeout; asserts every worker exited 0, with
+    their stderr."""
     from mxnet_tpu_torch.parallel.launch import launch_local
 
-    cmd = [sys.executable, PROG, "--mode", mode, "--out", str(out)]
+    cmd = [sys.executable, prog, "--mode", mode, "--out", str(out)]
     if data is not None:
         cmd += ["--data", str(data)]
     if kv_type is not None:
