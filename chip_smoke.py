@@ -300,7 +300,32 @@ phase falls back to the host or to a plain version):
    step) and, over the example's vocabulary of 20, its own check that
    the nll falls (``PLACE_LM``).
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21) is driven with
+22. telemetry and profiling: (1) ResNet-50 v1 b32 bf16 through
+   ``TrainStep`` with a ``StepMonitor``, a ``DeviceMemoryMonitor``, a
+   ``FlightRecorder`` and a ``GoodputLedger``, and a ``HealthPlane`` on
+   the ``/metrics`` server of a free port: over HTTP, ``/readyz`` answers
+   200 before the step exists, 503 inside its first step and 200 after
+   it; ``/healthz``, ``/metrics``, ``/debug/memory``, ``/debug/goodput``
+   and ``POST /debug/bundle`` answer (the bundle names the card);
+   memstats' in-use and peak bytes equal ``torch.cuda.memory_allocated``
+   and ``max_memory_allocated``; ``POST /debug/xprof`` from another
+   thread while this one trains gives one torch.profiler trace holding
+   the step's kernels; (2) the attention layer of phase 12 through
+   ``gluon.Trainer`` (adam) with a halting ``NumericGuard`` on its
+   fused applier: ``TELE_ATTN_STEPS`` steps under
+   ``profiler.set_state('run')`` ... ``dump()``, whose chrome trace holds
+   exactly as many launches of K1's, K2's and K3's kernels
+   (``TELE_KERNELS``) as the port's counters counted (a window whose
+   trace lost card records, a kernel launch without its kernel record,
+   is run again, up to ``TELE_TRACE_TRIES`` windows); then one NaN
+   gradient: ``NonFiniteError`` names the step and ``mx_nonfinite_total``
+   moves by one; (3) the cost of telemetry on part 1's TrainStep: step ms
+   and idle share over ``TELE_COST_STEPS`` steps off
+   (``telemetry.set_enabled(False)``), at the default, and with
+   attribution's device spans on, in two rounds; (4)
+   ``examples.train_telemetry`` to its own ``ok``.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -7377,6 +7402,371 @@ def phase_placement(card_line):
         shutil.rmtree(outdir, ignore_errors=True)
 
 
+# Phase 22: telemetry and profiling on the training paths.
+TELE_COST_STEPS = 20        # steps a configuration of part 3 is timed over
+TELE_COST_ORDER = ("off", "default", "device_spans") * 2 + \
+    ("device_spans", "default", "off") * 2
+TELE_XPROF_S = 0.5          # seconds of the /debug/xprof capture (part 1)
+TELE_ATTN_STEPS = 3         # profiled attention steps (part 2)
+TELE_TRACE_TRIES = 8        # device-trace windows, when records are lost
+TELE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                "flash_bwd_dq_wgmma_kernel")
+TELE_RESNET = {"network": "resnet50", "batch": 32, "image": 224}
+TELE_ATTN = {"units": 1024, "heads": 16, "batch": 8, "seq": 2048}
+
+
+def _http(url, method="GET"):
+    """(status, body) of one request to the health plane on localhost."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method,
+                                 data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _lost_kernel_records(events):
+    """How many kernel launches of a chrome trace have no kernel record:
+    each launch call (the runtime's or the driver's) and the kernel it
+    launched share a correlation id."""
+    kernels = {e["args"]["correlation"] for e in events
+               if e.get("cat") == "kernel" and "correlation" in
+               e.get("args", {})}
+    launches = [e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and re.match(r"cu(da)?LaunchKernel", e.get("name", ""))
+                and "correlation" in e.get("args", {})]
+    return sum(1 for c in launches if c not in kernels)
+
+
+def _tele_resnet(card_line, tmp):
+    """Part 1: ResNet-50 v1 b32 bf16 TrainStep with StepMonitor,
+    DeviceMemoryMonitor, FlightRecorder, GoodputLedger and a HealthPlane
+    served over HTTP. Returns the step (part 3 reuses it), its batch and
+    the monitor."""
+    import os
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.examples import train_imagenet
+    from mxnet_tpu_torch.telemetry import goodput
+    from mxnet_tpu_torch.telemetry import healthplane as hp
+    from mxnet_tpu_torch.telemetry import memstats
+
+    hp.reset()      # earlier phases' components are not this path's
+    step = train_imagenet.build_train_step(TELE_RESNET["network"], 1000,
+                                           "bfloat16", mx.gpu(0))
+    monitor = telemetry.StepMonitor(warmup_steps=3)
+    recorder = telemetry.FlightRecorder(os.path.join(tmp, "diag"), rank=0,
+                                        rate_limit_s=0.0)
+    recorder.attach(monitor)
+    mem = telemetry.DeviceMemoryMonitor(interval_s=0.0)
+    ledger = telemetry.GoodputLedger(os.path.join(tmp, "goodput"), rank=0,
+                                     interval_s=0.0)
+    goodput.install(ledger)
+    plane = telemetry.HealthPlane(
+        watchdog=telemetry.HangWatchdog(min_deadline_s=30.0),
+        recorder=recorder, goodput=ledger,
+        xprof_dir=os.path.join(tmp, "xprof"))
+    server = telemetry.start_http_server(0, health=plane)
+    base = "http://%s:%d" % server.server_address[:2]
+    try:
+        rng = np.random.RandomState(SEED)
+        b, side = TELE_RESNET["batch"], TELE_RESNET["image"]
+        x = torch.from_numpy(rng.rand(b, 3, side, side).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, 1000, b).astype(np.float32))
+        during = []
+        loss_fn = step.loss_fn
+
+        def probe(pred, label):
+            # Inside the first step: its readiness slot exists, not ready.
+            if not during:
+                during.append(_http(base + "/readyz"))
+            return loss_fn(pred, label)
+
+        step.loss_fn = probe
+        first = _http(base + "/readyz")
+        with monitor.step(0):
+            loss = step(x, y)
+        float(loss)
+        step.loss_fn = loss_fn
+        after = _http(base + "/readyz")
+        check(first[0] == 200 and during[0][0] == 503
+              and json.loads(during[0][1])["components"] ==
+              {"train_step": False},
+              "/readyz before the first step ended: %s, %s"
+              % (first, during))
+        check(after[0] == 200 and json.loads(after[1])["components"] ==
+              {"train_step": True}, "/readyz after the first step: %s"
+              % (after,))
+        x, y = x.to(step._device), y.to(step._device)
+        torch.cuda.synchronize()
+        want = (torch.cuda.memory_allocated(0),
+                torch.cuda.max_memory_allocated(0))
+        sample = memstats.sample_device_memory()["cuda:0"]
+        check((sample["bytes"], sample["peak_bytes"]) == want,
+              "memstats %s against torch.cuda's in use and peak %s"
+              % (sample, want))
+        # /debug/xprof from another thread while this one trains.
+        reply = []
+        t = threading.Thread(target=lambda: reply.append(_http(
+            base + "/debug/xprof?seconds=%g" % TELE_XPROF_S, "POST")))
+        t.start()
+        i, t0 = 0, time.perf_counter()
+        while t.is_alive() or i < 5:
+            i += 1
+            s0 = time.perf_counter()
+            with monitor.step(i):
+                loss = step(x, y)
+                float(loss)
+            ledger.observe_step(step.num_update, time.perf_counter() - s0)
+            mem.tick()
+            ledger.tick()
+        t.join(timeout=120)
+        xprof_s = time.perf_counter() - t0
+        steps_ms = xprof_s * 1e3 / i
+        check(reply and reply[0][0] == 200, "/debug/xprof: %s" % reply)
+        events = _trace_events(os.path.join(
+            json.loads(reply[0][1])["dir"], "trace.json"))
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        tid = threading.get_native_id()
+        launches_here = sum(1 for e in events
+                            if e.get("cat") == "cuda_runtime"
+                            and e.get("tid") == tid
+                            and "Launch" in e.get("name", ""))
+        check(kernels, "the /debug/xprof trace holds no kernel events")
+        health = _http(base + "/healthz")
+        metrics = _http(base + "/metrics")
+        bundle = _http(base + "/debug/bundle", "POST")
+        memory = _http(base + "/debug/memory")
+        good = _http(base + "/debug/goodput")
+        check(health[0] == 200 and metrics[0] == 200
+              and b"mx_train_steps_total" in metrics[1]
+              and b"mx_device_live_bytes" in metrics[1],
+              "/healthz %d, /metrics %d" % (health[0], metrics[0]))
+        check(bundle[0] == 200 and memory[0] == 200 and good[0] == 200,
+              "/debug/bundle %d, /debug/memory %d, /debug/goodput %d"
+              % (bundle[0], memory[0], good[0]))
+        with open(json.loads(bundle[1])["bundle"]) as f:
+            env = json.load(f)["env"]
+        snap = ledger.snapshot()
+        line = {"part": "telemetry_resnet50_bf16", "card": card_line,
+                "readyz": [first[0], during[0][0], after[0]],
+                "memstats": sample, "torch_cuda": list(want),
+                "xprof_steps": i, "xprof_step_ms": steps_ms,
+                "xprof_seconds": xprof_s,
+                "xprof_kernel_events": len(kernels),
+                "xprof_launches_on_training_thread": launches_here,
+                "monitor": monitor.snapshot(),
+                "memory_limit_gb": sample["limit_bytes"] / 1e9,
+                "goodput_ratio": snap["goodput_ratio"],
+                "goodput_closure_ok": snap["closure_ok"],
+                "bundle_env": {k: env.get(k) for k in
+                               ("torch", "cuda", "device")},
+                "compile": memstats.compile_stats().get("train_step")}
+        log(json.dumps(line))
+        check(env.get("device") == torch.cuda.get_device_name(0),
+              "the bundle names %r" % env.get("device"))
+        return step, x, y, monitor
+    finally:
+        server.close()
+        goodput.uninstall(ledger)
+
+
+def _tele_attention(card_line, tmp, monitor):
+    """Part 2: the attention layer through gluon.Trainer (adam) with a
+    halting NumericGuard on its fused applier, TELE_ATTN_STEPS steps
+    under the device trace (again while a window's trace lost card
+    records), then a NaN gradient."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd, profiler, telemetry
+    from mxnet_tpu_torch.examples.attention_layer import SelfAttention
+
+    units, b, seq = TELE_ATTN["units"], TELE_ATTN["batch"], TELE_ATTN["seq"]
+    mx.random.seed(SEED)
+    net = SelfAttention(units, heads=TELE_ATTN["heads"])
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-3, "multi_precision": True})
+    guard = telemetry.NumericGuard(monitor=monitor, halt=True)
+    guard.install(trainer._applier)
+    rng = np.random.default_rng(SEED)
+    x = nd.array(rng.standard_normal((b, seq, units), dtype=np.float32),
+                 ctx=mx.gpu(0), dtype="bfloat16")
+    y = nd.array(rng.standard_normal((b, seq, units), dtype=np.float32),
+                 ctx=mx.gpu(0))
+    loss_fn = gluon.loss.L2Loss()
+
+    def one(step):
+        guard.observe_batch(step=step)
+        loss = _record_and_backward(net, x, y, True, loss_fn)
+        trainer.step(b)
+        return float(loss.asnumpy().mean())
+
+    losses = [one(1)]                       # warm: plans and states
+    step, windows = 2, []
+    for attempt in range(TELE_TRACE_TRIES):
+        path = os.path.join(tmp, "attention_trace.%d.json" % attempt)
+        profiler.set_config(filename=path)
+        before = _launches()
+        torch.cuda.synchronize()
+        profiler.set_state("run")
+        for _ in range(TELE_ATTN_STEPS):
+            losses.append(one(step))
+            step += 1
+        torch.cuda.synchronize()
+        counted = tuple(a - b for a, b in zip(_launches(), before))
+        check(profiler.dump() == path, "profiler.dump wrote elsewhere")
+        events = _trace_events(path)
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        in_trace = tuple(sum(1 for n in names if k in n)
+                         for k in TELE_KERNELS)
+        lost = _lost_kernel_records(events)
+        windows.append({"k1_k2_k3_in_trace": in_trace,
+                        "k1_k2_k3_counted": counted,
+                        "kernel_events": len(names),
+                        "launches_without_a_kernel_record": lost})
+        # Retry only a window whose trace demonstrably lost records
+        # (torch.profiler dropped one step's card records in about half
+        # the windows of a process that had run for minutes).
+        if in_trace == counted or not lost:
+            break
+    nonfinite = telemetry.REGISTRY.get("mx_nonfinite_total")
+    n0 = nonfinite.labels(site="grad").value
+    nan_step = step
+    guard.observe_batch(step=nan_step)
+    _record_and_backward(net, x, y, True, loss_fn)
+    w = net.collect_params()[[n for n in net.collect_params()
+                              if n.endswith("weight")][0]]
+    w.grad()._data.view(-1)[0] = float("nan")
+    raised = None
+    try:
+        trainer.step(b)
+    except telemetry.NonFiniteError as exc:
+        raised = str(exc)
+    moved = nonfinite.labels(site="grad").value - n0
+    line = {"part": "telemetry_attention_trainer", "card": card_line,
+            "losses": losses, "profiled_steps": TELE_ATTN_STEPS,
+            "windows": windows, "nonfinite_raised": raised,
+            "mx_nonfinite_total_moved": moved,
+            "guard_checks": dict(guard._counts),
+            "anomalies": monitor.snapshot()["anomalies"]}
+    log(json.dumps(line))
+    check(in_trace == counted == (TELE_ATTN_STEPS,) * 3,
+          "K1/K2/K3 in the device trace %s, counted %s, want %d each"
+          % (in_trace, counted, TELE_ATTN_STEPS))
+    check(raised is not None and "at step %d" % nan_step in raised,
+          "the guard did not halt at step %d: %r" % (nan_step, raised))
+    check(moved == 1, "mx_nonfinite_total moved by %s" % moved)
+    check(all(np.isfinite(losses)), "non-finite loss %s" % losses)
+
+
+def _tele_cost(card_line, step, x, y):
+    """Part 3: what telemetry costs the bf16 ResNet-50 TrainStep. Step
+    ms over TELE_COST_STEPS steps (after 3 warm ones, closed by a
+    synchronize) off, at the default and with attribution's device spans
+    on, in turns (TELE_COST_ORDER); the step's device ms from one
+    torch.profiler window of CUDA activity (telemetry changes host work
+    only), and each turn's idle share as 1 - device ms / step ms."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import attribution
+
+    def configure(name):
+        telemetry.set_enabled(name != "off")
+        attribution.set_device_spans(name == "device_spans")
+
+    rows = {}
+    try:
+        configure("default")
+        for _ in range(3):
+            step(x, y)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step(x, y)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")) / 1e3 / 5
+        for name in TELE_COST_ORDER:
+            configure(name)
+            for _ in range(3):
+                step(x, y)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TELE_COST_STEPS):
+                step(x, y)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TELE_COST_STEPS
+            rows.setdefault(name, []).append([ms, 1.0 - device_ms / ms])
+    finally:
+        configure("default")
+    line = {"part": "telemetry_cost", "card": card_line,
+            "steps": TELE_COST_STEPS, "order": TELE_COST_ORDER,
+            "device_ms": device_ms, "step_ms_idle_share": rows,
+            "step_ms_median": {k: float(np.median([r[0] for r in v]))
+                               for k, v in rows.items()}}
+    log(json.dumps(line))
+    check(device_ms > 0, "part 3: the profiler saw no device time")
+
+
+def phase_telemetry(card_line):
+    """Phase 22: telemetry and profiling (module docstring). Returns
+    each path's launch read."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.examples import train_telemetry
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase22_")
+    reads = {}
+    try:
+        seconds = {}
+        t = time.perf_counter()
+        _reset_all_launches()       # this path starts here
+        step, x, y, monitor = _tele_resnet(card_line, tmp)
+        reads["telemetry_resnet"] = _all_launches()     # just after it
+        check(reads["telemetry_resnet"]["k1_k2_k3"] == (0, 0, 0),
+              "ResNet-50 launched flash attention kernels")
+        seconds["resnet"], t = time.perf_counter() - t, time.perf_counter()
+        _reset_all_launches()
+        _tele_attention(card_line, tmp, monitor)
+        reads["telemetry_attention"] = _all_launches()
+        seconds["attention"], t = time.perf_counter() - t, time.perf_counter()
+        _reset_all_launches()
+        _tele_cost(card_line, step, x, y)
+        reads["telemetry_cost"] = _all_launches()
+        seconds["cost"], t = time.perf_counter() - t, time.perf_counter()
+        del step, x, y
+        _reset_all_launches()
+        code = train_telemetry.main(["--num-batches", "40", "--out-dir",
+                                     tmp + "/example"])
+        reads["telemetry_example"] = _all_launches()
+        check(code == 0, "examples.train_telemetry ended with %d" % code)
+        seconds["example"] = time.perf_counter() - t
+        log(json.dumps({"phase": "telemetry", "part_seconds": seconds}))
+        log("phase 22 seconds", round(time.perf_counter() - t_phase, 3))
+        return reads
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # Each rank of a phase-19, phase-20 or phase-21 part runs this file with
 # --dist-part <key>.
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
@@ -7384,37 +7774,51 @@ _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
                "place2": _place_part_tp2, "place4": _place_part_dp2tp2}
 
 
+def _timed(phase, *args):
+    """Run one phase of main() and log its seconds."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        log(json.dumps({"phase_seconds": phase.__name__,
+                        "seconds": round(time.perf_counter() - t0, 3)}))
+
+
 def main():
     t_start = time.perf_counter()
     _reset_det_launches()   # phases 1-12's path starts here
-    card_line = phase_device()
+    card_line = _timed(phase_device)
     card = torch.cuda.get_device_name(0)
-    phase_build()
-    fwd = phase_kernels(card)
-    dkv, dq = phase_backward_kernels(card)
-    served = phase_attention_served()
-    phase_resnet_served()
-    trained, trained32, attn_step_ms = phase_attention_trained()
-    synthetic = phase_resnet_trained()
-    direct, tensors = phase_rtc_direct()
-    rtc_entries = phase_rtc_kernels(card, tensors)
-    ckpt = phase_checkpoint_served()
-    trainer = phase_resnet_trainer(card_line)
-    attn_trainer, attn_trainer_ms = phase_attention_trainer(card_line)
+    _timed(phase_build)
+    fwd = _timed(phase_kernels, card)
+    dkv, dq = _timed(phase_backward_kernels, card)
+    served = _timed(phase_attention_served)
+    _timed(phase_resnet_served)
+    trained, trained32, attn_step_ms = _timed(phase_attention_trained)
+    synthetic = _timed(phase_resnet_trained)
+    direct, tensors = _timed(phase_rtc_direct)
+    rtc_entries = _timed(phase_rtc_kernels, card, tensors)
+    ckpt = _timed(phase_checkpoint_served)
+    trainer = _timed(phase_resnet_trainer, card_line)
+    attn_trainer, attn_trainer_ms = _timed(phase_attention_trainer,
+                                           card_line)
     det_reads = {"phases_1_12": _det_launches()}   # read just after it
-    pipeline = phase_input_pipeline(card_line, synthetic)
-    ckpt_path = phase_checkpoint(card_line)
-    module = phase_module(card_line, trainer["fp32"]["img_s_b32"])
-    recurrent = phase_recurrent(card_line)
-    core = phase_core_surface(card_line, trainer["fp32"]["img_s_b32"])
-    zoo = phase_model_zoo(card_line, synthetic["fp32"]["img_s_b32"])
+    pipeline = _timed(phase_input_pipeline, card_line, synthetic)
+    ckpt_path = _timed(phase_checkpoint, card_line)
+    module = _timed(phase_module, card_line, trainer["fp32"]["img_s_b32"])
+    recurrent = _timed(phase_recurrent, card_line)
+    core = _timed(phase_core_surface, card_line,
+                  trainer["fp32"]["img_s_b32"])
+    zoo = _timed(phase_model_zoo, card_line,
+                 synthetic["fp32"]["img_s_b32"])
     _reset_det_launches()   # phase 19's path in this process starts here
-    distributed = phase_distributed(card_line)
+    distributed = _timed(phase_distributed, card_line)
     det_reads["distributed"] = _det_launches()    # read just after it
     check(all(n == (0, 0, 0) for n in det_reads.values()),
           "D1/D2 launched before phase 20: %s" % det_reads)
-    detection = phase_detection(card_line)
-    placement = phase_placement(card_line)
+    detection = _timed(phase_detection, card_line)
+    placement = _timed(phase_placement, card_line)
+    telemetry_reads = _timed(phase_telemetry, card_line)
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -7461,14 +7865,15 @@ def main():
     # model zoo's (18) paths launch none of them.
     # The detection kernels (D1, D2 forward, D2 backward) are read there
     # too, and launch on phase 20's paths only. Phase 21's paths (each
-    # summed over its ranks) launch K1-K3 on the tp2 attention path only.
+    # summed over its ranks) launch K1-K3 on the tp2 attention path only,
+    # phase 22's on its attention path only.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
                        ("recurrent", recurrent["launches"]),
                        ("core_surface", core["launches"]),
                        ("model_zoo", zoo["launches"]),
-                       *placement.items()):
+                       *placement.items(), *telemetry_reads.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

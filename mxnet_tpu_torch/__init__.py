@@ -64,6 +64,7 @@ _LAZY = {
     "data": ".data",
     "log": ".log",
     "profiler": ".profiler",
+    "libinfo": ".libinfo",
     "checkpoint": ".checkpoint",
     "module": ".module",
     "mod": ".module",

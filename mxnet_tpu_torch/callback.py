@@ -138,9 +138,8 @@ class TelemetryCallback:
 
     * ``mx_train_batch_seconds`` histogram — inter-batch wall time;
     * ``mx_train_batches_total`` / ``mx_train_samples_total`` counters;
-    * optional ``monitor`` — any object with ``observe_step(dt,
-      step=)`` (the JAX package's ``telemetry.StepMonitor``; in the port
-      it is ROADMAP Queue 1 item 9) gets every batch time;
+    * optional :class:`telemetry.StepMonitor` (``monitor=``) — every
+      batch time feeds ``observe_step``;
     * every ``frequent`` batches, a Speedometer-style samples/sec line
       (``frequent=0`` disables logging; the metrics still record);
     * optional tickers (``trace_writer=``, ``aggregator=``, ``slo=``):

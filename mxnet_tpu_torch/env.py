@@ -54,6 +54,32 @@ CATALOGUE = [
     Knob("MXNET_TPU_MODEL_ZOO_DIR", str, "", "gluon/model_zoo/",
          "local directory of pretrained model zoo params (no-download "
          "model store)", False),
+    Knob("MXNET_PROFILE_HZ", float, 67.0, "telemetry/profiling.py",
+         "continuous-profiler stack sampling rate (Hz); non-round so "
+         "loops don't alias with the sampler", False),
+    Knob("MXNET_PROFILE_WINDOW_S", float, 30.0, "telemetry/profiling.py",
+         "continuous-profiler window length; each window closes one "
+         "collapsed-stack profile into the retention ring", False),
+    Knob("MXNET_PROFILE_RETAIN", int, 20, "telemetry/profiling.py",
+         "profile windows retained (ring; /debug/pprof?seconds=N can "
+         "reach back window_s * retain seconds)", False),
+    Knob("MXNET_XPROF_DIR", str, "", "telemetry/healthplane.py",
+         "capture root for POST /debug/xprof (torch.profiler chrome "
+         "traces); default: <recorder dir>/xprof when a FlightRecorder "
+         "is attached to the health plane", False),
+    Knob("MXNET_GOODPUT_DIR", str, "", "telemetry/goodput.py",
+         "goodput ledger root: goodput.rank<R>.json is committed here "
+         "atomically and resumed after a restart; empty = in-memory "
+         "accounting only (no durability, no restart_replay)", False),
+    Knob("MXNET_GOODPUT_INTERVAL_S", float, 30.0,
+         "telemetry/goodput.py",
+         "goodput ledger tick cadence: fold + durable commit at most "
+         "this often (0 = every tick)", False),
+    Knob("MXNET_GOODPUT_CLOSURE_PCT", float, 2.0,
+         "telemetry/goodput.py",
+         "goodput closure tolerance: snapshots whose categories "
+         "overcount wall-clock by more than this percentage warn and "
+         "report closure_ok=false", False),
     Knob("MXNET_TRACE_SAMPLE", float, 1.0, "telemetry/xtrace.py",
          "head-based trace sampling probability in [0, 1], decided once "
          "per root context", False),

@@ -77,13 +77,21 @@ buckets of at most ``MXNET_FUSED_BUCKET_MB`` per dtype
 and dist reduce moves one bucket per store key, so its traffic and
 its launches scale with ``ceil(params/bucket)``. ``flatten`` is one
 ``torch.cat`` and ``unflatten`` gives views of the flat buffer, both
-exact copies. Not ported here: the numeric grad guard
-(``open_guard_window``, ROADMAP Queue 1 item 9), memstats (item 9) and
-the persistent compile cache (item 10).
+exact copies.
+
+Telemetry, as in the JAX package: ``on_compile`` fires on each chunk
+plan built (``StepMonitor.attach_fused`` chains there, counting only the
+plans built after the first apply window), a chunk's first apply is
+observed as ``mx_compile_seconds{site="fused_apply"}``, and an installed
+``telemetry.NumericGuard`` (``grad_guard``) queues one
+``torch.isfinite(flat_w).all()`` per chunk after its update, read once
+per armed apply window (:meth:`FusedApplier.close_guard_window`). Not
+ported here: the persistent compile cache (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
@@ -91,6 +99,7 @@ from . import env as _env
 from .ndarray.ndarray import NDArray, _producer_stream
 from .ops import registry as _reg
 from .ops import optimizer_ops as _oo
+from .telemetry import memstats as _ms
 from .telemetry import metrics as _tm
 from .telemetry import trace as _trace
 
@@ -332,7 +341,7 @@ class _ApplyChunk:
     __slots__ = ("shapes", "sizes", "offsets", "total", "n", "k", "mp",
                  "base_k", "pads", "zeros", "flat_w", "flat_s", "weights",
                  "wver", "views", "state_objs", "stale", "hyp_host", "lr_t",
-                 "wd_t", "scale_t")
+                 "wd_t", "scale_t", "applied")
 
     def __init__(self, shapes, k):
         self.shapes = shapes
@@ -360,6 +369,7 @@ class _ApplyChunk:
         self.stale = True
         self.hyp_host = None
         self.lr_t = self.wd_t = self.scale_t = None
+        self.applied = False
 
     def cat(self, tensors, dtype):
         """The chunk's flat vector of `tensors` (one launch), zeros in
@@ -417,9 +427,19 @@ class FusedApplier:
         # so grouping and chunking collapse to one O(n) identity sweep.
         self._plans = {}
         self.num_compiles = 0
-        # The JAX package's numeric guard hook; the guard itself is
-        # ROADMAP Queue 1 item 9, so it stays None here.
+        # Plan-count hook, the CachedOp num_traces/on_trace pattern:
+        # StepMonitor.attach_fused chains here to flag signature churn.
+        self.on_compile = None
+        # Plans are a storm signal only when `_replanning`: an existing
+        # plan rebuilt, or any new plan after the first apply window
+        # closed (`_warmed`).
+        self._replanning = False
+        self._warmed = False
+        # Numeric-health hook (telemetry.NumericGuard.install): when set
+        # and armed for this apply, each chunk's updated flat weight
+        # gets one isfinite reduction on its device.
         self.grad_guard = None
+        self._guard_armed = False
 
     # -- eligibility ----------------------------------------------------------
 
@@ -463,6 +483,8 @@ class FusedApplier:
         self._chunks[sig] = ch
         self.num_compiles += 1
         _apply_compiles.labels(optimizer=spec.name).inc()
+        if self.on_compile is not None:
+            self.on_compile(self)
         return ch
 
     def _flatten(self, ch, ws, sts):
@@ -583,9 +605,23 @@ class FusedApplier:
             for buf, ns in zip(flat_s, new_s):
                 buf.copy_(ns)
 
+        t_first = None if ch.applied else time.perf_counter()
         with torch.no_grad():
             _dispatch("trainer::fused_apply", apply, optimizer=spec.name,
                       params=len(group))
+        if t_first is not None:
+            # A chunk's first apply: where the JAX package compiles its
+            # executable (mx_compile_seconds{site="fused_apply"}).
+            ch.applied = True
+            _ms.observe_compile("fused_apply",
+                                time.perf_counter() - t_first)
+        if self._guard_armed and self.grad_guard is not None:
+            # One isfinite reduction over the updated flat weight: a
+            # NaN/Inf gradient anywhere in the chunk reaches the
+            # weights through every (elementwise) body. The result stays
+            # on the device until close_guard_window reads them all.
+            self.grad_guard.check_flat(flat_w, optimizer=spec.name,
+                                       params=len(group))
         wver = []
         for e in group:
             w = e[1]
@@ -599,27 +635,41 @@ class FusedApplier:
     # -- public ----------------------------------------------------------------
 
     def open_guard_window(self):
-        """The JAX package's numeric-guard window. The guard is ROADMAP
-        Queue 1 item 9; with none installed there is nothing to arm."""
-        if self.grad_guard is not None:
-            raise NotImplementedError(
-                "the numeric grad guard (telemetry.numerics) is not ported "
-                "yet: ROADMAP Queue 1 item 9")
+        """Arm (or not, per its cadence) the numeric guard for a window
+        of ``apply(..., manage_guard=False)`` calls: the Trainer's
+        overlapped path applies bucket by bucket, and the guard decides
+        once per step, checking all of a step's chunks or none."""
+        self._guard_armed = (self.grad_guard is not None
+                             and self.grad_guard.arm_apply())
 
-    close_guard_window = open_guard_window
+    def close_guard_window(self):
+        """The guard's one read of the window, after every chunk was
+        applied (raises ``NonFiniteError`` under a halting guard). Also
+        closes the warmup window: a plan built after this counts toward
+        the recompile-storm budget."""
+        try:
+            if self._guard_armed and self.grad_guard is not None:
+                self.grad_guard.flush()
+        finally:
+            self._guard_armed = False
+            self._warmed = True
 
-    def apply(self, entries, grad_scale=None):
+    def apply(self, entries, grad_scale=None, manage_guard=True):
         """Fused-apply ``[(index, weight, grad)]``; returns the subset of
         entries that must take the per-parameter fallback loop.
 
         ``grad_scale``: optional runtime scalar multiplying every gradient
         (the Trainer's global-norm clip), rounded to the gradient dtype
-        as the Trainer's loop path rounds it."""
+        as the Trainer's loop path rounds it.
+
+        ``manage_guard=False``: the caller brackets several applies in
+        one :meth:`open_guard_window`/:meth:`close_guard_window` pair."""
         opt = self.updater.optimizer
         base_spec = _spec_for(opt)
         if base_spec is None or not entries:
             return list(entries)
-        self.open_guard_window()
+        if manage_guard:
+            self.open_guard_window()
         pk = (len(entries), entries[0][0], entries[-1][0])
         plan = self._plans.get(pk)
         if plan is not None and plan[0] == base_spec.name \
@@ -631,8 +681,11 @@ class FusedApplier:
             for spec, ch, group in plan[4]:
                 pending.extend(self._run_chunk(spec, ch, group, opt,
                                                grad_scale))
+            if manage_guard:
+                self.close_guard_window()
             return pending
 
+        self._replanning = plan is not None or self._warmed
         states = self.updater.states
         mp_spec = None
         pending, groups = [], {}
@@ -685,6 +738,8 @@ class FusedApplier:
         pending = list(pending)
         for spec, ch, part in chunks:
             pending.extend(self._run_chunk(spec, ch, part, opt, grad_scale))
+        if manage_guard:
+            self.close_guard_window()
         return pending
 
 

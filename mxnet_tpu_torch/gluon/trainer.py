@@ -39,8 +39,10 @@ package's data-parallel path (``trainer.py:192-591`` there):
   buckets; gradient compression goes through the store.
 
 One context with a local store creates no store (as in the JAX
-package). The numeric grad guard is ROADMAP Queue 1 item 9; row-sparse
-gradients are item 11c.
+package). ``telemetry.NumericGuard(...).install(trainer._applier)``
+checks every fused step's updated weights (one read per step, the
+overlapped path's buckets included); row-sparse gradients are ROADMAP
+Queue 1 item 11c.
 """
 from __future__ import annotations
 
@@ -627,7 +629,7 @@ class Trainer:
                         sumsq.append(bucket.sumsq(task.flats[0]))
                         pending_applies.append(work)
                         continue
-                    self._apply_entries(work, None)
+                    self._apply_entries(work, None, manage_guard=False)
                 odd_work = self._reduce_odd(odd)
                 scale = None
                 if clip is not None:
@@ -635,8 +637,9 @@ class Trainer:
                     total = math.fsum(float(v) for v in sumsq)
                     scale = min(1.0, clip / (math.sqrt(total) + 1e-8))
                     for work in pending_applies:
-                        self._apply_entries(work, scale)
-                self._apply_entries(odd_work, scale)
+                        self._apply_entries(work, scale,
+                                            manage_guard=False)
+                self._apply_entries(odd_work, scale, manage_guard=False)
                 processed.append(odd_work)
                 # Copy the updated first replica to the other contexts.
                 for work in processed:
@@ -676,11 +679,13 @@ class Trainer:
             out.append((i, list(p._data.values()), grads[0]))
         return out
 
-    def _apply_entries(self, work, scale):
+    def _apply_entries(self, work, scale, manage_guard=True):
         """Fused-apply `work` ([(index, datas, grad)]) on the first
-        replica, the rest through the per-parameter updater."""
+        replica, the rest through the per-parameter updater.
+        ``manage_guard=False`` inside an open guard window."""
         entries = [(i, d[0], g) for i, d, g in work]
-        pending = self._applier.apply(entries, grad_scale=scale) \
+        pending = self._applier.apply(entries, grad_scale=scale,
+                                      manage_guard=manage_guard) \
             if self._fused and entries else entries
         for i, w, g in pending:
             if scale is not None and scale != 1.0:

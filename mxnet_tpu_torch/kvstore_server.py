@@ -33,10 +33,9 @@ The port's server applies the optimizer with the port's
 scheduler process never initialises CUDA
 (``torch.cuda.is_initialized()`` stays False there). A pushed value
 keeps its dtype on the wire and in the stored value, so a float64 key
-stays float64. Row-sparse pushes raise (ROADMAP Queue 1 item 11c). Of
-the remote profiler commands, ``dumps`` and ``trace_flush`` answer;
-``set_config``, ``set_state``, ``pause``, ``resume`` and ``dump`` need
-the device trace, ROADMAP Queue 1 item 9, and answer with its error.
+stays float64. Row-sparse pushes raise (ROADMAP Queue 1 item 11c). The
+remote profiler commands drive this process's ``profiler``, which in a
+server or scheduler traces the CPU only and so never initialises CUDA.
 
 Roles and env contract (set by ``parallel/launch.py``):
 

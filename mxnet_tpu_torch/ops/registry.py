@@ -20,6 +20,7 @@ package places the result on its default device.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 __all__ = ["Operator", "register", "get", "list_all_ops", "invoke_raw",
@@ -117,13 +118,34 @@ def device_attrs(op, tensors, attrs, default):
     return attrs
 
 
+_profiler_mod = None
+
+
 def invoke_raw(op: Operator, tensors, attrs, named=(), device=None):
     """Run `op` on torch tensors. Trailing `named` entries of `tensors`
     are bound by keyword; `device` places a creating op that has no
-    tensor input."""
+    tensor input. While ``profiler`` runs, the call's host dispatch time
+    goes to its per-op table (no synchronisation: on the card it is the
+    enqueue)."""
+    global _profiler_mod
     DISPATCHES[0] += 1
     if op.creates or op.needs_rng:
         attrs = device_attrs(op, tensors, attrs, device)
+    if _profiler_mod is None:
+        from .. import profiler as _profiler_mod_     # lazy, once
+
+        _profiler_mod = _profiler_mod_
+    if _profiler_mod.is_recording():
+        # The reference's ExecuteOprBlock wraps each op in
+        # ProfileOperator (threaded_engine.h:338-347).
+        t0 = time.perf_counter()
+        out = _call(op, tensors, attrs, named)
+        _profiler_mod.record_op_span(op.name, time.perf_counter() - t0)
+        return out
+    return _call(op, tensors, attrs, named)
+
+
+def _call(op, tensors, attrs, named):
     if named:
         n = len(tensors) - len(named)
         kw = dict(zip(named, tensors[n:]))

@@ -111,11 +111,19 @@ meshes. The random streams differ per rank (``random.set_rank``), so a
 comparison with the JAX package's step, which draws one key for the
 global batch, uses nets without dropout.
 
-Not ported here (ROADMAP Queue 1): the telemetry hooks other than the
-``train_step::data_put``/``train_step::step`` spans and
-``mx_train_step_seconds``, which the input pipeline's ``stall_fraction``
-and decode autoscaler read (the watchdog lane, health-plane readiness,
-memstats; item 9) and the compile cache (item 10).
+Telemetry, as in the JAX package: the step runs inside the ``step``
+heartbeat lane of the hang watchdog; the ``train_step::data_put``,
+``train_step::dispatch`` (forward, backward, all-reduce and update
+enqueued) and ``train_step::step`` spans, ``mx_train_step_seconds`` and
+``mx_train_steps_total`` record each step; the first step is observed
+as ``mx_compile_seconds{site="train_step"}`` and flips the step's
+health-plane readiness slot (``/readyz``) to ready. With
+``telemetry.attribution.set_device_spans(True)`` (a ``StepAttribution``
+turns it on) a ``train_step::device`` span follows the dispatch: a
+CUDA event recorded after the step's work and synchronised, so it ends
+when the card has finished the step (the JAX package's
+``jax.block_until_ready``); with device spans off nothing waits. Not
+ported here: the compile cache (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -129,8 +137,12 @@ import torch
 from .. import autograd
 from .. import random as _random
 from ..checkpoint import guard as _guard
+from ..telemetry import attribution as _attr
+from ..telemetry import healthplane as _hp
+from ..telemetry import memstats as _ms
 from ..telemetry import metrics as _tm
 from ..telemetry import trace as _trace
+from ..telemetry import watchdog as _watchdog
 from ..base import torch_dtype
 from ..gluon.parameter import override
 from ..ndarray.ndarray import NDArray
@@ -143,6 +155,8 @@ from .mesh import (make_mesh, data_sharding, shard_params, place,
 _step_seconds = _tm.REGISTRY.histogram(
     "mx_train_step_seconds",
     "TrainStep.__call__ wall time (host dispatch path)")
+_steps_total = _tm.REGISTRY.counter(
+    "mx_train_steps_total", "Completed TrainStep calls")
 
 __all__ = ["TrainStep"]
 
@@ -228,6 +242,9 @@ class TrainStep:
         self._shardings = {}
         self._shapes = {}
         self._materialized = False
+        self._hp_component = None      # health-plane readiness slot
+        self._hp_ready = False
+        self._first_step_pending = True
 
     def _check_mesh(self):
         """The ``dp`` group of a mesh over ranks (None on one device);
@@ -654,24 +671,52 @@ class TrainStep:
         the rows; ``dist.local_slice`` on a dp-only mesh), and the loss
         is the global batch's, the same on every rank."""
         t_start = time.perf_counter()
-        x, y = _as_tensor(x), _as_tensor(y)
-        if not self._materialized:
-            self._materialize(x[:1])
-        with _trace.span("train_step::data_put"):
-            x = x.to(self._device, non_blocking=True)
-            y = y.to(self._device, non_blocking=True)
-        t = self.num_update + 1
-        if self.deterministic_reduction:
-            loss, grads, new_aux = self._deterministic_loss_and_grads(x, y)
-        elif self._dp_group is not None:
-            loss, grads, new_aux = self._dp_loss_and_grads(x, y)
-        else:
-            loss, grads, new_aux = self._loss_and_grads(x, y)
-        self._apply_update(grads, new_aux, t)
-        t_end = time.perf_counter()
-        _trace.complete("train_step::step", t_start, t_end, step=t)
-        _step_seconds.observe(t_end - t_start)
-        return loss
+        if self._hp_component is None:
+            self._hp_component = _hp.unique_component("train_step")
+        # Heartbeat lane for the hang watchdog: work between begin/end
+        # past its deadline fires a `step_hang` anomaly.
+        _watchdog.begin("step")
+        try:
+            x, y = _as_tensor(x), _as_tensor(y)
+            if not self._materialized:
+                self._materialize(x[:1])
+            with _trace.span("train_step::data_put"):
+                x = x.to(self._device, non_blocking=True)
+                y = y.to(self._device, non_blocking=True)
+            t = self.num_update + 1
+            with _trace.span("train_step::dispatch", step=t):
+                if self.deterministic_reduction:
+                    loss, grads, new_aux = \
+                        self._deterministic_loss_and_grads(x, y)
+                elif self._dp_group is not None:
+                    loss, grads, new_aux = self._dp_loss_and_grads(x, y)
+                else:
+                    loss, grads, new_aux = self._loss_and_grads(x, y)
+                self._apply_update(grads, new_aux, t)
+            if _attr.device_spans_enabled():
+                # Step attribution's device bracket: how long the card
+                # still works after the dispatch returned. Gated: the
+                # wait makes every step host-synchronous.
+                with _trace.span("train_step::device", step=t):
+                    if self._device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(self._device))
+                        done.synchronize()
+            t_end = time.perf_counter()
+            _trace.complete("train_step::step", t_start, t_end, step=t)
+            _step_seconds.observe(t_end - t_start)
+            _steps_total.inc()
+            if self._first_step_pending:
+                # The first step: where the JAX package traces and
+                # compiles the whole step.
+                self._first_step_pending = False
+                _ms.observe_compile("train_step", t_end - t_start)
+            if not self._hp_ready:
+                self._hp_ready = True
+                _hp.set_ready(self._hp_component)
+            return loss
+        finally:
+            _watchdog.end("step")
 
     def set_learning_rate(self, lr):
         self.lr = float(lr)

@@ -2,10 +2,8 @@
 
 Counterpart of ``mxnet_tpu/telemetry/export.py``, copied: it has no
 JAX in it. The port's kvstore server imports its
-``StreamingTraceWriter``. ``PushExporter(wire_format="remote_write")``
-needs ``telemetry.remote_write``, which is ROADMAP Queue 1 item 9; until
-then every snapshot takes the classic text format, counted as a
-failure (the fallback the JAX package takes on an encoding error).
+``StreamingTraceWriter``; ``PushExporter(wire_format="remote_write")``
+encodes through the port's copy of ``telemetry.remote_write``.
 
 PR 3's tracing was dump-at-end: a multi-hour job's spans only hit disk
 if the process exits cleanly and calls ``trace.dump()`` — a preempted

@@ -1,8 +1,6 @@
 """mxnet_tpu_torch.telemetry.metrics — the framework-wide metrics registry.
 
 A copy of ``mxnet_tpu/telemetry/metrics.py``, which imports no JAX.
-The aggregator and health plane it mentions are ROADMAP Queue 1 item 9
-in the port.
 
 Typed Counter / Gauge / Histogram families with Prometheus-style labels,
 designed for the step/dispatch hot path:

@@ -1,10 +1,9 @@
 """mxnet_tpu_torch.telemetry.watchdog — hang detection with forensic dumps.
 
 A copy of ``mxnet_tpu/telemetry/watchdog.py``, which imports no JAX.
-The port's data pipeline heartbeats the ``data`` lanes; the step,
-serving and checkpoint lanes, ``StepMonitor`` and ``FlightRecorder``
-come with ROADMAP Queue 1 items 5 and 9 (until then a hang fires as a
-rate-limited warning, the path without a monitor or recorder).
+The port's data pipeline heartbeats the ``data`` lanes, TrainStep the
+``step`` lane and the checkpoint writer its own; the serving lanes come
+with ROADMAP Queue 1 item 8.
 
 A hang is the anomaly the step-health monitor cannot see: StepMonitor
 only runs when a step COMPLETES, so a step (or serving batch, or

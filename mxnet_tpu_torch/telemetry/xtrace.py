@@ -1,9 +1,9 @@
 """mxnet_tpu_torch.telemetry.xtrace — cross-process causal trace contexts.
 
-A copy of ``mxnet_tpu/telemetry/xtrace.py``, which imports no JAX. The
-seams and tools it names below (kvstore wire framing, the gateway, the
-flight recorder, ``healthplane``, ``tools/trace_merge.py``) are the JAX
-package's; in the port they come with ROADMAP Queue 1 items 7-9.
+A copy of ``mxnet_tpu/telemetry/xtrace.py``, which imports no JAX. Of
+the seams and tools it names below, the gateway comes with ROADMAP
+Queue 1 item 8 and ``tools/trace_merge.py`` with item 11c; the kvstore
+wire framing, the flight recorder and ``healthplane`` are ported.
 
 Dapper-style propagation for the framework's causal chains: a
 :class:`TraceContext` (``trace_id``, ``span_id``, ``sampled``) rides a

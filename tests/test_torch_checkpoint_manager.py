@@ -583,19 +583,26 @@ def test_profiler_counters(tmp_path):
         mx.telemetry.render_prometheus()
 
 
-def test_profiler_user_objects():
+def test_profiler_user_objects(tmp_path):
     domain = mx.profiler.Domain("ckpt_test")
     c = domain.new_counter("items", 5)
     c += 3
     c -= 1
     assert json.loads(mx.profiler.dumps(format="json"))["counters"][
         "ckpt_test::items"] == 7
+    # The device trace runs now: a Task while profiling lands in the
+    # dispatch table, and dump() writes the session's chrome trace.
+    mx.profiler.set_config(filename=str(tmp_path / "prof"))
+    mx.profiler.set_state("run")
     with domain.new_task("work"):
         pass
     domain.new_frame("frame").start()
     domain.new_marker("mark").mark()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mx.profiler.set_state("run")
+    path = mx.profiler.dump()
+    assert path == str(tmp_path / "prof.json")
+    assert "traceEvents" in json.loads(open(path).read())
+    assert "ckpt_test::work" in json.loads(
+        mx.profiler.dumps(format="json", reset=True))["ops"]
 
 
 # -- adapters: Module, Block + Trainer, TrainStep -----------------------------

@@ -52,6 +52,9 @@ def _setup(seed=0):
     each quarter of a batch has its own mean."""
     rng = np.random.RandomState(seed)
     jnet = dense_bn_dense(jmx)
+    # The Dense weights come from the JAX package's RNG: seed it from the
+    # test's own seed, not the session's.
+    jmx.random.seed(seed)
     jnet.initialize()
     with jmx.autograd.pause():
         jnet(jmx.nd.array(rng.rand(BATCH, 4).astype(np.float32)))

@@ -86,6 +86,12 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.log, "
         "mxnet_tpu_torch.telemetry.watchdog, "
         "mxnet_tpu_torch.telemetry.healthplane, "
+        "mxnet_tpu_torch.telemetry.memstats, "
+        "mxnet_tpu_torch.telemetry.numerics, "
+        "mxnet_tpu_torch.telemetry.recorder, "
+        "mxnet_tpu_torch.telemetry.remote_write, "
+        "mxnet_tpu_torch.libinfo, "
+        "mxnet_tpu_torch.examples.train_telemetry, "
         "mxnet_tpu_torch.examples.gluon_image_classification, "
         "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.checkpoint.manager, "
         "mxnet_tpu_torch.checkpoint.preempt, "

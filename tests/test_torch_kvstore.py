@@ -10,6 +10,8 @@ error-feedback residuals over three pushes, equal to the JAX numpy
 codec's bit for bit. ``dist_*`` stores and row-sparse pulls raise with
 their ROADMAP item.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -174,7 +176,7 @@ def test_compression_params_are_stored_and_validated():
 
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async",
                                   "dist_device_sync"])
-def test_dist_stores_name_the_roadmap(name, monkeypatch):
+def test_dist_stores_name_the_roadmap(name, monkeypatch, tmp_path):
     # create() gives the parameter-server store now: a scheduler and a
     # server of this process (threads) serve one worker, whose sparse
     # paths name their roadmap item. tests/test_torch_kvstore_dist.py
@@ -205,11 +207,16 @@ def test_dist_stores_name_the_roadmap(name, monkeypatch):
         np.testing.assert_array_equal(out.asnumpy(), np.ones(2))
         with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
             kv.row_sparse_pull("w", out=out, row_ids=out)
-        # The server's profiler answers dumps; the device trace's
-        # commands name their roadmap item.
+        # The server's profiler answers every command: dumps, and the
+        # device trace's (a CPU trace in a server).
         assert isinstance(kv.server_profiler_command("dumps")[0], str)
-        with pytest.raises(RuntimeError, match="item 9"):
-            kv.server_profiler_command("set_config", {"filename": "x"})
+        trace = str(tmp_path / "server_trace.json")
+        for sub, arg in (("set_config", {"filename": trace}),
+                         ("set_state", "run"), ("pause", None),
+                         ("resume", None), ("dump", None)):
+            kv.server_profiler_command(sub, arg)
+        with open(trace) as f:
+            assert "traceEvents" in json.load(f)
     finally:
         kv.close()
     for t in threads:

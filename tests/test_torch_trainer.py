@@ -579,13 +579,18 @@ def test_multi_context_and_dist_name_the_roadmap():
 
 
 def test_grad_guard_names_the_roadmap():
+    # The guard is ported (telemetry.numerics): installed on the fused
+    # applier it checks each step's chunks once, and finite steps pass.
+    from mxnet_tpu_torch import telemetry
+
     net = _port_net(13, 7, 3)
     tr = mx.gluon.Trainer(net.collect_params(), "sgd")
     assert tr._applier.grad_guard is None
-    tr._applier.grad_guard = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _train(mx, net, tr, _batches(np.random.RandomState(0), 1, (6, 7), 3),
-               ctx=mx.cpu())
+    guard = telemetry.NumericGuard(halt=True)
+    assert guard.install(tr._applier) is tr._applier
+    _train(mx, net, tr, _batches(np.random.RandomState(0), 2, (6, 7), 3),
+           ctx=mx.cpu())
+    assert guard.violations == [] and guard._counts == {"grad": 2}
 
 
 def test_telemetry_counts_the_fused_path():
