@@ -315,17 +315,46 @@ phase falls back to the host or to a plain version):
    fused applier: ``TELE_ATTN_STEPS`` steps under
    ``profiler.set_state('run')`` ... ``dump()``, whose chrome trace holds
    exactly as many launches of K1's, K2's and K3's kernels
-   (``TELE_KERNELS``) as the port's counters counted (a window whose
-   trace lost card records, a kernel launch without its kernel record,
-   is run again, up to ``TELE_TRACE_TRIES`` windows); then one NaN
+   (``TELE_KERNELS``) as the port's counters counted, and a kernel
+   record for every kernel launch in it (the session's primer takes the
+   records torch.profiler drops at a window's start); then one NaN
    gradient: ``NonFiniteError`` names the step and ``mx_nonfinite_total``
    moves by one; (3) the cost of telemetry on part 1's TrainStep: step ms
    and idle share over ``TELE_COST_STEPS`` steps off
    (``telemetry.set_enabled(False)``), at the default, and with
    attribution's device spans on, in two rounds; (4)
    ``examples.train_telemetry`` to its own ``ok``.
+23. the multi-model gateway: (1) one ``ModelGateway`` over five models
+   registered with warmup (each runs one signature per bucket):
+   ResNet-50 v1 fp32 (TF32 off) as an fn model over its weights
+   (buckets 1/8/32, two deadline classes), the same weights with
+   ``quantize="int8"`` and ``"bf16"``, the same net exported and served
+   from its checkpoint through the fused BN+ReLU partition (33 K4a
+   launches a forward), and phase 4's causal bf16 flash attention
+   (buckets 1/2/4/8, an SLO of ``GW_SLO``); 8 client threads for
+   ``GW_LOAD_S`` seconds with requests of 1-8 rows, every response held
+   against a direct forward of the same rows (phase 5's bounds; the
+   int8 model against the net on its dequantized weights; attention at
+   ``kernel_tolerance``); K1 and K4a launches against the batches that
+   ran; per model p50/p99, batches, rows, occupancy and bytes held, and
+   int8's relative L2 distance from fp32; (2) ``hot_swap`` of the fp32
+   model from a ``CheckpointManager`` commit of other weights under 4
+   client threads: nothing dropped, both generations served, each
+   response within tolerance of its own generation's forward and
+   outside it for the other's, the swap's ms; (3) the attention model
+   flooded under its SLO: its lowest deadline class sheds, its highest
+   and the fp32 model under moderate load drop nothing, the fp32
+   model's p50/p99 while attention burns; (4) continuous batching of
+   phase 16's LSTM LM (``GW_DECODE``): the continuous loop and the
+   static pass on one backend (tokens/s, steps, p99 TTFT), no new
+   signature after ``warm()``, every sequence's tokens those of its
+   prompt alone, and ``gw.generate`` beside part 1's models; (5) the
+   fp32 model with ``mesh_axes={"tp": 2}`` over two gloo ranks on the
+   card (``GW_MESH``): each rank's outputs the unsharded model's bit for
+   bit, about half the weights' bytes held a rank; (6)
+   ``examples.serve_mnist`` to its end.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22) is driven with
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -4714,6 +4743,9 @@ ZOO_TRAIN = (("inception-v3", 32, (3, 299, 299)),
              ("alexnet", 512, (3, 224, 224)),
              ("alexnet", 32, (3, 224, 224)))
 ZOO_SERVED = (("vgg16", 224), ("inceptionv3", 299))
+# Timed windows of each training row (benchmark_rate's median): 3, not
+# its default 5, to keep the whole script's time as phases are added.
+ZOO_WINDOWS = 3
 # The reference's published V100 img/s (BASELINE.md:17, 28, 35): a
 # reading beside ours, not a target.
 ZOO_REFERENCE_V100 = {"inceptionv3_train_b32": 214.48,
@@ -4815,12 +4847,13 @@ def _zoo_rates(mx, card_line):
     train = {}
     for network, batch, shape in ZOO_TRAIN:
         row = {"batch": batch, "image_shape": list(shape),
-               "iters_per_window": 16 if batch <= 32 else 10, "windows": 5,
-               "card": card_line}
+               "iters_per_window": 16 if batch <= 32 else 10,
+               "windows": ZOO_WINDOWS, "card": card_line}
         for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
             t0 = time.perf_counter()
             rate = train_imagenet.benchmark_rate(
-                network, batch, dtype, device=mx.gpu(0), image_shape=shape)
+                network, batch, dtype, device=mx.gpu(0), image_shape=shape,
+                windows=ZOO_WINDOWS)
             row[tag] = {"img_s": rate, "ms_per_step": batch * 1e3 / rate,
                         "seconds": time.perf_counter() - t0}
             torch.cuda.empty_cache()
@@ -7408,7 +7441,6 @@ TELE_COST_ORDER = ("off", "default", "device_spans") * 2 + \
     ("device_spans", "default", "off") * 2
 TELE_XPROF_S = 0.5          # seconds of the /debug/xprof capture (part 1)
 TELE_ATTN_STEPS = 3         # profiled attention steps (part 2)
-TELE_TRACE_TRIES = 8        # device-trace windows, when records are lost
 TELE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                 "flash_bwd_dq_wgmma_kernel")
 TELE_RESNET = {"network": "resnet50", "batch": 32, "image": 224}
@@ -7586,8 +7618,7 @@ def _tele_resnet(card_line, tmp):
 def _tele_attention(card_line, tmp, monitor):
     """Part 2: the attention layer through gluon.Trainer (adam) with a
     halting NumericGuard on its fused applier, TELE_ATTN_STEPS steps
-    under the device trace (again while a window's trace lost card
-    records), then a NaN gradient."""
+    under the device trace, then a NaN gradient."""
     import os
 
     import mxnet_tpu_torch as mx
@@ -7618,33 +7649,22 @@ def _tele_attention(card_line, tmp, monitor):
         return float(loss.asnumpy().mean())
 
     losses = [one(1)]                       # warm: plans and states
-    step, windows = 2, []
-    for attempt in range(TELE_TRACE_TRIES):
-        path = os.path.join(tmp, "attention_trace.%d.json" % attempt)
-        profiler.set_config(filename=path)
-        before = _launches()
-        torch.cuda.synchronize()
-        profiler.set_state("run")
-        for _ in range(TELE_ATTN_STEPS):
-            losses.append(one(step))
-            step += 1
-        torch.cuda.synchronize()
-        counted = tuple(a - b for a, b in zip(_launches(), before))
-        check(profiler.dump() == path, "profiler.dump wrote elsewhere")
-        events = _trace_events(path)
-        names = [e["name"] for e in events if e.get("cat") == "kernel"]
-        in_trace = tuple(sum(1 for n in names if k in n)
-                         for k in TELE_KERNELS)
-        lost = _lost_kernel_records(events)
-        windows.append({"k1_k2_k3_in_trace": in_trace,
-                        "k1_k2_k3_counted": counted,
-                        "kernel_events": len(names),
-                        "launches_without_a_kernel_record": lost})
-        # Retry only a window whose trace demonstrably lost records
-        # (torch.profiler dropped one step's card records in about half
-        # the windows of a process that had run for minutes).
-        if in_trace == counted or not lost:
-            break
+    step = 2
+    path = os.path.join(tmp, "attention_trace.json")
+    profiler.set_config(filename=path)
+    before = _launches()
+    torch.cuda.synchronize()
+    profiler.set_state("run")
+    for _ in range(TELE_ATTN_STEPS):
+        losses.append(one(step))
+        step += 1
+    torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(_launches(), before))
+    check(profiler.dump() == path, "profiler.dump wrote elsewhere")
+    events = _trace_events(path)
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    in_trace = tuple(sum(1 for n in names if k in n) for k in TELE_KERNELS)
+    lost = _lost_kernel_records(events)
     nonfinite = telemetry.REGISTRY.get("mx_nonfinite_total")
     n0 = nonfinite.labels(site="grad").value
     nan_step = step
@@ -7661,7 +7681,10 @@ def _tele_attention(card_line, tmp, monitor):
     moved = nonfinite.labels(site="grad").value - n0
     line = {"part": "telemetry_attention_trainer", "card": card_line,
             "losses": losses, "profiled_steps": TELE_ATTN_STEPS,
-            "windows": windows, "nonfinite_raised": raised,
+            "k1_k2_k3_in_trace": in_trace, "k1_k2_k3_counted": counted,
+            "kernel_events": len(names),
+            "launches_without_a_kernel_record": lost,
+            "nonfinite_raised": raised,
             "mx_nonfinite_total_moved": moved,
             "guard_checks": dict(guard._counts),
             "anomalies": monitor.snapshot()["anomalies"]}
@@ -7669,6 +7692,8 @@ def _tele_attention(card_line, tmp, monitor):
     check(in_trace == counted == (TELE_ATTN_STEPS,) * 3,
           "K1/K2/K3 in the device trace %s, counted %s, want %d each"
           % (in_trace, counted, TELE_ATTN_STEPS))
+    check(lost == 0, "%d kernel launches in the device trace have no "
+          "kernel record" % lost)
     check(raised is not None and "at step %d" % nan_step in raised,
           "the guard did not halt at step %d: %r" % (nan_step, raised))
     check(moved == 1, "mx_nonfinite_total moved by %s" % moved)
@@ -7767,11 +7792,752 @@ def phase_telemetry(card_line):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# Each rank of a phase-19, phase-20 or phase-21 part runs this file with
+# Phase 23: the multi-model gateway, hot reload, SLO shedding, continuous
+# batching of the LSTM LM, and the mesh-sharded ResNet-50 over two ranks.
+GW_BUCKETS = {"resnet": (1, 8, 32), "attention": (1, 2, 4, 8)}
+GW_ITEM = {"resnet": (3, 224, 224), "attention": (3, 16, 2048, 64)}
+GW_LOAD_S = 5.0             # part 1's load, seconds
+GW_THREADS = 8              # part 1's client threads
+GW_POOL = 6                 # distinct requests per model (rows 1-8)
+GW_SWAP_S = (1.5, 1.5)      # part 2: load before and after the swap
+GW_FLOOD_S = 4.0            # part 3's flood, seconds
+GW_SLO = (0.99, 0.0005)     # part 3: the SLO the attention model cannot meet
+# Phase 5's bounds for a served forward: fp32 within 1e-3 of the largest
+# output, bf16 within 0.1 of it; attention within kernel_tolerance.
+GW_TOL = {"fp32": 1e-3, "bf16": 0.1}
+# Part 4: the LSTM LM of phase 16 (LM: vocabulary 10 000, embedding and
+# hidden 200, two layers) decoding greedily, 32 slots in pages of 4; 128
+# sequences whose lengths follow bench.py's geometric mix (mean 10, seed
+# 7, clipped to 1-128); prompts of 1-16 tokens from the synthetic corpus.
+GW_DECODE = {"slots": 32, "page_slots": 4, "sequences": 128,
+             "mean_len": 10, "len_seed": 7, "max_len": 128, "max_prompt": 16,
+             "generate": 6}
+# Part 5: 6 lockstep requests at b8 per rank.
+GW_MESH = {"requests": 6, "batch": 8}
+
+
+def _gw_violation(got, want, tol):
+    """Largest |got - want| as a share of tol * max|want| (<= 1 passes)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / (
+        tol * float(want.abs().max()))
+
+
+def _gw_resnet_fn(net):
+    """fn(*weights, x): the net under `weights` (gluon's override), so a
+    backend holds, quantizes or replaces the weights itself."""
+    from mxnet_tpu_torch.gluon.parameter import override
+
+    pobjs = list(net.collect_params().values())
+
+    def fn(*args):
+        *weights, x = args
+        with override(dict(zip(pobjs, weights))):
+            return net(x)
+
+    return fn, pobjs
+
+
+def _gw_attention(x):
+    from mxnet_tpu_torch import nd
+
+    xb = x.astype("bfloat16")
+    return nd.contrib.flash_attention(xb[:, 0], xb[:, 1], xb[:, 2],
+                                      causal=True)
+
+
+def _gw_pool(kind, seed):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1, 9, GW_POOL)
+    rows[:2] = (1, 8)
+    item = GW_ITEM[kind]
+    return [rng.standard_normal((int(r),) + item, dtype=np.float32)
+            if kind == "attention" else
+            rng.random((int(r),) + item, dtype=np.float32) for r in rows]
+
+
+def _gw_direct(fn, params, pool):
+    """`fn` on each request of the pool, on the card (a direct forward of
+    the same rows, no gateway)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    out = []
+    with torch.no_grad(), autograd.pause():
+        for x in pool:
+            y = fn(*(params + [nd.array(x, ctx=mx.gpu(0))]))
+            out.append(y.data_.clone())
+    torch.cuda.synchronize()
+    return out
+
+
+def _gw_clients(gw, jobs, seconds, threads):
+    """`threads` clients, each cycling through its jobs (model, class,
+    pool index, check) until `seconds` pass; check(result, index) raises
+    on a wrong response. Returns (responses per model, errors)."""
+    import threading
+
+    stop = time.perf_counter() + seconds
+    served, errors = {}, []
+    lock = threading.Lock()
+
+    def client(k):
+        i = k
+        while time.perf_counter() < stop:
+            model, cls, pool, check_fn = jobs[i % len(jobs)]
+            idx = (i // len(jobs)) % len(pool)
+            i += threads
+            try:
+                res = gw.predict(model, pool[idx], deadline_class=cls)
+                check_fn(res, idx)
+            except Exception as exc:   # a drop or a wrong answer
+                with lock:
+                    errors.append("%s: %r" % (model, exc))
+                time.sleep(0.001)   # a refused client backs off a little
+                continue
+            with lock:
+                served[model] = served.get(model, 0) + 1
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return served, errors
+
+
+def _gw_models(gw):
+    """Per model: p50/p99 ms, batches, rows, occupancy, generation."""
+    out = {}
+    for name, st in gw.stats().items():
+        b = st["buckets"]
+        nb = sum(v["batches"] for v in b.values())
+        rows = sum(v["rows"] for v in b.values())
+        out[name] = {"p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                     "batches": nb, "rows": rows,
+                     "occupancy": rows / max(1, sum(v["batches"] * k
+                                                    for k, v in b.items())),
+                     "per_bucket_batches": {k: v["batches"]
+                                            for k, v in b.items()},
+                     "generation": st["generation"], "shed": st["shed"]}
+    return out
+
+
+def _lm_decode_fns():
+    """(step, prefill) of phase 16's LM as a greedy decoder over nd ops:
+    embedding, the two LSTM cells sliced from the RNN op's fused parameter
+    vector, FullyConnected to the vocabulary, argmax. State (h, c), each
+    (slots, 2, 200). The prefill runs the padded prompt step by step and
+    keeps no update past the prompt's length."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_param_layout
+
+    V, E, H, L = LM["vocab"], LM["embed"], LM["hidden"], LM["layers"]
+    layout = {n: (s, o) for n, s, o in rnn_param_layout(L, H, E)}
+
+    def w(flat, name):
+        shape, off = layout[name]
+        return nd.slice_axis(flat, axis=0, begin=off,
+                             end=off + int(np.prod(shape))).reshape(shape)
+
+    def core(emb, flat, fcw, fcb, h, c, tok):
+        x = nd.Embedding(tok, emb, input_dim=V, output_dim=E)
+        hs, cs = [], []
+        for i in range(L):
+            hl = nd.slice_axis(h, axis=1, begin=i, end=i + 1).reshape((-1, H))
+            cl = nd.slice_axis(c, axis=1, begin=i, end=i + 1).reshape((-1, H))
+            g = nd.FullyConnected(x, w(flat, "l%d_i2h_weight" % i),
+                                  w(flat, "l%d_i2h_bias" % i),
+                                  num_hidden=4 * H) + \
+                nd.FullyConnected(hl, w(flat, "l%d_h2h_weight" % i),
+                                  w(flat, "l%d_h2h_bias" % i),
+                                  num_hidden=4 * H)
+            gi, gf, gg, go = nd.split(g, num_outputs=4, axis=1)
+            cl = nd.sigmoid(gf) * cl + nd.sigmoid(gi) * nd.tanh(gg)
+            x = nd.sigmoid(go) * nd.tanh(cl)
+            hs.append(x)
+            cs.append(cl)
+        logits = nd.FullyConnected(x, fcw, fcb, num_hidden=V)
+        return nd.stack(*hs, axis=1), nd.stack(*cs, axis=1), logits
+
+    def step(emb, flat, fcw, fcb, state, tokens, pos):
+        h, c, logits = core(emb, flat, fcw, fcb, *state, tokens)
+        return (h, c), nd.argmax(logits, axis=1)
+
+    def prefill(emb, flat, fcw, fcb, prompt, length):
+        h = nd.zeros((1, L, H), ctx=prompt.context)
+        c = nd.zeros((1, L, H), ctx=prompt.context)
+        keep = nd.zeros((1, V), ctx=prompt.context)
+        lf = length.astype("float32")
+        for t in range(int(prompt.shape[1])):
+            tok = nd.slice_axis(prompt, axis=1, begin=t,
+                                end=t + 1).reshape((1,))
+            h2, c2, logits = core(emb, flat, fcw, fcb, h, c, tok)
+            m = (lf > t).reshape((1, 1))
+            m3 = m.reshape((1, 1, 1))
+            h = nd.broadcast_mul(m3, h2) + nd.broadcast_mul(1 - m3, h)
+            c = nd.broadcast_mul(m3, c2) + nd.broadcast_mul(1 - m3, c)
+            keep = nd.broadcast_mul(m, logits) + nd.broadcast_mul(1 - m, keep)
+        return (h, c), nd.argmax(keep, axis=1)
+
+    return step, prefill
+
+
+def _lm_decode_params(seed=SEED):
+    """Random LM weights from `seed` (numpy): embedding, the fused LSTM
+    vector, the output layer's weight and bias."""
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_param_layout
+
+    V, E, H, L = LM["vocab"], LM["embed"], LM["hidden"], LM["layers"]
+    rng = np.random.default_rng(seed)
+    n = sum(int(np.prod(s)) for _, s, _ in rnn_param_layout(L, H, E))
+    return [rng.uniform(-0.1, 0.1, (V, E)).astype(np.float32),
+            rng.uniform(-0.2, 0.2, n).astype(np.float32),
+            rng.uniform(-0.1, 0.1, (V, H)).astype(np.float32),
+            np.zeros(V, np.float32)]
+
+
+def _gw_decode_spec(name="lm"):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+
+    c = GW_DECODE
+    step, prefill = _lm_decode_fns()
+    return serving.ModelSpec(
+        name, params=[mx.nd.array(p, ctx=mx.gpu(0))
+                      for p in _lm_decode_params()],
+        max_batch=c["slots"], ctx=mx.gpu(0),
+        decode=serving.DecodeConfig(
+            step, state_shape=[(LM["layers"], LM["hidden"])] * 2,
+            init=prefill, page_slots=c["page_slots"],
+            max_tokens=c["max_len"], max_prompt_len=c["max_prompt"]))
+
+
+def _gw_alone(backend, prompt, n):
+    """The tokens `backend` gives `prompt` alone in slot 0."""
+    slots = GW_DECODE["slots"]
+    tokens = np.zeros(slots, np.int32)
+    pos = np.zeros(slots, np.int32)
+    active = np.zeros(slots, bool)
+    active[0] = True
+    out = [backend.admit(0, prompt)]
+    tokens[0] = out[0]
+    while len(out) < n:
+        tokens[0] = backend.step(backend.page_count(1), tokens, pos,
+                                 active)[0]
+        out.append(int(tokens[0]))
+    return out
+
+
+def _gw_decode(card_line, gw):
+    """Part 4: continuous batching of the LSTM LM against the static pass
+    on one backend; every sequence's tokens against the same prompt
+    alone; then the model through the gateway beside part 1's models."""
+    from mxnet_tpu_torch.serving import DecodeLoop
+    from mxnet_tpu_torch.telemetry import metrics as tm
+
+    c = GW_DECODE
+    corpus = _lm_corpus()
+    lengths = np.clip(np.random.RandomState(c["len_seed"]).geometric(
+        1 / c["mean_len"], size=c["sequences"]), 1, c["max_len"])
+    prompts = [np.asarray(corpus[i][:1 + i % c["max_prompt"]], np.int32)
+               for i in range(c["sequences"])]
+    spec = _gw_decode_spec("lm_decode")
+    backend = spec.build_backend()
+    t0 = time.perf_counter()
+    backend.warm()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = backend.compile_count
+    total = int(lengths.sum())
+    # The static pass: admit a batch of 32, step until its longest ends.
+    tokens = np.zeros(c["slots"], np.int32)
+    pos = np.zeros(c["slots"], np.int32)
+    static_steps = 0
+    t0 = time.perf_counter()
+    for i in range(0, c["sequences"], c["slots"]):
+        batch = lengths[i:i + c["slots"]]
+        n_pages = backend.page_count(len(batch))
+        active = np.zeros(c["slots"], bool)
+        for slot in range(len(batch)):
+            tokens[slot] = backend.admit(slot, prompts[i + slot])
+        for s in range(1, int(batch.max())):
+            active[:len(batch)] = s < batch
+            backend.step(n_pages, tokens, pos, active)
+            static_steps += 1
+    static_s = time.perf_counter() - t0
+    # The continuous loop on the same backend.
+    steps_fam = tm.REGISTRY.get("mx_decode_steps_total")
+    steps0 = steps_fam.labels(model="lm_decode").value
+    loop = DecodeLoop(spec, backend)
+    try:
+        t0 = time.perf_counter()
+        seqs = [loop.submit(p, max_tokens=int(n))
+                for p, n in zip(prompts, lengths)]
+        results = [s.future.result(timeout=600) for s in seqs]
+        cont_s = time.perf_counter() - t0
+    finally:
+        loop.close()
+    cont_steps = int(steps_fam.labels(model="lm_decode").value - steps0)
+    ttft = np.array([r.ttft_s for r in results]) * 1e3
+    alone = [_gw_alone(backend, p, int(n)) for p, n in zip(prompts, lengths)]
+    differ = [i for i, (r, a) in enumerate(zip(results, alone))
+              if r.tokens != a]
+    after = backend.compile_count
+    # Through the gateway, beside part 1's models.
+    gw.register(_gw_decode_spec("lm"))
+    gen = [gw.generate("lm", prompts[i], max_tokens=int(lengths[i]))
+           for i in range(c["generate"])]
+    gen_differ = [i for i, r in enumerate(gen) if r.tokens != alone[i]]
+    line = {"part": "continuous_batching_lstm_lm", "card": card_line,
+            "config": {k: LM[k] for k in ("vocab", "embed", "hidden",
+                                          "layers")},
+            "slots": c["slots"], "page_slots": c["page_slots"],
+            "sequences": c["sequences"], "tokens": total,
+            "lengths_mean": float(lengths.mean()),
+            "lengths_max": int(lengths.max()),
+            "warm_s": warm_s, "compile_count_after_warm": warm,
+            "compile_count_after_run": after,
+            "continuous": {"steps": cont_steps, "seconds": cont_s,
+                           "tokens_s": total / cont_s,
+                           "p50_ttft_ms": float(np.percentile(ttft, 50)),
+                           "p99_ttft_ms": float(np.percentile(ttft, 99))},
+            "static": {"steps": static_steps, "seconds": static_s,
+                       "tokens_s": total / static_s},
+            "sequences_unlike_alone": differ,
+            "gateway_generate": {"sequences": len(gen),
+                                 "unlike_alone": gen_differ,
+                                 "generations": [r.generation for r in gen]}}
+    log(json.dumps(line))
+    check(after == warm, "part 4: compile_count moved after warm(): %d -> %d"
+          % (warm, after))
+    check(not differ, "part 4: %d sequences decode unlike the same prompt "
+          "alone (first %s)" % (len(differ), differ[:8]))
+    check(not gen_differ, "part 4: gw.generate unlike the prompt alone: %s"
+          % gen_differ)
+    check(cont_steps < static_steps, "part 4: the continuous loop took %d "
+          "steps, the static pass %d" % (cont_steps, static_steps))
+    check(all(len(r.tokens) == int(n) for r, n in zip(results, lengths)),
+          "part 4: a sequence ended short of its max_tokens")
+    return line
+
+
+def phase_gateway(card_line):
+    """Phase 23: one ModelGateway over five models (ResNet-50 v1 fp32,
+    int8, bf16 and from its checkpoint through the fused BN+ReLU
+    partition; causal bf16 flash attention), hot swap under fire, SLO
+    shedding, continuous batching of the LSTM LM, the mesh-sharded
+    ResNet-50 over two ranks and the port's serve_mnist example. Returns
+    each path's launch read."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import checkpoint, nd, serving
+    from mxnet_tpu_torch.examples import fused_bn_relu as fb
+    from mxnet_tpu_torch.examples import serve_mnist
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    g = mx.gpu(0)
+    seconds, reads = {}, {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mxnet_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="gateway-", dir=build)
+    gw = None
+    try:
+        # -- part 1: five models behind one gateway ---------------------------
+        t = time.perf_counter()
+        net = _resnet50()
+        _randomize_bn(net, SEED + 6)
+        fn, pobjs = _gw_resnet_fn(net)
+        w1 = [p.data() for p in pobjs]
+        prefix = os.path.join(tmp, "resnet50_v1")
+        net.export(prefix)
+        pools = {"resnet": _gw_pool("resnet", SEED + 30),
+                 "attention": _gw_pool("attention", SEED + 31)}
+        int8_ref = serving.QuantizedFnModel(fn, w1, "int8", ctx=g)
+        deq = [nd._contrib_dequantize(int8_ref._params[i],
+                                      int8_ref._params[i + 1],
+                                      int8_ref._params[i + 2])
+               if kind == "q" else int8_ref._params[i]
+               for kind, i in int8_ref.entries]
+        bf16 = [p.astype("bfloat16") for p in w1]
+
+        def bf16_fn(*args):
+            *ws, x = args
+            return fn(*(ws + [x.astype("bfloat16")])).astype("float32")
+
+        want = {"resnet50": _gw_direct(fn, w1, pools["resnet"]),
+                "resnet50_int8": _gw_direct(fn, deq, pools["resnet"]),
+                "resnet50_bf16": _gw_direct(bf16_fn, bf16, pools["resnet"])}
+        want["resnet50_ckpt"] = want["resnet50"]
+        att_want = []
+        for x in pools["attention"]:
+            xb = torch.from_numpy(x).cuda().to(torch.bfloat16)
+            ref, _ = fa.flash_attention_reference(
+                xb[:, 0].contiguous(), xb[:, 1].contiguous(),
+                xb[:, 2].contiguous(), causal=True)
+            att_want.append(ref)
+        int8_l2 = float(np.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in
+                                    zip(want["resnet50_int8"],
+                                        want["resnet50"]))
+                                / sum(float((b ** 2).sum())
+                                      for b in want["resnet50"])))
+        classes = (("interactive", None), ("batch", None))
+        _reset_all_launches()           # this path starts here
+        gw = serving.ModelGateway(ctx=g, max_queue=256, max_delay_ms=5.0,
+                                  eval_interval_s=0.25)
+        gw.register(serving.ModelSpec(
+            "resnet50", fn=fn, params=w1, item_shape=GW_ITEM["resnet"],
+            buckets=GW_BUCKETS["resnet"], deadline_classes=classes))
+        gw.register(serving.ModelSpec(
+            "resnet50_int8", fn=fn, params=w1, item_shape=GW_ITEM["resnet"],
+            buckets=GW_BUCKETS["resnet"], quantize="int8"))
+        gw.register(serving.ModelSpec(
+            "resnet50_bf16", fn=fn, params=w1, item_shape=GW_ITEM["resnet"],
+            buckets=GW_BUCKETS["resnet"], quantize="bf16"))
+        os.environ["MXNET_SUBGRAPH_BACKEND"] = fb.BACKEND
+        try:
+            gw.register(serving.ModelSpec(
+                "resnet50_ckpt", checkpoint=prefix, epoch=0,
+                item_shape=GW_ITEM["resnet"], buckets=GW_BUCKETS["resnet"]))
+        finally:
+            os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        gw.register(serving.ModelSpec(
+            "attention", fn=_gw_attention, item_shape=GW_ITEM["attention"],
+            buckets=GW_BUCKETS["attention"], deadline_classes=classes,
+            slo=GW_SLO))
+        warm_s = time.perf_counter() - t
+        names = ["resnet50", "resnet50_int8", "resnet50_bf16",
+                 "resnet50_ckpt", "attention"]
+        for name in names:
+            st = gw._state(name)
+            check(st.backend.compile_count == len(st.spec.policy.buckets),
+                  "part 1: %s ran %d signatures at warmup for %d buckets"
+                  % (name, st.backend.compile_count,
+                     len(st.spec.policy.buckets)))
+        frags = {b[0]: sum(1 for n in ex._symbol._topo()
+                           if n._op == "_subgraph") for b, ex in
+                 gw._state("resnet50_ckpt").backend._executors.items()}
+        check(all(f == 33 for f in frags.values()),
+              "part 1: fused BN+ReLU fragments per bucket %s" % frags)
+        tol = {"resnet50": GW_TOL["fp32"], "resnet50_int8": GW_TOL["fp32"],
+               "resnet50_ckpt": GW_TOL["fp32"],
+               "resnet50_bf16": GW_TOL["bf16"]}
+        worst = {n: 0.0 for n in names}
+
+        def resnet_check(name):
+            def check_fn(res, idx):
+                v = _gw_violation(res.output.data_, want[name][idx],
+                                  tol[name])
+                worst[name] = max(worst[name], v)
+                check(v <= 1.0 and res.model == name,
+                      "%s response off its direct forward (%.3g)" % (name, v))
+            return check_fn
+
+        def attention_check(res, idx):
+            ref = att_want[idx]
+            v = max_violation(res.output.data_, ref,
+                              *fa.kernel_tolerance(ref.dtype, ref))
+            worst["attention"] = max(worst["attention"], float(v))
+            check(v <= 0, "attention response off its plain version")
+
+        jobs = [(n, None, pools["resnet"], resnet_check(n))
+                for n in names[:4]]
+        jobs.append(("attention", "interactive", pools["attention"],
+                     attention_check))
+        served, errors = _gw_clients(gw, jobs, GW_LOAD_S, GW_THREADS)
+        part1 = _all_launches()         # read just after it
+        models = _gw_models(gw)
+        held = {n: gw._state(n).backend.held_bytes for n in names}
+        line1 = {"part": "gateway_five_models", "card": card_line,
+                 "warm_s": warm_s, "load_s": GW_LOAD_S,
+                 "threads": GW_THREADS, "served": served,
+                 "errors": errors[:5], "models": models,
+                 "held_bytes": held,
+                 "int8_held_share_of_fp32": held["resnet50_int8"]
+                 / held["resnet50"],
+                 "int8_rel_l2_vs_fp32": int8_l2,
+                 "worst_share_of_tolerance": worst,
+                 "fused_bn_relu_fragments_per_bucket": frags,
+                 "launches": part1}
+        log(json.dumps(line1))
+        check(not errors, "part 1: %d requests failed: %s"
+              % (len(errors), errors[:3]))
+        check(all(served.get(n, 0) > 0 for n in names),
+              "part 1: a model served nothing: %s" % served)
+        ckpt_fwd = 3 + models["resnet50_ckpt"]["batches"]
+        att_fwd = 4 + models["attention"]["batches"]
+        check(part1["bn_relu"] == 33 * ckpt_fwd == part1["rtc"],
+              "part 1: K4a launched %d times (rtc %d) for %d checkpoint "
+              "forwards" % (part1["bn_relu"], part1["rtc"], ckpt_fwd))
+        check(part1["k1_k2_k3"] == (att_fwd, 0, 0),
+              "part 1: K1-K3 launched %s for %d attention forwards"
+              % (part1["k1_k2_k3"], att_fwd))
+        check(part1["scale_add"] == part1["relu"] == 0
+              and part1["d1_d2"] == (0, 0, 0),
+              "part 1 launched another kernel: %s" % part1)
+        zero = {k: (0,) * len(v) if isinstance(v, tuple) else 0
+                for k, v in part1.items()}
+        reads["gateway_attention"] = dict(zero, k1_k2_k3=part1["k1_k2_k3"])
+        reads["gateway_checkpoint_partitioned"] = dict(
+            zero, rtc=part1["rtc"], bn_relu=part1["bn_relu"])
+        seconds["five_models"] = time.perf_counter() - t
+
+        # -- part 2: hot swap under fire -----------------------------------
+        t = time.perf_counter()
+        _reset_all_launches()
+        net2 = _resnet50(seed=SEED + 1)
+        _randomize_bn(net2, SEED + 7)
+        names2 = [p.name for p in net2.collect_params().values()]
+        w2 = [p.data() for p in net2.collect_params().values()]
+        want2 = _gw_direct(fn, w2, pools["resnet"])
+        gap = min(_gw_violation(a, b, GW_TOL["fp32"])
+                  for a, b in zip(want2, want["resnet50"]))
+        check(gap > 100, "part 2: the two generations' forwards differ by "
+              "only %.3g of the tolerance" % gap)
+        mgr = checkpoint.CheckpointManager(os.path.join(tmp, "swap"),
+                                           keep_last=2)
+        mgr.save(1, {n: w.asnumpy() for n, w in zip(names2, w2)}, sync=True)
+        del net2
+        gens = {1: want["resnet50"], 2: want2}
+        seen = {1: 0, 2: 0}
+
+        def swap_check(res, idx):
+            own = _gw_violation(res.output.data_, gens[res.generation][idx],
+                                GW_TOL["fp32"])
+            other = _gw_violation(res.output.data_,
+                                  gens[3 - res.generation][idx],
+                                  GW_TOL["fp32"])
+            check(own <= 1.0 < other, "generation %d response: %.3g of the "
+                  "tolerance from its own forward, %.3g from the other's"
+                  % (res.generation, own, other))
+            seen[res.generation] += 1
+
+        import threading
+
+        box = {}
+
+        def swapper():
+            time.sleep(GW_SWAP_S[0])
+            t_swap = time.perf_counter()
+            box["gen"] = serving.hot_swap(
+                gw, "resnet50", manager=mgr,
+                extract=lambda state: [nd.array(state[n], ctx=g)
+                                       for n in names2])
+            box["ms"] = (time.perf_counter() - t_swap) * 1e3
+
+        th = threading.Thread(target=swapper)
+        th.start()
+        served2, errors2 = _gw_clients(
+            gw, [("resnet50", "interactive", pools["resnet"], swap_check)],
+            sum(GW_SWAP_S) + 1.0, 4)
+        th.join()
+        mgr.close()
+        reads["gateway_hot_swap"] = _all_launches()
+        line2 = {"part": "hot_swap_under_fire", "card": card_line,
+                 "served": served2, "dropped": len(errors2),
+                 "errors": errors2[:5], "by_generation": seen,
+                 "swap_ms": box.get("ms"), "new_generation": box.get("gen"),
+                 "generations_gap_share_of_tolerance": gap}
+        log(json.dumps(line2))
+        check(not errors2, "part 2: %d requests dropped or wrong: %s"
+              % (len(errors2), errors2[:3]))
+        check(box.get("gen") == 2 and seen[1] > 0 and seen[2] > 0,
+              "part 2: generations seen %s, swap gave %s"
+              % (seen, box.get("gen")))
+        seconds["hot_swap"] = time.perf_counter() - t
+
+        # -- part 3: SLO-coupled shedding ------------------------------------
+        t = time.perf_counter()
+        _reset_all_launches()
+        before = _gw_models(gw)
+        lat = []
+
+        def unchecked(res, idx):
+            pass
+
+        flood = [("attention", "batch", pools["attention"][:1], unchecked)] \
+            * 5 + [("attention", "interactive", pools["attention"][:1],
+                    attention_check)] * 2
+        stop = time.perf_counter() + GW_FLOOD_S
+        r_err = []
+
+        def moderate():
+            i = 0
+            while time.perf_counter() < stop:
+                x = pools["resnet"][i % GW_POOL]
+                t0 = time.perf_counter()
+                try:
+                    res = gw.predict("resnet50", x)
+                    swap_check(res, i % GW_POOL)
+                    lat.append(time.perf_counter() - t0)
+                except Exception as exc:
+                    r_err.append(repr(exc))
+                i += 1
+                time.sleep(0.02)
+
+        mt = [threading.Thread(target=moderate) for _ in range(2)]
+        for th in mt:
+            th.start()
+        served3, errors3 = _gw_clients(gw, flood, GW_FLOOD_S, len(flood))
+        for th in mt:
+            th.join()
+        reads["gateway_shedding"] = _all_launches()
+        after = _gw_models(gw)
+        shed = after["attention"]["shed"]
+        att_batches = after["attention"]["batches"] - \
+            before["attention"]["batches"]
+        low = [e for e in errors3 if "ServiceUnavailable" in e]
+        other_err = [e for e in errors3 if "ServiceUnavailable" not in e]
+        line3 = {"part": "slo_shedding", "card": card_line,
+                 "slo": GW_SLO, "flood_s": GW_FLOOD_S,
+                 "served": served3, "shed": shed,
+                 "lowest_class_refused": len(low),
+                 "other_errors": other_err[:5],
+                 "resnet50_requests": len(lat), "resnet50_errors": r_err[:5],
+                 "resnet50_p50_ms_while_burning":
+                     float(np.percentile(lat, 50)) * 1e3 if lat else None,
+                 "resnet50_p99_ms_while_burning":
+                     float(np.percentile(lat, 99)) * 1e3 if lat else None,
+                 "attention_batches": att_batches,
+                 "launches": reads["gateway_shedding"]}
+        log(json.dumps(line3))
+        check(shed.get("slo_burn:batch", 0) > 0 and low,
+              "part 3: the lowest class shed nothing: %s" % shed)
+        check(not other_err and not r_err and not any(
+            k.startswith(("queue_full", "deadline", "slo_burn:interactive"))
+            for k in shed),
+              "part 3: the highest class or resnet50 dropped requests: %s %s "
+              "%s" % (other_err[:3], r_err[:3], shed))
+        check(reads["gateway_shedding"]["k1_k2_k3"] == (att_batches, 0, 0),
+              "part 3: K1 launched %s for %d attention batches"
+              % (reads["gateway_shedding"]["k1_k2_k3"], att_batches))
+        seconds["slo_shedding"] = time.perf_counter() - t
+
+        # -- part 4: continuous batching of the LSTM LM ----------------------
+        t = time.perf_counter()
+        _reset_all_launches()
+        _gw_decode(card_line, gw)
+        reads["gateway_decode"] = _all_launches()
+        seconds["decode"] = time.perf_counter() - t
+        log(json.dumps({"part": "gateway_registry", "card": card_line,
+                        "describe": gw.registry.describe()}))
+        gw.shutdown()
+        gw = None
+
+        # -- part 5: the mesh-sharded ResNet-50 over two ranks ---------------
+        t = time.perf_counter()
+        ranks = sorted(_dist_launch("gateway_mesh", 2, 0, tmp),
+                       key=lambda p: p["rank"])
+        line5 = {"part": "mesh_sharded_resnet50_tp2", "card": card_line,
+                 "mesh": {"tp": 2}, "requests": GW_MESH["requests"],
+                 "batch": GW_MESH["batch"],
+                 "bit_for_bit_per_rank": [p["bit_for_bit"] for p in ranks],
+                 "held_bytes_per_rank": [p["held_bytes"] for p in ranks],
+                 "full_bytes": ranks[0]["full_bytes"],
+                 "held_share_per_rank": [p["held_bytes"] / p["full_bytes"]
+                                         for p in ranks],
+                 "ms_per_request_per_rank": [p["ms"] for p in ranks],
+                 "compile_count_per_rank": [p["compile_count"]
+                                            for p in ranks]}
+        log(json.dumps(line5))
+        check(all(p["bit_for_bit"] == [True] * GW_MESH["requests"]
+                  for p in ranks),
+              "part 5: the mesh outputs are not the unsharded model's bit "
+              "for bit: %s" % line5["bit_for_bit_per_rank"])
+        check(all(0.45 <= s <= 0.55 for s in line5["held_share_per_rank"]),
+              "part 5: a rank holds %s of the weights' bytes"
+              % line5["held_share_per_rank"])
+        check(ranks[0]["digest"] == ranks[1]["digest"],
+              "part 5: the ranks' outputs differ")
+        reads["gateway_mesh"] = _sum_reads([p["launches"] for p in ranks])
+        seconds["mesh"] = time.perf_counter() - t
+
+        # -- part 6: the port's serve_mnist example --------------------------
+        t = time.perf_counter()
+        _reset_all_launches()
+        ex = serve_mnist.main(["--requests", "256"])
+        reads["gateway_example"] = _all_launches()
+        log(json.dumps({"part": "serve_mnist_example", "card": card_line,
+                        **ex}))
+        check(ex["requests"] == 256 and ex["accuracy"] > 0.9,
+              "part 6: serve_mnist served %d requests at accuracy %.3f"
+              % (ex["requests"], ex["accuracy"]))
+        seconds["example"] = time.perf_counter() - t
+        log(json.dumps({"phase": "gateway", "part_seconds": seconds}))
+        log("phase 23 seconds", round(time.perf_counter() - t_phase, 3))
+        return reads
+    finally:
+        if gw is not None:
+            gw.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _gateway_part_mesh(outdir):
+    """Part 5: one rank of the mesh-sharded ResNet-50 ({"tp": 2} over two
+    gloo ranks on the one card): a gateway with the model, 6 lockstep
+    requests at b8, each output against the unsharded model's on the
+    same batch."""
+    import hashlib
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.serving.engine import _FnModel
+
+    _place_setup()
+    check(dist.initialize(backend="gloo", platform="gpu"),
+          "no gloo group was formed")
+    g = mx.gpu(0)
+    net = _resnet50()
+    _randomize_bn(net, SEED + 6)
+    fn, pobjs = _gw_resnet_fn(net)
+    w = [p.data() for p in pobjs]
+    plain = _FnModel(fn, w, ctx=g)
+    c = GW_MESH
+    gw = serving.ModelGateway(ctx=g, max_delay_ms=1.0)
+    out = {"rank": dist.rank()}
+    try:
+        _reset_all_launches()           # this path starts here
+        gw.register(serving.ModelSpec(
+            "resnet50_tp2", fn=fn, params=w, item_shape=GW_ITEM["resnet"],
+            buckets=(c["batch"],), mesh_axes={"tp": 2}))
+        backend = gw._state("resnet50_tp2").backend
+        rng = np.random.default_rng(SEED + 40)
+        same, ms, h = [], [], hashlib.sha256()
+        for _ in range(c["requests"]):
+            x = rng.random((c["batch"],) + GW_ITEM["resnet"],
+                           dtype=np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = gw.predict("resnet50_tp2", x).output.data_
+            ms.append((time.perf_counter() - t0) * 1e3)
+            u = plain(mx.nd.array(x, ctx=g)).data_
+            same.append(bool(torch.equal(y, u)))
+            h.update(y.cpu().numpy().tobytes())
+        out["launches"] = _all_launches()   # read just after it
+        out.update({"bit_for_bit": same, "ms": ms,
+                    "held_bytes": backend.held_bytes,
+                    "full_bytes": plain.held_bytes,
+                    "compile_count": backend.compile_count,
+                    "digest": h.hexdigest()})
+    finally:
+        gw.shutdown()
+    _dist_result(out)
+
+
+# Each rank of a phase-19, -20, -21 or -23 part runs this file with
 # --dist-part <key>.
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
                "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd,
-               "place2": _place_part_tp2, "place4": _place_part_dp2tp2}
+               "place2": _place_part_tp2, "place4": _place_part_dp2tp2,
+               "gateway_mesh": _gateway_part_mesh}
 
 
 def _timed(phase, *args):
@@ -7819,6 +8585,7 @@ def main():
     detection = _timed(phase_detection, card_line)
     placement = _timed(phase_placement, card_line)
     telemetry_reads = _timed(phase_telemetry, card_line)
+    gateway_reads = _timed(phase_gateway, card_line)
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -7866,14 +8633,18 @@ def main():
     # The detection kernels (D1, D2 forward, D2 backward) are read there
     # too, and launch on phase 20's paths only. Phase 21's paths (each
     # summed over its ranks) launch K1-K3 on the tp2 attention path only,
-    # phase 22's on its attention path only.
+    # phase 22's on its attention path only. Phase 23's gateway launches
+    # K1 on its attention model (gateway_attention, gateway_shedding) and
+    # K4a (and K4's rtc launch under it) on its checkpoint model
+    # (gateway_checkpoint_partitioned).
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
                        ("recurrent", recurrent["launches"]),
                        ("core_surface", core["launches"]),
                        ("model_zoo", zoo["launches"]),
-                       *placement.items(), *telemetry_reads.items()):
+                       *placement.items(), *telemetry_reads.items(),
+                       *gateway_reads.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],
@@ -7895,6 +8666,11 @@ def main():
 
 
 if __name__ == "__main__":
+    import faulthandler
+
+    # A native abort (SIGABRT, SIGSEGV) prints every thread's Python
+    # stack to stderr before the process dies.
+    faulthandler.enable(all_threads=True)
     if "--dist-part" in sys.argv:
         # A rank of phase 19 (or a scheduler/server of its part 3, whose
         # loop runs inside this import and never returns).

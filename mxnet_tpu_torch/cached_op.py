@@ -16,6 +16,11 @@ that call's wall time is observed as
 ``cached_op::execute`` / ``cached_op::inference`` spans, a new
 signature's inside ``cached_op::trace``.
 
+``pad_to_buckets`` canonicalizes off-ladder batch sizes of
+``inference()`` onto a bucket ladder: a 5-row call runs the 8-row
+signature on zero-padded inputs and slices its outputs back, so a
+padded call adds no signature beyond its bucket's.
+
 Under ``autograd.record()`` a call keeps the graph: the function runs in
 the current train/eval mode with recording on, and the gradients reach
 the parameters passed in, as the reference's one recorded tape node per
@@ -77,6 +82,7 @@ class CachedOp:
         self._fn = fn
         self._num_params = num_params
         self._signatures = set()
+        self._pad_policy = None
         self.num_traces = 0
         self.on_trace = None
         CachedOp._counter[0] += 1
@@ -116,9 +122,81 @@ class CachedOp:
         caller records."""
         return self._run(args, autograd.is_training(), "cached_op::execute")
 
+    def pad_to_buckets(self, policy):
+        """Canonicalize off-ladder batch sizes in :meth:`inference` onto
+        a bucket ladder: a request of 5 rows pads to the 8-row bucket's
+        signature and slices back, instead of running a new 5-row one.
+
+        The serving contract applies: the function must map each input
+        row to an output row independently (eval mode already pins
+        BatchNorm to its running statistics). An output that reduces
+        over the batch would include the padded zero rows, and one whose
+        leading dim is not the batch but equals the bucket size would be
+        sliced wrongly; do not pad such functions.
+
+        ``policy``: a ``serving.BucketPolicy``, an explicit bucket list,
+        a max-batch int (powers-of-two ladder), or None to turn padding
+        off. Returns self."""
+        from .serving.buckets import BucketPolicy
+
+        if policy is None:
+            self._pad_policy = None
+        elif isinstance(policy, BucketPolicy):
+            self._pad_policy = policy
+        elif isinstance(policy, (list, tuple)):
+            self._pad_policy = BucketPolicy(buckets=policy)
+        else:
+            self._pad_policy = BucketPolicy(max_batch=int(policy))
+        return self
+
+    def _canonical_rows(self, args):
+        """(bucket, rows) when inference should pad the leading batch dim
+        up the ladder, else None. Shapes above the ladder run unpadded
+        (their own signature): canonicalization never rejects work."""
+        if self._pad_policy is None:
+            return None
+        rows = next((int(a.shape[0]) for a in args[self._num_params:]
+                     if isinstance(a, NDArray) and a.ndim >= 1), None)
+        if rows is None or rows < 1 or rows > self._pad_policy.max_batch:
+            return None
+        bucket = self._pad_policy.bucket_for(rows)
+        return None if bucket == rows else (bucket, rows)
+
+    def _pad_inputs(self, args, bucket, rows):
+        """Zero-pad every batch-carrying input (leading dim == rows) up to
+        ``bucket``; params and batch-free inputs pass through."""
+        out = list(args)
+        for i in range(self._num_params, len(args)):
+            a = args[i]
+            if isinstance(a, NDArray) and a.ndim >= 1 and \
+                    int(a.shape[0]) == rows:
+                t = a._data
+                pad = t.new_zeros((bucket - rows,) + tuple(t.shape[1:]))
+                out[i] = NDArray(torch.cat([t, pad]), ctx=a._ctx)
+        return out
+
     def inference(self, *args):
         """Eval-mode forward that never enables train-mode ops (BatchNorm
         uses its running stats), whatever the ambient autograd scope, and
-        builds no autograd graph: the serving hot path."""
+        builds no autograd graph: the serving hot path. With
+        :meth:`pad_to_buckets` set, off-ladder batch sizes run their
+        bucket's signature (pad up, slice back)."""
+        canon = self._canonical_rows(args)
+        if canon is not None:
+            bucket, rows = canon
+            args = self._pad_inputs(args, bucket, rows)
         with torch.no_grad(), autograd.pause(train_mode=False):
-            return self._run(args, False, "cached_op::inference")
+            out = self._run(args, False, "cached_op::inference")
+        if canon is None:
+            return out
+
+        def unpad(o):
+            # Batch-dim outputs only: an aggregate is returned as computed.
+            if isinstance(o, NDArray) and o.ndim >= 1 and \
+                    int(o.shape[0]) == bucket:
+                return o[:rows]
+            return o
+
+        if isinstance(out, (list, tuple)):
+            return type(out)(unpad(o) for o in out)
+        return unpad(out)

@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/env.py`` (reference: docs/faq/env_var.md):
 one table of the ``MXNET_*`` knobs this package reads, with type,
 default and where each acts; :func:`get` reads a knob with its type and
 :func:`describe` renders the table. The port keeps only the knobs its
-modules read; the JAX package's gateway and compile-cache knobs come
-with the modules that read them (ROADMAP Queue 1).
+modules read; the JAX package's compile-cache knobs come with the
+module that reads them (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -80,6 +80,33 @@ CATALOGUE = [
          "goodput closure tolerance: snapshots whose categories "
          "overcount wall-clock by more than this percentage warn and "
          "report closure_ok=false", False),
+    Knob("MXNET_GATEWAY_MAX_QUEUE", int, 256, "serving/gateway.py",
+         "inference gateway: TOTAL queued requests across all "
+         "registered models (one bounded admission pool); past it "
+         "submit() raises QueueFullError", False),
+    Knob("MXNET_GATEWAY_SHED_BURN_RATE", float, 14.4, "serving/gateway.py",
+         "inference gateway: SLO burn rate at which a model's "
+         "admission starts shedding its LOWEST deadline class "
+         "(503) instead of letting p99 collapse for everyone", False),
+    Knob("MXNET_GATEWAY_DRAIN_TIMEOUT_S", float, 30.0,
+         "serving/gateway.py",
+         "hot reload: how long swap_backend waits for in-flight "
+         "batches of the old generation to drain before returning "
+         "with the old backend still referenced", False),
+    Knob("MXNET_DECODE_PAGE_SLOTS", int, 8, "serving/continuous.py",
+         "continuous batching: batch slots per state page (the paged "
+         "per-slot state granularity; a step covers whole pages, so "
+         "smaller pages track occupancy tighter at more step "
+         "signatures)", False),
+    Knob("MXNET_DECODE_MAX_TOKENS", int, 128, "serving/continuous.py",
+         "continuous batching: default generation cap per sequence "
+         "(submit_sequence(max_tokens=) overrides per request)", False),
+    Knob("MXNET_DECODE_IDLE_POLL_MS", float, 20.0,
+         "serving/continuous.py",
+         "continuous batching: DecodeLoop idle wait between wakeup "
+         "checks when no slot is occupied and nothing is queued "
+         "(enqueues notify immediately; this only bounds the fallback "
+         "poll)", False),
     Knob("MXNET_TRACE_SAMPLE", float, 1.0, "telemetry/xtrace.py",
          "head-based trace sampling probability in [0, 1], decided once "
          "per root context", False),

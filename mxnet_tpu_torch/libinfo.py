@@ -48,7 +48,7 @@ def features():
         "MKLDNN": torch.backends.mkldnn.is_available(),
         "OPENCV": _has("cv2"),
         "DIST_KVSTORE": True,
-        "INT8": False,            # quantization ops: ROADMAP Queue 1 item 11c
+        "INT8": True,             # ops/quantization_ops.py
         "BF16": True,
         "SIGNAL_HANDLER": False,
         "PROFILER": True,

@@ -1,11 +1,8 @@
 """Dynamic micro-batcher: coalesce concurrent submits into bucket-sized
 device calls.
 
-Counterpart of ``mxnet_tpu/serving/batcher.py``, without the JAX
-package's tracing hooks (spans, causal trace contexts), which come with
-the port of its telemetry.
-
-The policy is the standard two-trigger batch scheduler (TF Serving's
+Counterpart of ``mxnet_tpu/serving/batcher.py`` (a copy: it imports no
+JAX). The policy is the standard two-trigger batch scheduler (TF Serving's
 BasicBatchScheduler, Clipper's adaptive batching): dispatch as soon as a
 full ``max_batch`` worth of rows is queued, OR when the oldest queued
 request has waited ``max_delay_ms`` — whichever comes first. Full
@@ -26,12 +23,14 @@ from collections import deque
 from concurrent.futures import Future
 
 from .admission import DeadlineExceededError
+from ..telemetry import trace as _trace
+from ..telemetry import xtrace as _xtrace
 
 __all__ = ["DynamicBatcher"]
 
 
 class _Request:
-    __slots__ = ("data", "rows", "future", "deadline", "t_submit")
+    __slots__ = ("data", "rows", "future", "deadline", "t_submit", "ctx")
 
     def __init__(self, data, rows, deadline, t_submit):
         self.data = data
@@ -39,6 +38,10 @@ class _Request:
         self.future = Future()
         self.deadline = deadline
         self.t_submit = t_submit
+        # Trace context: the submitter's when active, else a new root —
+        # the engine's queue_wait/device/request spans run under it.
+        ctx = _xtrace.current()
+        self.ctx = ctx if ctx is not None else _xtrace.new_root()
 
 
 class DynamicBatcher:
@@ -130,8 +133,16 @@ class DynamicBatcher:
                 self._metrics.record_shed("queue_full")
                 raise
             self._q.append(req)
+            depth = len(self._q)
             self._cond.notify_all()
+        with _xtrace.activate(req.ctx):
+            _trace.instant("serving::enqueue", rows=rows, depth=depth)
         return req.future
+
+    @property
+    def pending(self):
+        with self._cond:
+            return len(self._q)
 
     # -- worker ---------------------------------------------------------------
 
@@ -184,6 +195,9 @@ class DynamicBatcher:
                         "request expired after %.1f ms in queue"
                         % ((now - req.t_submit) * 1e3)))
                 self._metrics.record_shed("deadline")
+                # Tail capture: mark the expired request's trace so the
+                # next flight-recorder bundle carries its span tree.
+                _xtrace.flag(req.ctx, "deadline_exceeded")
             else:
                 live.append(req)
         self._q = live

@@ -21,8 +21,14 @@ shape, the parameters shared by all of them; with
 ``MXNET_SUBGRAPH_BACKEND`` naming a registered backend, each Executor
 partitions the graph at bind.
 
-Left for later slices: the telemetry hooks of the JAX package (trace
-spans, watchdog lane, readiness slot).
+Telemetry, as in the JAX package: each server heartbeats its own
+``serving`` lane of the hang watchdog around every batch, claims a
+health-plane readiness slot that turns ready once its buckets are warm
+(``shed_unready=True`` sheds with ``ServiceUnavailableError`` while
+``/readyz`` is false), and records ``serving::queue_wait``,
+``serving::device`` and ``serving::request`` spans under each request's
+trace context. The model wrappers here are also the gateway registry's
+backends (``serving/registry.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +42,10 @@ from .. import ndarray as nd
 from ..cached_op import CachedOp
 from ..context import current_context
 from ..ndarray.ndarray import NDArray
+from ..telemetry import healthplane as _hp
+from ..telemetry import trace as _trace
+from ..telemetry import watchdog as _watchdog
+from ..telemetry import xtrace as _xtrace
 from .admission import AdmissionController
 from .batcher import DynamicBatcher
 from .buckets import BucketPolicy
@@ -44,13 +54,25 @@ from .metrics import ServingMetrics
 __all__ = ["InferenceServer"]
 
 
+def held_bytes(tensors):
+    """Bytes of the tensors (NDArrays or torch tensors) a backend holds."""
+    n = 0
+    for t in tensors:
+        t = t._data if isinstance(t, NDArray) else t
+        n += t.numel() * t.element_size()
+    return n
+
+
 class _FnModel:
     """A pure ``fn(*params, data)`` wrapped into an eval-mode CachedOp:
-    no train-mode ops, one signature per bucket shape."""
+    no train-mode ops, one signature per bucket shape. NDArray params
+    stay where they are; others are placed on `ctx` (default: the
+    current context)."""
 
-    def __init__(self, fn, params, ctx):
-        self._params = [p if isinstance(p, NDArray) else nd.array(p, ctx=ctx)
-                        for p in params]
+    def __init__(self, fn, params, ctx=None):
+        self._params = [p if isinstance(p, NDArray) else nd.array(
+            p, ctx=ctx if ctx is not None else current_context())
+            for p in params]
         self._cached = CachedOp(fn, num_params=len(self._params))
 
     def __call__(self, batch):
@@ -60,16 +82,21 @@ class _FnModel:
     def compile_count(self):
         return self._cached.num_traces
 
+    @property
+    def held_bytes(self):
+        return held_bytes(self._params)
+
 
 class _CheckpointModel:
     """A ``model.load_checkpoint`` artifact served through one eval-mode
-    Executor per bucket shape. The parameters are moved to `ctx` once and
-    bound by reference into every Executor; each gets its own data array
-    (and zero arrays for other unfed inputs, such as a loss head's
-    label)."""
+    Executor per bucket shape. The parameters are moved to `ctx`
+    (default: the current context) once and bound by reference into
+    every Executor; each gets its own data array (and zero arrays for
+    other unfed inputs, such as a loss head's label)."""
 
-    def __init__(self, symbol, arg_params, aux_params, ctx,
-                 data_name="data"):
+    def __init__(self, symbol, arg_params, aux_params, data_name="data",
+                 ctx=None):
+        ctx = ctx if ctx is not None else current_context()
         self._symbol = symbol
         self._ctx = ctx
         self._arg_params = {k: v.as_in_context(ctx)
@@ -111,6 +138,11 @@ class _CheckpointModel:
         return sum(1 for ex in list(self._executors.values())
                    if ex.num_forwards)
 
+    @property
+    def held_bytes(self):
+        return held_bytes(list(self._arg_params.values())
+                          + list(self._aux_params.values()))
+
 
 class InferenceServer:
     """Shape-bucketed batching inference server.
@@ -140,12 +172,19 @@ class InferenceServer:
     model : callable(batch NDArray) with a ``compile_count``, optional
         A prepared model, such as the checkpoint model of
         :meth:`from_checkpoint`.
+    metrics : ServingMetrics, optional (one per server by default).
+    shed_unready : bool
+        Readiness-aware admission (default False): while the health
+        plane's ``/readyz`` is false (any registered component still
+        warming, this server included), ``submit()`` sheds with
+        ``ServiceUnavailableError`` (503 semantics) instead of queueing
+        requests that would only blow their deadlines behind a warmup.
     """
 
     def __init__(self, fn=None, params=(), *, item_shape, dtype="float32",
                  max_batch=32, buckets=None, max_delay_ms=5.0,
-                 max_queue=128, timeout_ms=None, ctx=None, warmup=True,
-                 start=True, model=None):
+                 max_queue=128, timeout_ms=None, ctx=None, metrics=None,
+                 model=None, warmup=True, start=True, shed_unready=False):
         if (fn is None) == (model is None):
             raise ValueError("pass exactly one of fn= or model=")
         self._ctx = ctx if ctx is not None else current_context()
@@ -154,15 +193,25 @@ class InferenceServer:
         self._item_shape = tuple(item_shape)
         self._dtype = np.dtype(dtype)
         self.policy = BucketPolicy(max_batch=max_batch, buckets=buckets)
-        self.metrics = ServingMetrics()
+        self.metrics = metrics if metrics is not None else ServingMetrics()
         self._warmed = set()
+        # Per-server watchdog lane: a lane is a single slot, so two
+        # servers sharing "serving" would mask each other's hangs.
+        self._wd_lane = _watchdog.unique_lane("serving")
+        # Readiness slot for /readyz: not ready until the bucket ladder
+        # is warm (a load balancer must not route here yet). A server run
+        # with warmup=False turns ready on its first completed batch.
+        self._hp_component = _hp.unique_component("serving")
+        self._hp_ready = False
         # Serializes device calls: warmup() on a started server must not
         # race the worker.
         self._model_lock = threading.Lock()
         self._batcher = DynamicBatcher(
             self._run_batch, self.policy,
             AdmissionController(max_queue=max_queue,
-                                default_timeout_ms=timeout_ms),
+                                default_timeout_ms=timeout_ms,
+                                readiness=_hp.is_ready if shed_unready
+                                else None),
             self.metrics, max_delay_ms=max_delay_ms)
         if warmup:
             self.warmup()
@@ -183,7 +232,7 @@ class InferenceServer:
             prefix, epoch, ctx=ctx)
         kwargs["ctx"] = ctx
         return cls(model=_CheckpointModel(symbol, arg_params, aux_params,
-                                          ctx, data_name=data_name),
+                                          data_name=data_name, ctx=ctx),
                    item_shape=item_shape, **kwargs)
 
     # -- lifecycle ------------------------------------------------------------
@@ -200,6 +249,9 @@ class InferenceServer:
                 for o in (out if isinstance(out, tuple) else (out,)):
                     o.wait_to_read()
                 self._warmed.add(b)
+        if not self._hp_ready:
+            self._hp_ready = True
+            _hp.set_ready(self._hp_component)
         return self
 
     def start(self):
@@ -217,6 +269,11 @@ class InferenceServer:
 
     def shutdown(self, drain=True, timeout=None):
         self._batcher.shutdown(drain=drain, timeout=timeout)
+        # Release this server's watchdog lane and readiness slot, so a
+        # process cycling servers keeps no dead lane and no permanently
+        # not-ready ghost.
+        _watchdog.reset(self._wd_lane)
+        _hp.clear_ready(self._hp_component)
 
     def __enter__(self):
         return self
@@ -263,6 +320,19 @@ class InferenceServer:
     def _run_batch(self, requests, bucket):
         """Assemble and pad the bucket batch, ONE device call, unpad per
         request. Runs on the batcher's worker thread."""
+        # Watchdog lane: a device call (or executor bind) that wedges
+        # stalls the whole queue drain: a `serving_hang`, with this
+        # worker thread's stack in the diagnostic bundle.
+        _watchdog.begin(self._wd_lane)
+        try:
+            self._run_batch_inner(requests, bucket)
+            if not self._hp_ready:  # warmup=False server: first batch
+                self._hp_ready = True
+                _hp.set_ready(self._hp_component)
+        finally:
+            _watchdog.end(self._wd_lane)
+
+    def _run_batch_inner(self, requests, bucket):
         t0 = time.perf_counter()
         batch = np.zeros((bucket,) + self._item_shape, self._dtype)
         spans, off = [], 0
@@ -270,15 +340,30 @@ class InferenceServer:
             batch[off:off + req.rows] = req.data
             spans.append((req, off, off + req.rows))
             off += req.rows
+        # Dispatch ends each request's queue wait: emitted after the
+        # fact, so one trace track shows queue wait against device time.
+        for req in requests:
+            with _xtrace.activate(req.ctx):
+                _trace.complete("serving::queue_wait", req.t_submit, t0,
+                                rows=req.rows, bucket=bucket)
         with self._model_lock:
-            out = self._model(nd.array(batch, ctx=self._ctx))
-            outs = out if isinstance(out, tuple) else (out,)
-            for o in outs:
-                o.wait_to_read()  # latency truth under async dispatch
+            # One owner per batch: the device slice (and the model call)
+            # runs under the first request's trace context.
+            with _xtrace.activate(requests[0].ctx), \
+                    _trace.span("serving::device", bucket=bucket,
+                                rows=off, requests=len(requests)):
+                out = self._model(nd.array(batch, ctx=self._ctx))
+                outs = out if isinstance(out, tuple) else (out,)
+                for o in outs:
+                    o.wait_to_read()  # latency truth under async dispatch
         self.metrics.record_batch(bucket, off, len(requests),
                                   time.perf_counter() - t0)
         done = time.perf_counter()
         for req, i0, i1 in spans:
             sliced = tuple(o[i0:i1] for o in outs)
-            self.metrics.record_request_latency(bucket, done - req.t_submit)
+            with _xtrace.activate(req.ctx):
+                self.metrics.record_request_latency(bucket,
+                                                    done - req.t_submit)
+                _trace.complete("serving::request", req.t_submit, done,
+                                rows=req.rows, bucket=bucket)
             req.future.set_result(sliced if len(sliced) > 1 else sliced[0])

@@ -61,12 +61,6 @@ _OP_PARAM_INPUTS = {
     "MAERegressionOutput": [("label", False, None)],
 }
 
-# Ops that have an auto-parameter rule in the JAX package but no port
-# yet (mxnet_tpu/symbol.py:35-149).
-_UNPORTED_RULE_OPS = frozenset((
-    "_contrib_quantized_conv", "_contrib_quantized_fully_connected"))
-
-
 def _fc_shapes(attrs, dshape):
     num_hidden = int(attrs.get("num_hidden", 0))
     flatten = attrs.get("flatten", True)
@@ -155,6 +149,9 @@ _PARAM_SHAPE_RULES = {
     "LinearRegressionOutput": _regression_shapes,
     "LogisticRegressionOutput": _regression_shapes,
     "MAERegressionOutput": _regression_shapes,
+    # int8 variants share their float32 op's parameter geometry
+    "_contrib_quantized_conv": _conv_shapes,
+    "_contrib_quantized_fully_connected": _fc_shapes,
 }
 
 # Ops whose output count depends on attrs (mxnet_tpu/symbol.py:640-647).
@@ -171,12 +168,7 @@ _NUM_OUTPUT_RULES = {
 
 
 def _op(op_name):
-    """The registered operator, or NotImplementedError for an op the JAX
-    package composes with parameter rules but the port lacks."""
-    if op_name in _UNPORTED_RULE_OPS:
-        raise NotImplementedError(
-            "operator %r is not ported to mxnet_tpu_torch yet (ROADMAP "
-            "Queue 1 item 11)" % op_name)
+    """The registered operator (AttributeError for an unknown name)."""
     return _registry.get(op_name)
 
 

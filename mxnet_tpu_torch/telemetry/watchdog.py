@@ -2,8 +2,8 @@
 
 A copy of ``mxnet_tpu/telemetry/watchdog.py``, which imports no JAX.
 The port's data pipeline heartbeats the ``data`` lanes, TrainStep the
-``step`` lane and the checkpoint writer its own; the serving lanes come
-with ROADMAP Queue 1 item 8.
+``step`` lane, the checkpoint writer its own, each InferenceServer and
+ModelGateway a ``serving`` lane and each decode loop a ``decode`` lane.
 
 A hang is the anomaly the step-health monitor cannot see: StepMonitor
 only runs when a step COMPLETES, so a step (or serving batch, or

@@ -119,7 +119,12 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.ops.detection_ops, mxnet_tpu_torch.ops.rcnn_ops, "
         "mxnet_tpu_torch.image.detection, "
         "mxnet_tpu_torch.examples.train_ssd, "
-        "mxnet_tpu_torch.examples.train_rcnn\n"
+        "mxnet_tpu_torch.examples.train_rcnn, "
+        "mxnet_tpu_torch.serving.gateway, mxnet_tpu_torch.serving.registry, "
+        "mxnet_tpu_torch.serving.continuous, mxnet_tpu_torch.serving.reload, "
+        "mxnet_tpu_torch.ops.quantization_ops, "
+        "mxnet_tpu_torch.examples.serve_mnist, "
+        "mxnet_tpu_torch.profile_trace_loss\n"
         "import importlib\n"
         "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"

@@ -484,13 +484,14 @@ def test_every_name_of_the_five_files_is_registered():
     assert len(names) == 287
     missing = sorted(n for n in names if n not in treg.OP_REGISTRY)
     assert not missing, missing
-    # 45 names of other files wait for later slices (the core surface's
+    # 39 names of other files wait for later slices (the core surface's
     # second half registered ctc_loss and its 3 aliases; detection the 33
-    # names of detection_ops and rcnn_ops).
+    # names of detection_ops and rcnn_ops; serving the 6 of
+    # quantization_ops).
     rest = set(jreg.OP_REGISTRY) - set(treg.OP_REGISTRY)
-    assert len(rest) == 45, sorted(rest)
+    assert len(rest) == 39, sorted(rest)
     assert not {jreg.get(n).fn.__module__.rsplit(".", 1)[-1] for n in rest} \
-        & {"detection_ops", "rcnn_ops"}
+        & {"detection_ops", "rcnn_ops", "quantization_ops"}
 
 
 def test_every_deterministic_name_has_a_case_here():

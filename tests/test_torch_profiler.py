@@ -128,3 +128,57 @@ def test_a_server_process_traces_the_cpu_only(role, monkeypatch):
     want = [ProfilerActivity.CPU] + \
         ([ProfilerActivity.CUDA] if role == "worker" else [])
     assert mx.profiler._activities() == want
+
+
+def test_a_session_opens_its_window_after_the_primer(tmp_path, monkeypatch):
+    # CUDA activity on, the primer, then the window: the first kernel
+    # records torch.profiler drops after it enables CUDA activity are the
+    # primer's. On the host, with CUDA never initialised, the primer
+    # launches nothing.
+    prof_mod = mx.profiler
+    calls = []
+    real_prime = prof_mod._prime
+    monkeypatch.setattr(prof_mod, "_prime", lambda acts: (
+        calls.append("prime"), real_prime(acts)))
+    session = prof_mod.open_session()
+    assert session is not None
+    for name in ("prepare_trace", "start_trace"):
+        real = getattr(session.prof, name)
+        monkeypatch.setattr(session.prof, name, lambda real=real, name=name: (
+            calls.append(name), real()))
+    with session:
+        _program(mx, mx.cpu())
+    assert calls == ["prepare_trace", "prime", "start_trace"]
+    path = prof_mod.export_trace(session, str(tmp_path / "t.json"))
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert any(n and n.startswith("aten::") for n in names)
+    assert not torch.cuda.is_initialized()
+
+
+def test_the_primer_grows_with_the_process_age(monkeypatch):
+    prof_mod = mx.profiler
+    now = prof_mod.time.monotonic()
+    monkeypatch.setattr(prof_mod, "_T_IMPORT", now)
+    assert prof_mod._primer_launches() == prof_mod._PRIMER_FLOOR
+    monkeypatch.setattr(prof_mod, "_T_IMPORT", now - 3600.0)
+    assert prof_mod._primer_launches() >= prof_mod._PRIMER_FLOOR + int(
+        prof_mod._PRIMER_PER_SECOND * 3600.0)
+
+
+def test_profile_trace_loss_finds_the_launches_without_kernel_records():
+    from mxnet_tpu_torch import profile_trace_loss as ptl
+
+    def ev(cat, name, corr, ts):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": 1,
+                "args": {"correlation": corr}}
+
+    events = [ev("cuda_runtime", "cudaLaunchKernel", c, 10 * c)
+              for c in range(1, 7)]
+    events += [ev("cuda_driver", "cuLaunchKernel", 7, 70),
+               ev("cuda_runtime", "cudaDeviceSynchronize", 8, 80)]
+    events += [ev("kernel", "k%d" % c, c, 10 * c + 5) for c in (3, 4, 5, 7)]
+    assert ptl._lost(events) == (7, 3, 0, 5)
+    assert ptl._lost(events[:0]) == (0, 0, None, None)
+    if not torch.cuda.is_available():
+        assert ptl.main(["--session", "torch"]) == 2

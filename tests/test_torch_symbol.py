@@ -166,10 +166,15 @@ def test_internals_indexing_and_attrs():
 
 def test_unported_ops_raise():
     data = mx.sym.var("data")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        mx.sym._contrib_quantized_conv(data)
-    # Ported since: sym.contrib's control flow, Embedding, RNN and the
-    # core surface's rule ops (LayerNorm, Deconvolution, ...).
+    # Ported since: the quantized ops (their parameter shape rules are
+    # the JAX package's), sym.contrib's control flow, Embedding, RNN and
+    # the core surface's rule ops (LayerNorm, Deconvolution, ...).
+    q = mx.sym._contrib_quantized_conv(data, kernel=(3, 3), num_filter=4,
+                                       name="qc")
+    jq = jmx.sym._contrib_quantized_conv(jmx.sym.var("data"),
+                                         kernel=(3, 3), num_filter=4,
+                                         name="qc")
+    assert q.list_arguments() == jq.list_arguments()
     assert callable(mx.sym.contrib.while_loop)
     mx.sym.Embedding(data, input_dim=4, output_dim=2)
     mx.sym.LayerNorm(data)

@@ -5,7 +5,9 @@ without one). No JAX here: the references are PyTorch's own readings.
   and ``max_memory_allocated``, its limit the card's memory, and
   ``reset_peak`` resets the allocator's peak;
 - the device trace (``profiler.set_state('run')`` ... ``dump()``) holds
-  the kernels a matrix product launched, and a health-plane capture
+  the kernels a matrix product launched, a kernel record for every
+  launch of its window and none of the session's primer, and a
+  health-plane capture
   taken on another thread holds the kernels this thread launches;
 - the numeric guard halts a Trainer on the card at a NaN gradient.
 """
@@ -67,6 +69,32 @@ def test_device_trace_names_the_launched_kernels(tmp_path):
     assert any("gemm" in k["name"].lower() or "sgemm" in k["name"].lower()
                or "cutlass" in k["name"].lower() for k in kernels), \
         sorted({k["name"] for k in kernels})
+
+
+@pytest.mark.cuda
+def test_a_session_holds_every_kernel_of_its_window(tmp_path, monkeypatch):
+    # The primer runs before the window opens: none of its kernels is in
+    # the trace, and every launch in the window has its kernel record
+    # (a process an hour old primes with its age's share as well).
+    _card()
+    monkeypatch.setattr(mx.profiler, "_T_IMPORT",
+                        mx.profiler._T_IMPORT - 3600.0)
+    a = torch.randn(1024, 1024, device="cuda")
+    torch.cuda.synchronize()
+    mx.profiler.set_config(filename=str(tmp_path / "window"))
+    mx.profiler.set_state("run")
+    for _ in range(3):
+        a = a @ a / 1024.0
+    torch.cuda.synchronize()
+    with open(mx.profiler.dump()) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["args"]["correlation"] for e in events
+               if e.get("cat") == "kernel"}
+    launches = [e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", "")]
+    assert launches and all(c in kernels for c in launches)
+    assert len(kernels) == len(launches) < 64
 
 
 @pytest.mark.cuda
