@@ -66,6 +66,7 @@ _LAZY = {
     "profiler": ".profiler",
     "libinfo": ".libinfo",
     "checkpoint": ".checkpoint",
+    "compile": ".compile",
     "module": ".module",
     "mod": ".module",
     "rnn": ".rnn",

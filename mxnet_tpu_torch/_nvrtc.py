@@ -14,6 +14,11 @@ carries NVRTC's program log.
 Compiled programs are cached per process by (source, options, name
 expressions), loaded modules by (program, device): a graph partitioned
 into many fragments, once per served bucket, compiles its kernel once.
+With the compile cache on (``MXNET_COMPILE_CACHE``, :mod:`.compile`), a
+program missing from that dict is first asked of the cache (site
+``nvrtc``: this process's store, then a peer's), and a program NVRTC
+compiles is committed there: its cubin, lowered names and log, keyed by
+the source, options, names, NVRTC's version and the card's capability.
 
 A launch crosses into C once: :func:`launch` hands one packed buffer
 (function, context, stream, dims and the kernel's parameters) to
@@ -32,7 +37,8 @@ from . import _native
 from .base import MXNetError
 
 __all__ = ["CudaError", "search_dirs", "compile_program", "load_function",
-           "primary_context", "launch", "HEADER", "MAX_PARAMS", "STATS"]
+           "primary_context", "launch", "nvrtc_version", "driver_version",
+           "HEADER", "MAX_PARAMS", "STATS"]
 
 _c_p = ctypes.c_void_p
 _lock = threading.RLock()
@@ -43,10 +49,11 @@ _functions = {}  # (program key, device, symbol) -> CUfunction handle
 _primary = {}    # device -> primary CUcontext handle
 
 # What the runtime compiler did in this process: "compiles" NVRTC runs
-# and their "compile_seconds", "cache_hits" compiles served from the
-# cache, "module_loads" cubins loaded onto a device.
+# and their "compile_seconds", "cache_hits" compiles served from this
+# process's dict, "store_hits" programs the compile cache served
+# instead of NVRTC, "module_loads" cubins loaded onto a device.
 STATS = {"compiles": 0, "compile_seconds": 0.0, "cache_hits": 0,
-         "module_loads": 0}
+         "store_hits": 0, "module_loads": 0}
 
 
 class CudaError(MXNetError):
@@ -123,6 +130,7 @@ def _cuda():
                             "be loaded: %s" % e) from None
         for name, args in (
                 ("cuInit", [ctypes.c_uint]),
+                ("cuDriverGetVersion", [ctypes.POINTER(ctypes.c_int)]),
                 ("cuGetErrorString",
                  [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)]),
                 ("cuDeviceGet", [ctypes.POINTER(ctypes.c_int), ctypes.c_int]),
@@ -169,11 +177,47 @@ class _Program:
         self.log = log
 
 
+def nvrtc_version():
+    """NVRTC's version, ``"major.minor"``."""
+    lib = _nvrtc()
+    major, minor = ctypes.c_int(), ctypes.c_int()
+    _check_nvrtc(lib, lib.nvrtcVersion(ctypes.byref(major),
+                                       ctypes.byref(minor)), "nvrtcVersion")
+    return "%d.%d" % (major.value, minor.value)
+
+
+def driver_version():
+    """The CUDA driver's version (``cuDriverGetVersion``: 1000 major +
+    10 minor)."""
+    lib = _cuda()
+    v = ctypes.c_int()
+    _check_cu(lib, lib.cuDriverGetVersion(ctypes.byref(v)),
+              "cuDriverGetVersion")
+    return v.value
+
+
+def _capability():
+    """The compute capability of the current card, part of a program's
+    cache key (None on a host without one)."""
+    import torch
+
+    return list(torch.cuda.get_device_capability()) \
+        if torch.cuda.is_available() else None
+
+
+def _cache_key(source, options, names):
+    from . import compile as _cc
+
+    return _cc.make_key(["nvrtc", source, list(options), list(names),
+                         nvrtc_version(), _capability()])
+
+
 def compile_program(source, options, names):
     """Compile CUDA C++ `source` with NVRTC to a cubin (the options must
     name a real architecture, ``--gpu-architecture=sm_90a``), cached per
-    process. `names` are name expressions (templates, C++ functions)
-    whose lowered names are kept."""
+    process and, with the compile cache on, across processes. `names`
+    are name expressions (templates, C++ functions) whose lowered names
+    are kept."""
     key = (source, tuple(options), tuple(names))
     with _lock:
         prog = _programs.get(key)
@@ -181,53 +225,74 @@ def compile_program(source, options, names):
             STATS["cache_hits"] += 1
             return prog
         lib = _nvrtc()
-        t0 = time.perf_counter()
-        handle = _c_p()
-        _check_nvrtc(lib, lib.nvrtcCreateProgram(
-            ctypes.byref(handle), source.encode(), b"mxnet_rtc.cu", 0,
-            None, None), "nvrtcCreateProgram")
-        try:
-            for n in names:
-                _check_nvrtc(lib, lib.nvrtcAddNameExpression(
-                    handle, n.encode()), "nvrtcAddNameExpression(%s)" % n)
-            opts = (ctypes.c_char_p * len(options))(
-                *[o.encode() for o in options])
-            res = lib.nvrtcCompileProgram(handle, len(options), opts)
-            size = ctypes.c_size_t()
-            _check_nvrtc(lib, lib.nvrtcGetProgramLogSize(
-                handle, ctypes.byref(size)), "nvrtcGetProgramLogSize")
-            buf = ctypes.create_string_buffer(size.value)
-            _check_nvrtc(lib, lib.nvrtcGetProgramLog(handle, buf),
-                         "nvrtcGetProgramLog")
-            log = buf.value.decode(errors="replace")
-            if res != 0:
-                raise CudaError("NVRTC compile failed (%s) with options %s:"
-                                "\n%s" % (lib.nvrtcGetErrorString(res)
-                                          .decode(), list(options), log))
-            _check_nvrtc(lib, lib.nvrtcGetCUBINSize(
-                handle, ctypes.byref(size)), "nvrtcGetCUBINSize")
-            if size.value == 0:
-                raise CudaError("NVRTC produced no cubin: options %s must "
-                                "name a real architecture (sm_XX)"
-                                % list(options))
-            cubin = ctypes.create_string_buffer(size.value)
-            _check_nvrtc(lib, lib.nvrtcGetCUBIN(handle, cubin),
-                         "nvrtcGetCUBIN")
-            lowered = {}
-            for n in names:
-                out = ctypes.c_char_p()
-                _check_nvrtc(lib, lib.nvrtcGetLoweredName(
-                    handle, n.encode(), ctypes.byref(out)),
-                    "nvrtcGetLoweredName(%s)" % n)
-                lowered[n] = out.value.decode()
-        finally:
-            lib.nvrtcDestroyProgram(ctypes.byref(handle))
-        seconds = time.perf_counter() - t0
-        prog = _Program(key, cubin.raw, lowered, log)
+        from . import compile as _cc
+
+        cache_key = _cache_key(source, options, names) \
+            if _cc.enabled() else None
+        rec = _cc.fetch("nvrtc", cache_key) if cache_key else None
+        if rec is not None:
+            fields, cubin = rec
+            prog = _Program(key, cubin, fields["lowered"], fields["log"])
+            STATS["store_hits"] += 1
+        else:
+            t0 = time.perf_counter()
+            cubin, lowered, log = _compile(lib, source, options, names)
+            seconds = time.perf_counter() - t0
+            prog = _Program(key, cubin, lowered, log)
+            STATS["compiles"] += 1
+            STATS["compile_seconds"] += seconds
+            if cache_key:
+                _cc.commit("nvrtc", cache_key,
+                           {"lowered": lowered, "log": log}, cubin, seconds,
+                           meta={"options": list(options),
+                                 "names": list(names)})
         _programs[key] = prog
-        STATS["compiles"] += 1
-        STATS["compile_seconds"] += seconds
         return prog
+
+
+def _compile(lib, source, options, names):
+    """One NVRTC compile: (cubin bytes, {name: lowered name}, log)."""
+    handle = _c_p()
+    _check_nvrtc(lib, lib.nvrtcCreateProgram(
+        ctypes.byref(handle), source.encode(), b"mxnet_rtc.cu", 0,
+        None, None), "nvrtcCreateProgram")
+    try:
+        for n in names:
+            _check_nvrtc(lib, lib.nvrtcAddNameExpression(
+                handle, n.encode()), "nvrtcAddNameExpression(%s)" % n)
+        opts = (ctypes.c_char_p * len(options))(
+            *[o.encode() for o in options])
+        res = lib.nvrtcCompileProgram(handle, len(options), opts)
+        size = ctypes.c_size_t()
+        _check_nvrtc(lib, lib.nvrtcGetProgramLogSize(
+            handle, ctypes.byref(size)), "nvrtcGetProgramLogSize")
+        buf = ctypes.create_string_buffer(size.value)
+        _check_nvrtc(lib, lib.nvrtcGetProgramLog(handle, buf),
+                     "nvrtcGetProgramLog")
+        log = buf.value.decode(errors="replace")
+        if res != 0:
+            raise CudaError("NVRTC compile failed (%s) with options %s:"
+                            "\n%s" % (lib.nvrtcGetErrorString(res)
+                                      .decode(), list(options), log))
+        _check_nvrtc(lib, lib.nvrtcGetCUBINSize(
+            handle, ctypes.byref(size)), "nvrtcGetCUBINSize")
+        if size.value == 0:
+            raise CudaError("NVRTC produced no cubin: options %s must "
+                            "name a real architecture (sm_XX)"
+                            % list(options))
+        cubin = ctypes.create_string_buffer(size.value)
+        _check_nvrtc(lib, lib.nvrtcGetCUBIN(handle, cubin),
+                     "nvrtcGetCUBIN")
+        lowered = {}
+        for n in names:
+            out = ctypes.c_char_p()
+            _check_nvrtc(lib, lib.nvrtcGetLoweredName(
+                handle, n.encode(), ctypes.byref(out)),
+                "nvrtcGetLoweredName(%s)" % n)
+            lowered[n] = out.value.decode()
+    finally:
+        lib.nvrtcDestroyProgram(ctypes.byref(handle))
+    return cubin.raw, lowered, log
 
 
 def primary_context(device):

@@ -4,8 +4,7 @@ Counterpart of ``mxnet_tpu/env.py`` (reference: docs/faq/env_var.md):
 one table of the ``MXNET_*`` knobs this package reads, with type,
 default and where each acts; :func:`get` reads a knob with its type and
 :func:`describe` renders the table. The port keeps only the knobs its
-modules read; the JAX package's compile-cache knobs come with the
-module that reads them (ROADMAP Queue 1 item 10).
+modules read.
 """
 from __future__ import annotations
 
@@ -127,6 +126,21 @@ CATALOGUE = [
          "when set, kvstore server processes stream their trace "
          "segments here (trace.rank<R>.<seq>.jsonl, server ranks "
          "numbered past the workers)", False),
+    Knob("MXNET_COMPILE_CACHE", str, "", "compile/",
+         "persistent compile-cache directory (empty = disabled): a "
+         "process loads the kernel libraries nvcc built and the cubins "
+         "NVRTC compiled instead of compiling them again", False),
+    Knob("MXNET_COMPILE_CACHE_MB", int, 2048, "compile/store.py",
+         "compile-cache retention budget; oldest-by-mtime entries are "
+         "retired past it (hits re-touch their entry)", False),
+    Knob("MXNET_COMPILE_CACHE_SHARED", bool, False, "compile/",
+         "every rank's MXNET_COMPILE_CACHE points at ONE shared "
+         "directory: skip the kvstore cc_* distribution channel "
+         "(entries commit atomically, so concurrent ranks are safe)",
+         False),
+    Knob("MXNET_PS_CC_ENTRY_MB", int, 64, "compile/distribute.py",
+         "largest compile-cache entry distributed over the kvstore; "
+         "bigger entries stay local-only", False),
     Knob("MXNET_PS_CC_BUFFER_MB", int, 256, "kvstore_server.py",
          "kvstore server's compile-cache buffer bound (total bytes, "
          "drop-oldest)", False),

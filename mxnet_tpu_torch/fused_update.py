@@ -85,8 +85,11 @@ plans built after the first apply window), a chunk's first apply is
 observed as ``mx_compile_seconds{site="fused_apply"}``, and an installed
 ``telemetry.NumericGuard`` (``grad_guard``) queues one
 ``torch.isfinite(flat_w).all()`` per chunk after its update, read once
-per armed apply window (:meth:`FusedApplier.close_guard_window`). Not
-ported here: the persistent compile cache (ROADMAP Queue 1 item 10).
+per armed apply window (:meth:`FusedApplier.close_guard_window`). The
+JAX package loads each chunk's executable from its compile cache
+(``compile.maybe_cached_jit``); a chunk here runs eagerly and has no
+executable to store: the port's compile cache (``compile/``) holds the
+kernels nvcc and NVRTC build.
 """
 from __future__ import annotations
 

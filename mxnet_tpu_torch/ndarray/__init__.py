@@ -14,11 +14,12 @@ from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
                       linspace, eye, moveaxis, waitall, _invoke)
 from .utils import save, load, save_dict, load_dict
 from . import contrib  # noqa: F401
+from . import linalg  # noqa: F401
 from . import random  # noqa: F401
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "linspace", "eye", "moveaxis", "waitall", "save", "load",
-           "save_dict", "load_dict", "random"]
+           "save_dict", "load_dict", "random", "linalg"]
 
 _FUNC_CACHE = {}
 

@@ -1,9 +1,10 @@
-"""Contrib operators: the CTC loss.
+"""Contrib operators: the CTC loss, and FFT, count sketch, index copy,
+adaptive pooling and bilinear resize.
 
-Counterpart of ``mxnet_tpu/ops/contrib_ops.py:17-124`` (reference:
-src/operator/contrib/ctc_loss.cc, warp-ctc derived). The rest of that
-file (FFT, count sketch, index copy, adaptive pooling, bilinear resize)
-is ROADMAP Queue 1 item 11c.
+Counterpart of ``mxnet_tpu/ops/contrib_ops.py`` (reference:
+src/operator/contrib/ctc_loss.cc, warp-ctc derived; and the small tail
+at the end of this file, adaptive_avg_pooling.cc, bilinear_resize.cc,
+fft.cc, ifft.cc, index_copy.cc, count_sketch.cc).
 
 ``ctc_loss`` has two routes, chosen by the device of ``pred``:
 
@@ -29,7 +30,8 @@ import torch.nn.functional as F
 
 from .registry import register
 
-__all__ = ["ctc_loss"]
+__all__ = ["ctc_loss", "adaptive_avg_pooling2d", "bilinear_resize2d",
+           "contrib_fft", "contrib_ifft", "index_copy", "count_sketch"]
 
 _NEG_INF = -1e30
 
@@ -141,3 +143,93 @@ def ctc_loss(pred, label, pred_lengths=None, label_lengths=None,
     if pred.is_cuda:
         return _ctc_cuda(logp, lab, label_len, pred_len, blank)
     return _ctc_plain(logp, lab, label_len, pred_len, blank)
+
+
+# ---------------------------------------------------------------------------
+# The small tail (``mxnet_tpu/ops/contrib_ops.py:127-240``). The JAX
+# package computes these in float32 (x64 is off there); the port computes
+# in float32, or in float64 where the input is float64, and the
+# gradients come from autograd. On a card they are library calls
+# (``F.adaptive_avg_pool2d``, ``F.interpolate``, ``torch.fft``,
+# ``index_copy``, ``index_add``), as they are XLA's in the JAX package.
+# ---------------------------------------------------------------------------
+
+def _compute_dtype(x):
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+@register("_contrib_AdaptiveAvgPooling2D",
+          aliases=("_contrib_adaptive_avg_pooling2d",))
+def adaptive_avg_pooling2d(data, output_size=1):
+    """Average pooling of NCHW `data` to an `output_size` grid (an int or
+    (h, w)): bin o of an axis of size n spans floor(o n / out) ..
+    ceil((o + 1) n / out), as adaptive_avg_pooling.cc:38-65. Computed
+    in float32 (float64 for float64) and cast back."""
+    if isinstance(output_size, (tuple, list)):
+        oh = int(output_size[0])
+        ow = int(output_size[1] if len(output_size) > 1 else output_size[0])
+    else:
+        oh = ow = int(output_size)
+    out = F.adaptive_avg_pool2d(data.to(_compute_dtype(data)), (oh, ow))
+    return out.to(data.dtype)
+
+
+@register("_contrib_BilinearResize2D",
+          aliases=("_contrib_bilinear_resize2d",))
+def bilinear_resize2d(data, height=None, width=None, scale_height=None,
+                      scale_width=None):
+    """Bilinear resize of NCHW `data` with align_corners ratios
+    ((in - 1) / (out - 1), bilinear_resize.cc:67-70). The size is
+    `height`/`width`, else Python's ``round`` (half to even) of the
+    scaled size; an unchanged size returns `data` itself."""
+    H, W = data.shape[2], data.shape[3]
+    oh = int(height) if height else int(round(H * float(scale_height)))
+    ow = int(width) if width else int(round(W * float(scale_width)))
+    if oh == H and ow == W:
+        return data
+    out = F.interpolate(data.to(_compute_dtype(data)), size=(oh, ow),
+                        mode="bilinear", align_corners=True)
+    return out.to(data.dtype)
+
+
+@register("_contrib_fft", aliases=("_contrib_FFT",))
+def contrib_fft(data, compute_size=128):
+    """FFT over the last axis: real (..., d) -> (..., 2d) with the real
+    and imaginary parts interleaved (fft-inl.h). `compute_size` (the
+    reference's sub-batch size) changes nothing here."""
+    c = torch.fft.fft(data.to(_compute_dtype(data)), dim=-1)
+    return torch.view_as_real(c).reshape(*data.shape[:-1],
+                                         2 * data.shape[-1])
+
+
+@register("_contrib_ifft", aliases=("_contrib_IFFT",))
+def contrib_ifft(data, compute_size=128):
+    """The inverse of ``_contrib_fft``, interleaved (..., 2d) -> real (...,
+    d), UNNORMALIZED as the reference's (ifft-inl.h:136): d times the
+    normalized inverse."""
+    d = data.shape[-1] // 2
+    pairs = data.to(_compute_dtype(data)).reshape(*data.shape[:-1], d, 2)
+    c = torch.view_as_complex(pairs.contiguous())
+    return torch.fft.ifft(c, dim=-1).real * d
+
+
+@register("_contrib_index_copy", aliases=("_contrib_IndexCopy",))
+def index_copy(old, index, new):
+    """`old` with row index[i] replaced by new[i] (index_copy.cc). With a
+    repeated index, which row lands depends on the order of the writes,
+    in both packages."""
+    return old.index_copy(0, index.to(torch.int64), new.to(old.dtype))
+
+
+@register("_contrib_count_sketch", aliases=("_contrib_CountSketch",))
+def count_sketch(data, h, s, out_dim=1, processing_batch_size=32):
+    """Count sketch of the rows of `data` (n, in_dim): out[:, h[i]] +=
+    s[i] data[:, i], with h (1, in_dim) the bucket of each input feature
+    and s (1, in_dim) its sign (count_sketch.cc). One scatter-add; on a
+    card its atomic sums land in no fixed order.
+    `processing_batch_size` changes nothing here."""
+    dtype = _compute_dtype(data)
+    vals = data.to(dtype) * s.reshape(-1).to(dtype)[None, :]
+    out = torch.zeros((data.shape[0], int(out_dim)), dtype=dtype,
+                      device=data.device)
+    return out.index_add(1, h.reshape(-1).to(torch.int64), vals)

@@ -122,8 +122,10 @@ health-plane readiness slot (``/readyz``) to ready. With
 turns it on) a ``train_step::device`` span follows the dispatch: a
 CUDA event recorded after the step's work and synchronised, so it ends
 when the card has finished the step (the JAX package's
-``jax.block_until_ready``); with device spans off nothing waits. Not
-ported here: the compile cache (ROADMAP Queue 1 item 10).
+``jax.block_until_ready``); with device spans off nothing waits. The
+JAX package loads the step's executable from its compile cache; the
+step here runs eagerly and has no executable to store: the port's
+compile cache (``compile/``) holds the kernels nvcc and NVRTC build.
 """
 from __future__ import annotations
 

@@ -124,7 +124,11 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.serving.continuous, mxnet_tpu_torch.serving.reload, "
         "mxnet_tpu_torch.ops.quantization_ops, "
         "mxnet_tpu_torch.examples.serve_mnist, "
-        "mxnet_tpu_torch.profile_trace_loss\n"
+        "mxnet_tpu_torch.profile_trace_loss, "
+        "mxnet_tpu_torch.compile, mxnet_tpu_torch.compile.store, "
+        "mxnet_tpu_torch.compile.distribute, "
+        "mxnet_tpu_torch.tools.compile_cache, "
+        "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.ops.sequence\n"
         "import importlib\n"
         "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"

@@ -484,14 +484,12 @@ def test_every_name_of_the_five_files_is_registered():
     assert len(names) == 287
     missing = sorted(n for n in names if n not in treg.OP_REGISTRY)
     assert not missing, missing
-    # 39 names of other files wait for later slices (the core surface's
-    # second half registered ctc_loss and its 3 aliases; detection the 33
-    # names of detection_ops and rcnn_ops; serving the 6 of
-    # quantization_ops).
-    rest = set(jreg.OP_REGISTRY) - set(treg.OP_REGISTRY)
-    assert len(rest) == 39, sorted(rest)
-    assert not {jreg.get(n).fn.__module__.rsplit(".", 1)[-1] for n in rest} \
-        & {"detection_ops", "rcnn_ops", "quantization_ops"}
+    # The other files' names came with later slices (ctc_loss and its 3
+    # aliases; detection's 33; serving's 6 quantization names; linalg's
+    # 27 and the contrib tail's 12): the port's registry holds every name
+    # of the JAX package's, and none besides.
+    assert len(jreg.OP_REGISTRY) == len(treg.OP_REGISTRY) == 397
+    assert set(jreg.OP_REGISTRY) == set(treg.OP_REGISTRY)
 
 
 def test_every_deterministic_name_has_a_case_here():
