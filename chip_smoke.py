@@ -331,7 +331,7 @@ phase falls back to the host or to a plain version):
    moves by one; (3) the cost of telemetry on part 1's TrainStep: step ms
    and idle share over ``TELE_COST_STEPS`` steps off
    (``telemetry.set_enabled(False)``), at the default, and with
-   attribution's device spans on, in two rounds; (4)
+   attribution's device spans on, in two rounds (one in each order); (4)
    ``examples.train_telemetry`` to its own ``ok``.
 23. the multi-model gateway: (1) one ``ModelGateway`` over five models
    registered with warmup (each runs one signature per bucket):
@@ -385,7 +385,36 @@ phase falls back to the host or to a plain version):
    output, the build and NVRTC seconds saved and the entry bytes are
    printed.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24) is driven with
+25. the sparse path: matrix factorization (``examples.
+   train_matrix_factorization.MFNet``: two ``Embedding(sparse_grad=True)``
+   tables of rank 128 and their biases) at MovieLens-20M's counts, 138,493
+   users and 27,278 items (``SPARSE_MF``; 262,144 synthetic ratings from
+   the example's ``synthetic_ratings``, 10% held out, batch 4096, Adam),
+   through ``gluon.Trainer`` on the card: (1) after one step, the rows of
+   each table that changed, and the rows of its Adam moments that are not
+   zero, are exactly the batch's ids, every other row bit for bit its
+   start; (2) ``SPARSE_MF["parity_steps"]`` steps on the card from the
+   weights carried over as numpy, against the same steps in float64 on
+   the host, the touched rows within ``SPARSE_MF_REL_L2`` (relative L2),
+   the others unmoved; (3) the example's ``train`` over 2 epochs, its
+   validation RMSE falling; (4) samples/s of the lazy path and of the
+   same model with ``sparse_grad=False`` (dense Adam over all 165,771
+   rows), benchmark_rate's windows, and the host ms a step spends in
+   ``dense_to_rsp_device`` and in the per-parameter update; (5)
+   ``sparse.dot`` at benchmark/sparse_end2end.py's shape (``SPARSE_DOT``:
+   a 128 x 100,000 CSR batch of 32 nonzeros a row times a 100,000 x 16
+   weight), plain and with ``transpose_a``, against the host in float64
+   within ``SURFACE_TOL["reduce"]``, with its ms; (6) ``LibSVMIter`` over
+   a 4096-row file of that shape written here: every CSR batch on
+   gpu(0), bit for bit the host iterator's; (7) a step's row-sparse
+   gradient and a CSR batch through ``nd.save``/``nd.load`` on the card,
+   bit for bit, the file byte for byte the one written from the host,
+   and ``row_sparse_pull`` of a batch's rows from a ``device`` store
+   holding the user table into a CUDA row-sparse ``out``. No kernel of
+   the port launches. Each reading is a JSON line with the card's name
+   and power limit.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -1397,12 +1426,12 @@ def phase_resnet_trained():
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     _reset_launches()  # the main path starts here
     mx.random.seed(SEED)
-    result = {"phase": "resnet50_v1_trained", "batch": 32, "windows": 5,
+    result = {"phase": "resnet50_v1_trained", "batch": 32, "windows": 3,
               "iters_per_window": 16}
     for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
         t0 = time.perf_counter()
         rate = train_imagenet.benchmark_rate("resnet50", 32, dtype,
-                                             device=mx.gpu(0))
+                                             device=mx.gpu(0), windows=3)
         result[tag] = {"img_s_b32": rate,
                        "ms_per_step": 32e3 / rate,
                        "phase_s": time.perf_counter() - t0}
@@ -2147,7 +2176,7 @@ def _state_tensors(trainer):
 
 
 def _trainer_img_s(net, trainer, x, y, cast_out, warmup=3, windows=3,
-                   iters=16):
+                   iters=10):
     """benchmark_rate's protocol over the Trainer loop: warmup steps,
     then the median img/s of `windows` windows of `iters` steps, each
     closed by a host readback of the loss."""
@@ -2299,7 +2328,7 @@ def phase_resnet_trainer(card_line):
     y = nd.array(ys, ctx=mx.gpu(0))
     result = {"phase": "resnet50_v1_trainer", "card": card_line,
               "batch": 32, "optimizer": ["sgd", TRAINER_OPT],
-              "windows": 5, "iters_per_window": 16}
+              "windows": 3, "iters_per_window": 10}
     _reset_launches()  # the main path starts here
     card = torch.cuda.get_device_name(0)
     for tag, dtype in (("fp32", None), ("bf16_mp", "bfloat16")):
@@ -2512,7 +2541,7 @@ def _card_equals_host(card_batches, host_batches, step, what):
     return n, bad
 
 
-def _fed_rate(step, batches, warmup=3, windows=3, iters=16):
+def _fed_rate(step, batches, warmup=3, windows=3, iters=10):
     """benchmark_rate's protocol over batches from a data source: warmup
     steps, then the median img/s of windows of `iters` steps, each
     closed by a host readback of the loss; and the data-wait share of
@@ -2811,7 +2840,7 @@ def _stats(values):
             "min": v[0], "max": v[-1]}
 
 
-def _ckpt_rate(step, x, y, tmpdir, every, warmup=5, windows=3, iters=16):
+def _ckpt_rate(step, x, y, tmpdir, every, warmup=3, windows=3, iters=10):
     """benchmark_rate's protocol (warmup steps, then the median img/s of
     `windows` windows of `iters` steps, each closed by a host readback of
     the loss) with an async ``CheckpointManager.save`` of the step's
@@ -3151,8 +3180,8 @@ def phase_checkpoint(card_line):
         import logging
         logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
             logging.ERROR)
-        # 5 + 3 x 16 = 53 steps a configuration: the every-10 one ends
-        # at step 1 + 3 x 53 = 160, a multiple of 10, so its newest
+        # 3 + 3 x 10 = 33 steps a configuration: the every-10 one ends
+        # at step 1 + 3 x 33 = 100, a multiple of 10, so its newest
         # commit is its last step.
         rates = [_ckpt_rate(step, x, y, tmpdir, every)
                  for every in (0, 1, 10, 0)]
@@ -3368,7 +3397,7 @@ def phase_module(card_line, trainer_img_s):
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     tmpdir = tempfile.mkdtemp(prefix="chip_smoke_module_")
-    warmup, windows, iters = 3, 5, 16
+    warmup, windows, iters = 3, 3, 16
     result = {"phase": "module", "card": card_line, "batch": 32,
               "optimizer": ["sgd", TRAINER_OPT], "windows": windows,
               "iters_per_window": iters, "eval_metric": "acc"}
@@ -5071,7 +5100,7 @@ ZOO_FAMILIES = {"alexnet": 224, "vgg11": 224, "squeezenet1.1": 224,
 ZOO_F64_REL_L2 = 1e-9
 # Steps a profiled window (torch.profiler's host-side bookkeeping of an
 # Inception-v3 step costs seconds).
-ZOO_PROFILE_ITERS = 3
+ZOO_PROFILE_ITERS = 2
 # Every layer and loss of the slice at a model's width, on the card in
 # fp32 against the host in float64 (SURFACE_TOL["nn"], gradients
 # SURFACE_GRAD_TOL): (class, constructor arguments, input shape) — a
@@ -7740,8 +7769,8 @@ def phase_placement(card_line):
 
 # Phase 22: telemetry and profiling on the training paths.
 TELE_COST_STEPS = 10        # steps a configuration of part 3 is timed over
-TELE_COST_ORDER = ("off", "default", "device_spans") * 2 + \
-    ("device_spans", "default", "off") * 2
+TELE_COST_ORDER = ("off", "default", "device_spans",
+                   "device_spans", "default", "off")
 TELE_XPROF_S = 0.5          # seconds of the /debug/xprof capture (part 1)
 TELE_ATTN_STEPS = 3         # profiled attention steps (part 2)
 TELE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
@@ -9153,6 +9182,425 @@ def phase_compile_cache(card_line):
     return {"compile_cache_" + k: r["launches"] for k, r in runs.items()}
 
 
+# -- phase 25: the sparse path -------------------------------------------------
+
+# MovieLens-20M's counts (GroupLens ml-20m README: 138,493 users, 27,278
+# movies); rank, batch and the synthetic rating count are the cell's.
+SPARSE_MF = {"users": 138493, "items": 27278, "rank": 128, "batch": 4096,
+             "samples": 262144, "lr": 0.08, "epochs": 2, "seed": SEED,
+             "parity_steps": 3, "warmup": 3, "windows": 5, "iters": 10}
+# benchmark/sparse_end2end.py's linear model: a CSR batch of 128 rows over
+# 100,000 features, 32 nonzeros a row, times a (100000, 16) weight.
+SPARSE_DOT = {"batch": 128, "features": 100000, "nnz": 32, "dim": 16,
+              "file_rows": 4096}
+# The card's fp32 steps against the host's float64 ones, relative L2 over
+# the rows the steps touched: each step's row update carries the error of
+# the prediction's 128-term dot product (gamma_128 = 128 u) and about ten
+# roundings of Adam's row arithmetic, and three steps add up; u = 2^-23.
+SPARSE_MF_REL_L2 = SPARSE_MF["parity_steps"] * (SPARSE_MF["rank"] + 10) \
+    * 2.0 ** -23
+
+
+def _mf_args(**over):
+    """The example's flags at the cell's size."""
+    from mxnet_tpu_torch.examples import train_matrix_factorization as mf
+
+    c = dict(SPARSE_MF, **over)
+    return mf.parse_args([
+        "--num-users", str(c["users"]), "--num-items", str(c["items"]),
+        "--rank", str(c["rank"]), "--samples", str(c["samples"]),
+        "--batch-size", str(c["batch"]), "--epochs", str(c["epochs"]),
+        "--lr", str(c["lr"]), "--optimizer", "adam",
+        "--seed", str(c["seed"])])
+
+
+def _mf_data(args):
+    from mxnet_tpu_torch.examples import train_matrix_factorization as mf
+
+    rng = np.random.RandomState(args.seed)
+    return mf.synthetic_ratings(rng, args.num_users, args.num_items,
+                                args.rank, args.samples)
+
+
+def _mf_net(mx, args, ctx, sparse_grad=True, weights=None, dtype=None):
+    """MFNet on `ctx` (Normal(0.1) from the seed, or `weights`, a
+    {relative name: float32 array}), cast to `dtype` after its weights
+    are set (the cast of float32 values is exact)."""
+    from mxnet_tpu_torch.examples import train_matrix_factorization as mf
+    from mxnet_tpu_torch.gluon.utils import params_from_numpy
+
+    mx.random.seed(args.seed)
+    net = mf.MFNet(args.num_users, args.num_items, args.rank,
+                   sparse_grad=sparse_grad)
+    net.initialize(mx.init.Normal(0.1), ctx=ctx)
+    if weights is not None:
+        params_from_numpy(net, weights)
+    if dtype is not None:
+        net.cast(dtype)
+    return net
+
+
+def _mf_state(net):
+    """{relative name: numpy} of the net's weights."""
+    return _relative({n: p.data().asnumpy() for n, p in
+                      net.collect_params().items()}, net.prefix)
+
+
+def _mf_batches(mx, data, args, ctx, count, dtype="float32"):
+    """The first `count` batches of the training split on `ctx`."""
+    users, items, ratings = data
+    out = []
+    for s in range(count):
+        sel = slice(s * args.batch_size, (s + 1) * args.batch_size)
+        out.append(tuple(mx.nd.array(a[sel], ctx=ctx, dtype=dtype)
+                         for a in (users, items, ratings)))
+    return out
+
+
+def _mf_step(mx, net, trainer, batch):
+    from mxnet_tpu_torch import autograd, gluon
+
+    u, i, r = batch
+    with autograd.record():
+        loss = gluon.loss.L2Loss()(net(u, i), r).sum()
+    loss.backward()
+    trainer.step(u.shape[0])
+    return loss
+
+
+def _mf_moments(net, trainer):
+    """{relative name: (mean, var)} of the trainer's Adam states."""
+    from mxnet_tpu_torch.gluon.utils import relative_names
+
+    index = {id(p): k for k, p in enumerate(trainer._params)}
+    params = net.collect_params()
+    rel = relative_names(list(params.keys()), net.prefix)
+    return {rel[n]: tuple(s.asnumpy() for s in
+                          trainer._updater.states[index[id(p)]])
+            for n, p in params.items()}
+
+
+def _sparse_lazy_contract(mx, net, args, data):
+    """Check 1: one lazy Adam step moves exactly the batch's rows of each
+    embedding, and their moments; every other row is its start, bit for
+    bit."""
+    from mxnet_tpu_torch import gluon
+
+    ctx = mx.gpu(0)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": args.lr})
+    batch = _mf_batches(mx, data, args, ctx, 1)[0]
+    before = _mf_state(net)
+    _mf_step(mx, net, trainer, batch)
+    after, moments = _mf_state(net), _mf_moments(net, trainer)
+    users, items = (np.unique(data[k][:args.batch_size].astype(np.int64))
+                    for k in (0, 1))
+    out = {}
+    for name, w0 in before.items():
+        rows = users if name.startswith("embedding0") or \
+            name.startswith("embedding2") else items
+        changed = np.nonzero((after[name] != w0).any(axis=1))[0]
+        moved = [np.nonzero((m != 0).any(axis=1))[0]
+                 for m in moments[name]]
+        rest = np.setdiff1d(np.arange(w0.shape[0]), rows)
+        out[name] = {
+            "rows": int(rows.size), "changed": int(changed.size),
+            "changed_are_batch": bool(np.array_equal(changed, rows)),
+            "moments_are_batch": all(np.array_equal(m, rows)
+                                     for m in moved),
+            "rest_bit_for_bit": bool(np.array_equal(after[name][rest],
+                                                    w0[rest]))}
+    return out
+
+
+def _sparse_card_vs_host(mx, net, args, data):
+    """Check 2: `parity_steps` lazy Adam steps on the card (fp32) and on
+    the host (float64) from the card's weights, the same batches; the
+    relative L2 of the touched rows of each weight."""
+    from mxnet_tpu_torch import gluon
+
+    w0 = _mf_state(net)
+    steps = SPARSE_MF["parity_steps"]
+    runs = {}
+    for where, ctx, dtype in (("card", mx.gpu(0), None),
+                              ("host", mx.cpu(), "float64")):
+        m = net if where == "card" else _mf_net(mx, args, ctx, weights=w0,
+                                                dtype=dtype)
+        tr = gluon.Trainer(m.collect_params(), "adam",
+                           {"learning_rate": args.lr})
+        t0 = time.perf_counter()
+        for b in _mf_batches(mx, data, args, ctx, steps,
+                             dtype=dtype or "float32"):
+            _mf_step(mx, m, tr, b)
+        runs[where] = (_mf_state(m), time.perf_counter() - t0)
+    (card, _), (host, host_s) = runs["card"], runs["host"]
+    n = steps * args.batch_size
+    touched = {"users": np.unique(data[0][:n].astype(np.int64)),
+               "items": np.unique(data[1][:n].astype(np.int64))}
+    out = {"host_s": host_s, "limit": SPARSE_MF_REL_L2, "rel_l2": {},
+           "untouched_moved": {}}
+    for name, want in host.items():
+        rows = touched["users" if name.startswith(("embedding0",
+                                                   "embedding2"))
+                       else "items"]
+        rest = np.setdiff1d(np.arange(want.shape[0]), rows)
+        out["rel_l2"][name] = _rel_l2({"w": card[name][rows]},
+                                      {"w": want[rows]})
+        out["untouched_moved"][name] = int(
+            (card[name][rest] != w0[name][rest]).any(axis=1).sum()
+            + (want[rest] != w0[name][rest]).any(axis=1).sum())
+    return out
+
+
+def _mf_rate(mx, args, data, sparse_grad):
+    """samples/s of the example's step at the cell's size, as
+    ``examples.train_imagenet.benchmark_rate`` times it: warmup steps,
+    then the median of windows of steps each closed by a host read of
+    the loss. With sparse_grad, also the host ms a step spends turning
+    the gradients row-sparse and in the per-parameter update."""
+    from mxnet_tpu_torch import gluon
+
+    c = SPARSE_MF
+    net = _mf_net(mx, args, mx.gpu(0), sparse_grad=sparse_grad)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": args.lr})
+    host = {"to_row_sparse": 0.0, "row_sparse_update": 0.0, "steps": 0}
+
+    def timed(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                host[key] += time.perf_counter() - t0
+        return run
+
+    trainer._row_sparse_grad = timed(trainer._row_sparse_grad,
+                                     "to_row_sparse")
+    trainer._apply_row_sparse = timed(trainer._apply_row_sparse,
+                                      "row_sparse_update")
+    batches = _mf_batches(mx, data, args, mx.gpu(0), c["iters"])
+    loss = None
+    for s in range(c["warmup"]):
+        loss = _mf_step(mx, net, trainer, batches[s % len(batches)])
+    float(loss.sum().asnumpy())
+    host.update(to_row_sparse=0.0, row_sparse_update=0.0)
+    rates = []
+    for _ in range(c["windows"]):
+        t0 = time.perf_counter()
+        for b in batches:
+            loss = _mf_step(mx, net, trainer, b)
+        float(loss.sum().asnumpy())     # completion proof
+        rates.append(args.batch_size * len(batches)
+                     / (time.perf_counter() - t0))
+        host["steps"] += len(batches)
+    steps = host.pop("steps")
+    return {"samples_s": sorted(rates)[len(rates) // 2],
+            "window_samples_s": rates,
+            **{k + "_host_ms_per_step": v * 1e3 / steps
+               for k, v in host.items()}}
+
+
+def _sparse_dot_case(mx, gen):
+    """Check 5: sparse.dot on the card, plain and transposed, against the
+    host in float64 (SURFACE_TOL["reduce"]), with its times."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    c = SPARSE_DOT
+    b, f, k, d = c["batch"], c["features"], c["nnz"], c["dim"]
+    cols = np.sort(gen.choice(f, (b, k)), axis=1)   # a row may repeat one
+    vals = gen.rand(b, k).astype(np.float32) + 0.5
+    indptr = np.arange(0, b * k + 1, k, dtype=np.int64)
+    csr = sp.csr_matrix((vals.reshape(-1), cols.reshape(-1), indptr),
+                        shape=(b, f), ctx=mx.gpu(0))
+    rows = np.repeat(np.arange(b), k)
+    out = {}
+    rtol, atol_frac = SURFACE_TOL["reduce"]
+    for ta, rhs_rows in ((False, f), (True, b)):
+        rhs = gen.randn(rhs_rows, d).astype(np.float32)
+        x = mx.nd.array(rhs, ctx=mx.gpu(0))
+        got = sp.dot(csr, x, transpose_a=ta).asnumpy()
+        want = np.zeros((f if ta else b, d))
+        src, dst = (rows, cols.reshape(-1)) if ta else \
+            (cols.reshape(-1), rows)
+        np.add.at(want, dst, vals.reshape(-1, 1).astype(np.float64)
+                  * rhs[src].astype(np.float64))
+        viol = max_violation(torch.from_numpy(got).double(),
+                             torch.from_numpy(want), rtol,
+                             atol_frac * float(np.abs(want).max()))
+        out["transpose_a" if ta else "plain"] = {
+            "shape": list(got.shape), "violation": viol,
+            "on_card": bool(sp.dot(csr, x, transpose_a=ta)._data.is_cuda),
+            "ms": time_ms(lambda: sp.dot(csr, x, transpose_a=ta))}
+    return out
+
+
+def _write_libsvm_file(path, gen):
+    c = SPARSE_DOT
+    with open(path, "w") as f:
+        for _ in range(c["file_rows"]):
+            cols = np.sort(gen.choice(c["features"], c["nnz"],
+                                      replace=False))
+            vals = gen.rand(c["nnz"]) + 0.25
+            f.write("%d %s\n" % (gen.randint(2), " ".join(
+                "%d:%.6f" % cv for cv in zip(cols, vals))))
+
+
+def _sparse_libsvm(mx, path):
+    """Check 6: LibSVMIter on the card equals the host iterator bit for
+    bit, batch by batch, its CSR arrays on gpu(0)."""
+    c = SPARSE_DOT
+    its = [mx.io.LibSVMIter(data_libsvm=path, data_shape=(c["features"],),
+                            batch_size=c["batch"], ctx=ctx)
+           for ctx in (mx.gpu(0), mx.cpu())]
+    t0 = time.perf_counter()
+    card = list(its[0])
+    card_s = time.perf_counter() - t0
+    host = list(its[1])
+    same = len(card) == len(host) == c["file_rows"] // c["batch"]
+    on_card = True
+    for g, w in zip(card, host):
+        a, b = g.data[0], w.data[0]
+        on_card &= all(t._data.is_cuda for t in (a, a.indptr, a.indices,
+                                                 g.label[0]))
+        for x, y in ((a.indptr, b.indptr), (a.indices, b.indices),
+                     (a.data, b.data), (g.label[0], w.label[0])):
+            same &= bool(np.array_equal(x.asnumpy(), y.asnumpy()))
+    return {"batches": len(card), "bit_for_bit": bool(same),
+            "on_card": bool(on_card), "card_s": card_s,
+            "nnz": int(sum(g.data[0].indices.shape[0] for g in card))}, \
+        card[0].data[0]
+
+
+def _sparse_files_and_store(mx, net, args, data, csr, tmp):
+    """Check 7: a step's row-sparse gradient and a CSR batch saved from
+    the card load back to it bit for bit, in the bytes the port writes
+    from the same arrays on the host; a device kvstore holding
+    user.weight answers row_sparse_pull into a CUDA row-sparse out."""
+    import os
+
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    u, i, r = _mf_batches(mx, data, args, mx.gpu(0), 1)[0]
+    with autograd.record():
+        loss = gluon.loss.L2Loss()(net(u, i), r).sum()
+    loss.backward()
+    grad = sp.dense_to_rsp_device(net.user.weight.grad())
+    arrays = {"user_grad": grad, "batch": csr}
+    card_f, host_f = (os.path.join(tmp, n) for n in ("card.params",
+                                                     "host.params"))
+    mx.nd.save(card_f, arrays)
+    mx.nd.save(host_f, {k: v.as_in_context(mx.cpu())
+                        for k, v in arrays.items()})
+    back = mx.nd.load(card_f, ctx=mx.gpu(0))
+    loaded = all(
+        type(back[k]) is type(v) and back[k]._data.is_cuda
+        and back[k].shape == v.shape
+        and all(np.array_equal(x.asnumpy(), y.asnumpy())
+                for x, y in zip([back[k].data] + back[k]._aux(),
+                                [v.data] + v._aux()))
+        for k, v in arrays.items())
+    with open(card_f, "rb") as f1, open(host_f, "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    kv = mx.kv.create("device")
+    kv.init("user", net.user.weight.data())
+    rows = mx.nd.array(np.unique(u.asnumpy()), ctx=mx.gpu(0), dtype="int64")
+    out = sp.zeros("row_sparse", (rows.shape[0], args.rank), ctx=mx.gpu(0))
+    kv.row_sparse_pull("user", out=out, row_ids=rows)
+    want = net.user.weight.data().asnumpy()[rows.asnumpy()]
+    return {"grad_rows": int(grad.indices.shape[0]),
+            "file_bytes": os.path.getsize(card_f),
+            "loaded_bit_for_bit_on_card": bool(loaded),
+            "card_file_equals_host_file": bool(same_bytes),
+            "row_sparse_pull": {
+                "rows": int(rows.shape[0]),
+                "on_card": bool(out._data.is_cuda
+                                and out.indices._data.is_cuda),
+                "bit_for_bit": bool(np.array_equal(out.data.asnumpy(),
+                                                   want)
+                                    and np.array_equal(
+                                        out.indices.asnumpy(),
+                                        rows.asnumpy()))}}
+
+
+def phase_sparse(card_line):
+    """Phase 25 (see the module docstring). Returns its launch counts."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import train_matrix_factorization as mf
+
+    t_phase = time.perf_counter()
+    args = _mf_args()
+    _reset_all_launches()   # the main path starts here
+    data = _mf_data(args)
+    net = _mf_net(mx, args, mx.gpu(0))
+    read = {"phase": "sparse", "card": card_line}
+
+    def reading(name, value):
+        read[name] = value
+        log(json.dumps({"phase": "sparse", "reading": name,
+                        "card": card_line, name: value}))
+
+    reading("lazy_contract", _sparse_lazy_contract(mx, net, args, data))
+    reading("card_vs_host", _sparse_card_vs_host(mx, net, args, data))
+    t0 = time.perf_counter()
+    vals = mf.train(args, mx.gpu(0))
+    reading("training", {"val_rmse": vals,
+                         "seconds": time.perf_counter() - t0})
+    reading("rate_lazy", _mf_rate(mx, args, data, True))
+    reading("rate_dense", _mf_rate(mx, args, data, False))
+    gen = np.random.RandomState(SEED)
+    reading("dot", _sparse_dot_case(mx, gen))
+    tmp = tempfile.mkdtemp(prefix="sparse-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "mxnet_tpu_torch",
+        "_build"))
+    try:
+        path = os.path.join(tmp, "features.libsvm")
+        _write_libsvm_file(path, gen)
+        libsvm, csr = _sparse_libsvm(mx, path)
+        reading("libsvm", libsvm)
+        reading("files_and_store",
+                _sparse_files_and_store(mx, net, args, data, csr, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _all_launches()   # read just after the path
+    read["launches"] = launches
+    read["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(read))
+    for name, c in read["lazy_contract"].items():
+        check(c["changed_are_batch"] and c["moments_are_batch"]
+              and c["rest_bit_for_bit"],
+              "sparse: the lazy step of %s: %s" % (name, c))
+    cvh = read["card_vs_host"]
+    for name, e in cvh["rel_l2"].items():
+        check(e <= SPARSE_MF_REL_L2, "sparse: card vs host, %s's touched "
+              "rows at relative L2 %g (limit %g)" % (name, e,
+                                                     SPARSE_MF_REL_L2))
+    check(not any(cvh["untouched_moved"].values()),
+          "sparse: untouched rows moved: %s" % cvh["untouched_moved"])
+    check(vals[-1] < vals[0], "sparse: validation RMSE did not fall: %s"
+          % vals)
+    for name, c in read["dot"].items():
+        check(c["violation"] <= 0 and c["on_card"],
+              "sparse: dot %s: %s" % (name, c))
+    check(libsvm["bit_for_bit"] and libsvm["on_card"],
+          "sparse: LibSVMIter: %s" % libsvm)
+    fs = read["files_and_store"]
+    check(fs["loaded_bit_for_bit_on_card"] and
+          fs["card_file_equals_host_file"] and
+          fs["row_sparse_pull"]["on_card"] and
+          fs["row_sparse_pull"]["bit_for_bit"], "sparse: files and the "
+          "store: %s" % fs)
+    check(not any(any(v) if isinstance(v, (tuple, list)) else v
+                  for v in launches.values()),
+          "sparse: a kernel launched on the sparse path: %s" % launches)
+    return {"sparse": launches}
+
+
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
                "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd,
                "place2": _place_part_tp2, "place4": _place_part_dp2tp2,
@@ -9207,6 +9655,7 @@ def main():
     telemetry_reads = _timed(phase_telemetry, card_line)
     gateway_reads = _timed(phase_gateway, card_line)
     cc_reads = _timed(phase_compile_cache, card_line)
+    sparse_reads = _timed(phase_sparse, card_line)
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -9259,7 +9708,8 @@ def main():
     # K4a (and K4's rtc launch under it) on its checkpoint model
     # (gateway_checkpoint_partitioned). Phase 24's three children each
     # launch K1 once, K4a (and K4's rtc launch) 33 times and D1 once
-    # (CC_LAUNCHES, every count read).
+    # (CC_LAUNCHES, every count read). Phase 25's sparse path launches
+    # none of them.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
@@ -9267,7 +9717,8 @@ def main():
                        ("core_surface", core["launches"]),
                        ("model_zoo", zoo["launches"]),
                        *placement.items(), *telemetry_reads.items(),
-                       *gateway_reads.items(), *cc_reads.items()):
+                       *gateway_reads.items(), *cc_reads.items(),
+                       *sparse_reads.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

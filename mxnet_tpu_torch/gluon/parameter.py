@@ -17,9 +17,9 @@ buffer. BatchNorm's running statistics are ``"null"`` parameters, and
 their train-mode writes are detached values.
 
 What the Trainer reads, as in the JAX package: ``lr_mult``/``wd_mult``,
-``list_ctx()``/``list_data()``, ``_grad_stype`` (always ``"default"``:
-the port has no sparse NDArray, ROADMAP Queue 1 item 11) and
-``cast(dtype)``, which re-types the data and the gradient buffers (the
+``list_ctx()``/``list_data()``, ``_grad_stype`` (``"row_sparse"``
+sends the parameter through the optimizer's lazy row-sparse update;
+the gradient buffer itself stays dense) and ``cast(dtype)``, which re-types the data and the gradient buffers (the
 way a net is trained in bfloat16).
 """
 from __future__ import annotations
@@ -77,18 +77,16 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise NotImplementedError(
-                "sparse parameters (stype=%r, grad_stype=%r) need the "
-                "sparse NDArray, ROADMAP Queue 1 item 11"
-                % (stype, grad_stype))
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
-        self._grad_stype = "default"
+        self._stype = stype
+        # Gradient storage type (reference parameter.py: grad_stype
+        # "row_sparse" makes the Trainer update only the touched rows).
+        self._grad_stype = grad_stype
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._data = None  # dict ctx -> NDArray

@@ -41,8 +41,14 @@ package's data-parallel path (``trainer.py:192-591`` there):
 One context with a local store creates no store (as in the JAX
 package). ``telemetry.NumericGuard(...).install(trainer._applier)``
 checks every fused step's updated weights (one read per step, the
-overlapped path's buckets included); row-sparse gradients are ROADMAP
-Queue 1 item 11c.
+overlapped path's buckets included).
+
+A parameter with ``grad_stype="row_sparse"`` (``Embedding(...,
+sparse_grad=True)``) stays out of the fused chunks and the flat
+buckets: its dense gradient is turned row-sparse (on its device with
+``fused``, ``sparse.dense_to_rsp_device``; through the host without)
+and the optimizer's lazy row-sparse update runs for it alone. A global
+norm clip then raises ``ValueError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ import torch
 from .. import env as _env
 from .. import optimizer as opt
 from ..checkpoint import guard as _guard
+from ..ndarray import sparse as _sp
 from ..ops import optimizer_ops as _oo
 from ..telemetry import metrics as _tm
 from ..telemetry import trace as _trace
@@ -87,13 +94,6 @@ def _gn_sumsq(grad):
     of the global-norm clip; low-precision grads widen first)."""
     g32 = grad if grad.dtype == torch.float32 else grad.to(torch.float32)
     return (g32 * g32).sum()
-
-
-def _dense_only(p):
-    if p._grad_stype != "default":
-        raise NotImplementedError(
-            "Parameter %r has grad_stype %r: row-sparse gradients are "
-            "ROADMAP Queue 1 item 11c" % (p.name, p._grad_stype))
 
 
 def overlap_depth():
@@ -413,13 +413,13 @@ class Trainer:
         for i, p in enumerate(self._params):
             if p.grad_req == "null" or p._data is None:
                 continue
-            _dense_only(p)
             grad = p.list_grad()[0]
             ctxs = tuple(str(c) for c in p.list_ctx())
             if first_ctx is None:
                 first_ctx = ctxs
-            if ctxs != first_ctx:
-                # Odd device layouts keep the per-key path.
+            if p._grad_stype != "default" or ctxs != first_ctx:
+                # Row-sparse parameters and odd device layouts keep the
+                # per-key path.
                 odd.append(i)
                 continue
             entries.append((i, grad.shape, grad._data.dtype))
@@ -555,6 +555,10 @@ class Trainer:
         t0 = time.perf_counter()
         bucketer, bucket_params, odd = self._ensure_bucketer()
         clip = self._global_norm_clip
+        if clip is not None and any(
+                p._grad_stype != "default" for p in self._params
+                if p._grad_req != "null" and p._data is not None):
+            raise ValueError("global_norm_clip requires dense gradients")
         serial = depth <= 0
         if not serial:
             self._ensure_comm_thread()
@@ -630,7 +634,8 @@ class Trainer:
                         pending_applies.append(work)
                         continue
                     self._apply_entries(work, None, manage_guard=False)
-                odd_work = self._reduce_odd(odd)
+                odd_work, fallback = self._split_row_sparse(
+                    self._reduce_odd(odd))
                 scale = None
                 if clip is not None:
                     sumsq += [_gn_sumsq(g._data) for _, _, g in odd_work]
@@ -640,7 +645,8 @@ class Trainer:
                         self._apply_entries(work, scale,
                                             manage_guard=False)
                 self._apply_entries(odd_work, scale, manage_guard=False)
-                processed.append(odd_work)
+                self._apply_row_sparse(fallback)
+                processed += [odd_work, fallback]
                 # Copy the updated first replica to the other contexts.
                 for work in processed:
                     for _, d, _ in work:
@@ -667,6 +673,32 @@ class Trainer:
         _overlap_efficiency.set(hidden / total_comm if total_comm > 0
                                 else 0.0)
         _update_seconds.observe(time.perf_counter() - t0)
+
+    def _row_sparse_grad(self, grad):
+        """A dense gradient as a RowSparseNDArray of its nonzero rows:
+        found on its device on the fused path (only the row count
+        reaches the host), through the host on the unfused one."""
+        if self._fused:
+            return _sp.dense_to_rsp_device(grad)
+        host = grad.asnumpy()
+        return _sp.row_sparse_array(host, ctx=grad.context, dtype=host.dtype)
+
+    def _split_row_sparse(self, work):
+        """`work` ([(index, datas, grad)]) split into the dense entries
+        and those of row-sparse parameters, their gradients made
+        row-sparse."""
+        dense, sparse = [], []
+        for i, d, g in work:
+            if self._params[i]._grad_stype == "row_sparse":
+                sparse.append((i, d, self._row_sparse_grad(g)))
+            else:
+                dense.append((i, d, g))
+        return dense, sparse
+
+    def _apply_row_sparse(self, entries):
+        """The optimizer's row-sparse update, one parameter at a time."""
+        for i, d, g in entries:
+            self._updater(i, g, d[0])
 
     def _reduce_odd(self, odd):
         """Per-key reduce of the parameters the bucketer left out."""
@@ -715,7 +747,6 @@ class Trainer:
         for i, p in enumerate(self._params):
             if p._grad_req == "null" or p._data is None:
                 continue
-            _dense_only(p)
             datas = list(p._data.values())
             grads = list(p._grad.values())
             grad = grads[0]
@@ -729,6 +760,9 @@ class Trainer:
                     buf._set_data(grad._data)
                 grad = buf
             work.append((i, datas, grad))
+        work, fallback = self._split_row_sparse(work)
+        if self._global_norm_clip is not None and fallback:
+            raise ValueError("global_norm_clip requires dense gradients")
         scale = None
         if self._global_norm_clip is not None and work:
             # fp32 per-param sums of squares, one host read, then the
@@ -747,9 +781,11 @@ class Trainer:
         # The update writes weights and states in place, one chunk or
         # parameter at a time: no snapshot may see it half done.
         with _trace.span("trainer::update", fused=self._fused,
-                         params=len(work)), _guard.updating():
+                         params=len(work) + len(fallback)), \
+                _guard.updating():
             self._apply_entries(work, scale)
-            for _, d, _ in work:
+            self._apply_row_sparse(fallback)
+            for _, d, _ in work + fallback:
                 for dd in d[1:]:
                     dd[:] = d[0].as_in_context(dd.context)
         _update_seconds.observe(time.perf_counter() - t0)

@@ -12,8 +12,8 @@ moves each batch its producer threads pull through pinned staging
 buffers and a side-stream copy (``data.prefetch.PinnedStager``), so
 the copy overlaps the consumer's step; ``ImageRecordIter`` builds its
 iterator on the host and delivers through that path. Shuffles draw from
-explicit generators. ``LibSVMIter`` builds CSR batches in the JAX
-package; sparse arrays are ROADMAP Queue 1 item 11, so it raises.
+explicit generators. ``LibSVMIter`` yields CSR batches
+(``ndarray.sparse.CSRNDArray``) on its context.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from collections import namedtuple
 import numpy as np
 
 from .context import current_context
+from .ndarray import sparse as _sparse
 from .ndarray.ndarray import NDArray, array as _nd_array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
@@ -397,7 +398,8 @@ class PrefetchingIter(DataIter):
 
 def _init_data(data, allow_empty, default_name):
     """Normalize input data to list of (name, numpy/NDArray) pairs
-    (reference io.py:_init_data). Arrays stay on the host."""
+    (reference io.py:_init_data). Arrays stay on the host. A sparse
+    array is an NDArray and is taken as one."""
     assert data is not None or allow_empty
     if data is None:
         data = []
@@ -635,12 +637,91 @@ class MNISTIter(DataIter):
 
 class LibSVMIter(DataIter):
     """LibSVM-format sparse iterator (reference: src/io/iter_libsvm.cc).
-    Its batches are CSR arrays, and sparse arrays are not ported yet."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LibSVMIter builds CSR batches; sparse arrays are ROADMAP "
-            "Queue 1 item 11")
+    Each line is ``label index:value ...``. Batches hold one
+    ``CSRNDArray`` of ``(batch_size, prod(data_shape))`` and the labels,
+    on ``ctx`` (default: the current context); the last batch wraps
+    around to the first rows and reports how many it padded in
+    ``pad``. A batch's CSR is what ``csr_matrix`` makes of its rows
+    written densely, as in the JAX package: columns ascending within a
+    row, the last of a repeated column kept, zeros left out."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True, ctx=None,
+                 **kwargs):
+        super().__init__(batch_size)
+        self.ctx = ctx if ctx is not None else current_context()
+        self.data_shape = tuple(data_shape)
+        indptr, indices, values, labels = [0], [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.strip().split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    k, v = tok.split(":")
+                    indices.append(int(k))
+                    values.append(float(v))
+                indptr.append(len(indices))
+        self._values = np.asarray(values, dtype=np.float32)
+        self._indices = np.asarray(indices, dtype=np.int64)
+        self._indptr = np.asarray(indptr, dtype=np.int64)
+        self._labels = np.asarray(labels, dtype=np.float32)
+        self.num_data = len(self._labels)
+        self.num_features = int(np.prod(self.data_shape))
+        self.cursor = -batch_size
+        self.round_batch = round_batch
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self.num_features))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("label", (self.batch_size,))]
+
+    def reset(self):
+        self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def _csr_rows(self, rows):
+        """The CSR (values, columns, indptr) of `rows` of the file."""
+        starts, ends = self._indptr[rows], self._indptr[rows + 1]
+        counts = ends - starts
+        first = np.cumsum(counts) - counts
+        take = np.repeat(starts - first, counts) + np.arange(counts.sum())
+        r = np.repeat(np.arange(len(rows)), counts)
+        c, v = self._indices[take], self._values[take]
+        order = np.lexsort((np.arange(len(c)), c, r))
+        r, c, v = r[order], c[order], v[order]
+        last = np.ones(len(c), bool)
+        last[:-1] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+        keep = last & (v != 0)
+        indptr = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(np.bincount(r[keep], minlength=len(rows)), out=indptr[1:])
+        return v[keep], c[keep], indptr
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        lo = self.cursor
+        hi = min(lo + self.batch_size, self.num_data)
+        rows = np.arange(lo, hi)
+        if hi - lo < self.batch_size:  # wrap-around pad
+            rows = np.concatenate([rows,
+                                   np.arange(self.batch_size - (hi - lo))])
+        data = _sparse.csr_matrix(self._csr_rows(rows),
+                                  shape=(len(rows), self.num_features),
+                                  ctx=self.ctx)
+        return DataBatch(data=[data],
+                         label=[_nd_array(self._labels[rows], ctx=self.ctx)],
+                         pad=max(0, lo + self.batch_size - self.num_data),
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
 
 
 def ImageRecordIter(**kwargs):

@@ -18,13 +18,19 @@ states (``Updater.get_states``/``set_states``).
 Where the stored copy lives: the reference's ``"local"`` merges on a host
 copy (CommCPU); the port keeps the stored value on the device of the
 value ``init`` was given, for both types, so a store never moves data
-to the host on its own. Row-sparse pulls raise (ROADMAP Queue 1 item
-11c).
+to the host on its own.
+
+Row-sparse values (``ndarray.sparse.RowSparseNDArray``): ``init`` keeps
+one as it is (a copy), pushed ones merge by concatenating their rows
+and summing duplicate ids on the first value's device, never densified,
+and ``row_sparse_pull`` copies only the requested rows out of the
+stored value (absent rows of a row-sparse store are zeros).
 """
 from __future__ import annotations
 
 import time
 
+from .ndarray import sparse as _sparse
 from .ndarray.ndarray import NDArray
 
 __all__ = ["KVStore", "KVStoreLocal", "PullHandle", "create"]
@@ -148,9 +154,7 @@ class KVStore:
         return handle
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise NotImplementedError(
-            "row_sparse_pull needs the sparse NDArray, which the port does "
-            "not have yet (ROADMAP Queue 1 item 11c)")
+        raise NotImplementedError
 
     def set_updater(self, updater):
         """Install `updater(key, recv, stored)` applied on push
@@ -228,7 +232,18 @@ class KVStoreLocal(KVStore):
 
     def _merge(self, vlist):
         """Sum the values pushed for one key, in order, on the first
-        value's device."""
+        value's device. Row-sparse values merge by concatenating their
+        rows and summing duplicate ids, without densifying (reference
+        comm.h sparse Reduce)."""
+        if isinstance(vlist[0], _sparse.RowSparseNDArray):
+            import torch
+
+            ctx = vlist[0].context
+            moved = [v.as_in_context(ctx) for v in vlist]
+            return _sparse._aggregate_rsp(
+                torch.cat([v._data.detach() for v in moved]),
+                torch.cat([v._indices._data for v in moved]),
+                vlist[0].shape, ctx)
         merged = vlist[0]
         for v in vlist[1:]:
             merged = merged + v.as_in_context(merged.context)
@@ -263,6 +278,52 @@ class KVStoreLocal(KVStore):
         `value` itself (reference kvstore.py:pushpull)."""
         self.push(key, value, priority=priority)
         self.pull(key, out=value if out is None else out, priority=priority)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows in `row_ids` (reference kvstore.h:209
+        PullRowSparse, the bandwidth saver of big embeddings). A
+        row-sparse `out` is refilled with those rows; a dense `out` of the
+        stored shape has only those rows refreshed; any other `out` takes
+        the rows."""
+        for k, o, r in _row_pulls(key, out, row_ids):
+            stored = self._store[k]
+            r = r.as_in_context(stored.context).astype("int64", copy=False)
+            if isinstance(stored, _sparse.RowSparseNDArray):
+                # Only the requested rows, no densification.
+                pulled = _sparse._gather_rows(stored, r._data)
+            else:
+                pulled = stored.take(r)
+            _write_rows(o, pulled, r, stored.shape)
+
+
+def _row_pulls(key, out, row_ids):
+    """``(key, out, row ids)`` for each `out` of a ``row_sparse_pull``:
+    one `row_ids` NDArray serves every key, else one list per key."""
+    assert out is not None and row_ids is not None
+    keys, single = _key_list(key)
+    outs = _val_list(out, len(keys), single)
+    rows = [[row_ids]] * len(keys) if isinstance(row_ids, NDArray) \
+        else _val_list(row_ids, len(keys), single)
+    for k, olist, rlist in zip(keys, outs, rows):
+        for o, r in zip(olist, rlist * len(olist) if len(rlist) == 1
+                        else rlist):
+            yield k, o, r
+
+
+def _write_rows(o, rows, ids, shape):
+    """Write the pulled `rows` of ids `ids` (int64) of a value of `shape`
+    into `o`: a row-sparse `o` is refilled with them, a dense `o` of
+    `shape` has those rows refreshed, any other `o` takes the rows."""
+    rows = rows.as_in_context(o.context)
+    ids = ids.as_in_context(o.context)
+    if isinstance(o, _sparse.RowSparseNDArray):
+        o._set_data(rows._data)
+        o._indices = ids
+        o._full_shape = tuple(shape)
+    elif o.shape == tuple(shape):
+        o[ids] = rows
+    else:
+        o[:] = rows
 
 
 def create(name="local"):

@@ -22,8 +22,11 @@ a puller thread), ``pushpull``, ``set_optimizer`` (the port's optimizer,
 pickled), two-bit and one-bit gradient compression with per-subkey
 error feedback, ``get_dead_nodes``, ``_barrier``,
 ``save_optimizer_states``/``load_optimizer_states`` and ``close`` are
-the JAX package's. Row-sparse values and ``row_sparse_pull`` raise:
-the sparse NDArray is ROADMAP Queue 1 item 11c.
+the JAX package's. A row-sparse key (``init`` of a
+``RowSparseNDArray``) lives whole on one server whatever its size;
+a row-sparse push sends its row ids and values (``push_rsp``), which
+the server scatter-adds, and ``row_sparse_pull`` fetches only the
+requested rows (``pull_rows``).
 """
 from __future__ import annotations
 
@@ -39,19 +42,15 @@ import zlib
 import numpy as np
 
 from .base import atomic_write
-from .kvstore import KVStoreLocal, PullHandle, _key_list, _val_list
+from .kvstore import KVStoreLocal, PullHandle, _key_list, _row_pulls, \
+    _val_list, _write_rows
+from .ndarray import sparse as _sparse
+from .ndarray.ndarray import array as _nd_array
 from .kvstore_server import _client
 from .telemetry import trace as _trace
 from .telemetry import xtrace as _xtrace
 
 __all__ = ["KVStoreDist"]
-
-
-def _dense_only(value):
-    if getattr(value, "stype", "default") != "default":
-        raise NotImplementedError(
-            "a %s value in a dist kvstore needs the sparse NDArray: ROADMAP "
-            "Queue 1 item 11c" % value.stype)
 
 
 def _server_of(key, num_servers):
@@ -294,9 +293,12 @@ class KVStoreDist(KVStoreLocal):
         Dense arrays of ``size >= MXNET_KVSTORE_BIGARRAY_BOUND`` are
         sliced contiguously across *all* servers (reference kvstore_dist.h
         EncodeDefaultKey); smaller keys live whole on one hashed server.
+        A row-sparse key is never sliced, whatever its size: the server
+        needs whole rows to scatter-add and to answer ``pull_rows``.
         """
         size = int(np.prod(shape)) if shape else 1
-        if (size < self._bigarray_bound or self._num_servers == 1):
+        if (stype == "row_sparse" or size < self._bigarray_bound
+                or self._num_servers == 1):
             return [(_server_of(key, self._num_servers), key, None)]
         bounds = np.linspace(0, size, self._num_servers + 1).astype(np.int64)
         return [(i, (key, i), slice(int(bounds[i]), int(bounds[i + 1])))
@@ -338,12 +340,12 @@ class KVStoreDist(KVStoreLocal):
         vals = _val_list(value, len(keys), single)
         for k, vlist in zip(keys, vals):
             v = vlist[0]
-            _dense_only(v)
-            arr = v.asnumpy()
-            self._meta[k] = (arr.shape, arr.dtype, "default")
+            arr = v.asnumpy()       # a row-sparse value densifies
+            stype = v.stype
+            self._meta[k] = (arr.shape, arr.dtype, stype)
             if self._rank == 0:
                 flat = arr.reshape(-1)
-                for sidx, subkey, sl in self._shards(k, arr.shape):
+                for sidx, subkey, sl in self._shards(k, arr.shape, stype):
                     part = arr if sl is None else flat[sl]
                     self._call(sidx, ("init", subkey, part,
                                       _xtrace.inject()))
@@ -354,7 +356,9 @@ class KVStoreDist(KVStoreLocal):
         vals = _val_list(value, len(keys), single)
         for k, vlist in zip(keys, vals):
             assert k in self._meta, "key %r was not initialized" % (k,)
-            _dense_only(vlist[0])
+            if isinstance(vlist[0], _sparse.RowSparseNDArray):
+                self._push_row_sparse(k, vlist)
+                continue
             # Local reduce first, on the first value's device (host copy
             # only for the single merged value) — reference comm_->Reduce.
             merged = self._merge(vlist)
@@ -371,6 +375,16 @@ class KVStoreDist(KVStoreLocal):
                 else:
                     self._post(sidx, ("push", subkey, part,
                                       _xtrace.inject()))
+
+    def _push_row_sparse(self, k, vlist):
+        """Send the row ids and values of every local row-sparse value,
+        concatenated: the server scatter-adds them, so duplicates sum,
+        as the reference's row-sparse reduce does."""
+        idx = np.concatenate([v.indices.asnumpy().astype(np.int64)
+                              for v in vlist])
+        val = np.concatenate([v.data.asnumpy() for v in vlist])
+        sidx, subkey, _ = self._shards(k, self._meta[k][0], "row_sparse")[0]
+        self._post(sidx, ("push_rsp", subkey, idx, val, _xtrace.inject()))
 
     def _fetch(self, k):
         shape, dtype, stype = self._meta[k]
@@ -525,9 +539,17 @@ class KVStoreDist(KVStoreLocal):
         return handle
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise NotImplementedError(
-            "row_sparse_pull needs the sparse NDArray: ROADMAP Queue 1 "
-            "item 11c")
+        """Pull only the requested rows over the wire (reference
+        PullRowSparse, kvstore.h:209); `out` as in
+        :meth:`KVStoreLocal.row_sparse_pull`."""
+        for k, o, r in _row_pulls(key, out, row_ids):
+            shape, _, stype = self._meta[k]
+            sidx, subkey, _ = self._shards(k, shape, stype)[0]
+            r_np = r.asnumpy().astype(np.int64)
+            vals = self._call(
+                sidx, ("pull_rows", subkey, r_np, _xtrace.inject()))
+            _write_rows(o, _nd_array(vals, ctx=o.context, dtype=o.dtype),
+                        _nd_array(r_np, ctx=o.context, dtype="int64"), shape)
 
     # -- optimizer / compression ----------------------------------------------
 

@@ -33,7 +33,9 @@ The port's server applies the optimizer with the port's
 scheduler process never initialises CUDA
 (``torch.cuda.is_initialized()`` stays False there). A pushed value
 keeps its dtype on the wire and in the stored value, so a float64 key
-stays float64. Row-sparse pushes raise (ROADMAP Queue 1 item 11c). The
+stays float64. A row-sparse push (``push_rsp``: row ids and their
+values) is scatter-added into a zero gradient of the stored shape, so
+duplicate ids sum, in the pushed dtype. The
 remote profiler commands drive this process's ``profiler``, which in a
 server or scheduler traces the CPU only and so never initialises CUDA.
 
@@ -470,9 +472,13 @@ class KVStoreServer:
             return np.asarray(msg[2])
         if msg[0] == "push_compressed":
             return GradientCompression.decompress(msg[2], msg[3]).numpy()
-        raise NotImplementedError(
-            "row_sparse pushes need the sparse NDArray: ROADMAP Queue 1 "
-            "item 11c")
+        # push_rsp: (cmd, key, indices, values[, ctx]), scattered into a
+        # dense gradient of the stored shape (duplicates sum, the
+        # reference's row-sparse merge on the server).
+        values = np.asarray(msg[3])
+        grad = np.zeros(state.stored.shape, dtype=values.dtype)
+        np.add.at(grad, np.asarray(msg[2], dtype=np.int64), values)
+        return grad
 
     def _traced_apply(self, key, state, grad_np, wire_ctx):
         """Run :meth:`_apply` under the round's extracted trace context

@@ -16,10 +16,11 @@ from .utils import save, load, save_dict, load_dict
 from . import contrib  # noqa: F401
 from . import linalg  # noqa: F401
 from . import random  # noqa: F401
+from . import sparse  # noqa: F401
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "linspace", "eye", "moveaxis", "waitall", "save", "load",
-           "save_dict", "load_dict", "random", "linalg"]
+           "save_dict", "load_dict", "random", "linalg", "sparse"]
 
 _FUNC_CACHE = {}
 

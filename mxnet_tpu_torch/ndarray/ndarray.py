@@ -195,12 +195,13 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        """Only ``"default"``: the port has no sparse NDArray (ROADMAP
-        Queue 1 item 11)."""
-        if stype != "default":
-            raise NotImplementedError("storage type %r needs the sparse "
-                                      "NDArray" % (stype,))
-        return self
+        """This array as storage type `stype` (``"default"``,
+        ``"row_sparse"`` or ``"csr"``; ``sparse.cast_storage``)."""
+        if stype == "default":
+            return self
+        from . import sparse as _sp
+
+        return _sp.cast_storage(self, stype)
 
     def detach(self):
         """The same values, cut out of the autograd graph."""
@@ -214,7 +215,9 @@ class NDArray:
 
     def attach_grad(self, grad_req="write", stype=None):
         """Allocate a gradient buffer and mark this array as an autograd
-        variable (reference: attach_grad -> MXAutogradMarkVariables)."""
+        variable (reference: attach_grad -> MXAutogradMarkVariables).
+        `stype` is accepted and ignored, as in the JAX package: the
+        gradient buffer is dense."""
         from .. import autograd
 
         autograd.mark_variables([self], [zeros(self.shape, ctx=self._ctx,

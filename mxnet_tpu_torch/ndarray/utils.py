@@ -9,10 +9,11 @@ mshadow type flags, dmlc-serialized names, bfloat16 promoted to float32
 on save and 0-d arrays written as shape (1,). A file written by either
 package loads in the other, and the same dict gives the same bytes.
 
-Dense arrays only: a ``row_sparse`` or ``csr`` entry raises
-NotImplementedError until the sparse NDArrays are ported (ROADMAP
-Queue 1 item 11). The round-1 ``.npz`` container of the JAX package is
-not read.
+Row-sparse and CSR arrays are written as the reference's V2 sparse
+records (storage shape, full shape, context, type flag, each aux array's
+type and shape, then the values and the aux arrays) and load back as
+``sparse.RowSparseNDArray``/``CSRNDArray`` on `ctx`. The round-1
+``.npz`` container of the JAX package is not read.
 """
 from __future__ import annotations
 
@@ -71,19 +72,33 @@ def _type_flag(a):
 
 
 def _save_ndarray(f, arr):
-    """NDArray::Save (ndarray.cc:1538-1602), V2 layout, dense."""
-    stype = getattr(arr, "stype", "default")
-    if stype != "default":
-        raise NotImplementedError(
-            "saving a %s array: sparse NDArrays are not ported yet "
-            "(ROADMAP Queue 1 item 11)" % stype)
+    """NDArray::Save (ndarray.cc:1538-1602), V2 layout."""
+    from .sparse import CSRNDArray, RowSparseNDArray
+
+    f.write(struct.pack("<I", _NDARRAY_V2_MAGIC))
+    if isinstance(arr, (RowSparseNDArray, CSRNDArray)):
+        csr = isinstance(arr, CSRNDArray)
+        tf, data = _type_flag(_np_of(arr.data))
+        aux = [_np_of(a).astype(np.int64)
+               for a in ((arr.indptr, arr.indices) if csr
+                         else (arr.indices,))]
+        f.write(struct.pack("<i", _STYPE_CSR if csr else _STYPE_ROW_SPARSE))
+        _write_shape(f, data.shape)           # storage shape
+        _write_shape(f, arr.shape)
+        f.write(struct.pack("<ii", 1, 0))     # Context{cpu, 0}
+        f.write(struct.pack("<i", tf))
+        for a in aux:                         # kIndPtr, kIdx: int64
+            f.write(struct.pack("<i", 6))
+            _write_shape(f, a.shape)
+        for a in [data] + aux:
+            f.write(np.ascontiguousarray(a).tobytes())
+        return
     data = _np_of(arr)
     tf, data = _type_flag(data)
     # The reference cannot represent 0-d arrays (TShape ndim 0 means
     # "none", ndarray.cc:1556): scalars are written as shape (1,).
     if data.ndim == 0:
         data = data.reshape(1)
-    f.write(struct.pack("<I", _NDARRAY_V2_MAGIC))
     f.write(struct.pack("<i", _STYPE_DEFAULT))
     _write_shape(f, data.shape)
     f.write(struct.pack("<ii", 1, 0))  # Context{cpu, 0}
@@ -122,18 +137,26 @@ def _load_ndarray(f, ctx):
         return _array(_read_raw(f, shape, tf), ctx)
 
     (stype,) = struct.unpack("<i", f.read(4))
-    if stype != _STYPE_DEFAULT:
-        raise NotImplementedError(
-            "the file holds a %s array: sparse NDArrays are not ported yet "
-            "(ROADMAP Queue 1 item 11)"
-            % {_STYPE_ROW_SPARSE: "row_sparse", _STYPE_CSR: "csr"}.get(
-                stype, "stype %d" % stype))
+    nad = {_STYPE_DEFAULT: 0, _STYPE_ROW_SPARSE: 1, _STYPE_CSR: 2}[stype]
+    sshape = _read_shape(f) if nad else None
     shape = _read_shape(f)
     if not shape:
         return array(np.zeros((), np.float32), ctx=ctx)
     f.read(8)  # Context: always loaded to `ctx` here
     (tf,) = struct.unpack("<i", f.read(4))
-    return _array(_read_raw(f, shape, tf), ctx)
+    aux = []
+    for _ in range(nad):
+        (atf,) = struct.unpack("<i", f.read(4))
+        aux.append((atf, _read_shape(f)))
+    data = _read_raw(f, sshape if nad else shape, tf)
+    if not nad:
+        return _array(data, ctx)
+    from .sparse import CSRNDArray, RowSparseNDArray
+
+    aux = [_read_raw(f, s, t) for t, s in aux]
+    if stype == _STYPE_ROW_SPARSE:
+        return RowSparseNDArray(_array(data, ctx), aux[0], shape, ctx=ctx)
+    return CSRNDArray(_array(data, ctx), aux[0], aux[1], shape, ctx=ctx)
 
 
 def save(fname, data):

@@ -29,7 +29,13 @@ def _axes(a, axis, exclude):
 
 def _reduce(name, fn):
     def op(a, axis=None, keepdims=False, exclude=False):
-        return fn(a, _axes(a, axis, exclude), keepdims)
+        ax = _axes(a, axis, exclude)
+        if not ax and a.ndim:
+            # No axis left (``exclude`` of every axis of a 1-D array):
+            # numpy's reduction over no axis, where torch's empty `dim`
+            # would reduce over all of them.
+            return fn(a.unsqueeze(0), (0,), False)
+        return fn(a, ax, keepdims)
 
     register(name)(op)
 

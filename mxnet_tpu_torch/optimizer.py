@@ -14,8 +14,9 @@ an fp32 master copy when the weight is float16/bfloat16
 
 Differences from the JAX package:
 
-- row-sparse gradients raise (ROADMAP Queue 1 item 11: the port has no
-  sparse NDArray);
+- a row-sparse gradient's duplicate ids are summed on its own device
+  (``sparse._aggregate_rows``), and its rows are not padded to a power of
+  two (the JAX package pads with an out-of-range id that XLA drops);
 - SGLD draws its noise from the port's per-device ``torch.Generator``
   (``random.generator``), so its numbers differ from the JAX package's
   for the same seed, as every draw of the two packages does;
@@ -48,13 +49,78 @@ __all__ = ["Optimizer", "SGD", "Signum", "SignSGD", "NAG", "Adam", "AdaGrad",
 registry = Registry("optimizer")
 
 
-def _sparse_unsupported(*args, **kwargs):
-    raise NotImplementedError(
-        "row-sparse optimizer updates need the sparse NDArray, which the "
-        "port does not have yet (ROADMAP Queue 1 item 11)")
+def _is_rsp(grad):
+    from .ndarray.sparse import RowSparseNDArray
+
+    return isinstance(grad, RowSparseNDArray)
 
 
-_rsp_rows = _sparse_sgd_update = _sparse_adam_update = _sparse_unsupported
+def _rsp_rows(grad, device):
+    """The unique row ids of a row-sparse gradient and their summed rows,
+    as tensors on `device` (the weight's). A gradient from
+    ``sparse.dense_to_rsp_device`` (``_rows_ready``: unique, ascending)
+    is used as it is; any other has its duplicates summed, where it
+    lies."""
+    from .ndarray.sparse import _aggregate_rows
+
+    idx, vals = grad._indices._data, grad._data.detach()
+    if not getattr(grad, "_rows_ready", False):
+        idx, vals = _aggregate_rows(vals, idx)
+    return idx.to(device), vals.to(device)
+
+
+def _sparse_sgd_update(weight, grad, state, lr, momentum, wd, rescale,
+                       clip, lazy):
+    """Row-sparse SGD. Lazy (reference optimizer_op.cc sparse sgd and
+    sgd_mom with ``lazy_update=True``): only the gradient's rows move,
+    and weight decay and momentum apply to those rows alone. Standard
+    (``lazy=False``): every row decays, and the momentum of every row
+    with it; the gradient's rows also take ``-lr * grad``."""
+    w = weight._data
+    with torch.no_grad():
+        idx, g_raw = _rsp_rows(grad, w.device)
+        g_raw = g_raw * rescale
+        if clip is not None and clip > 0:   # <=0 is "no clip"
+            g_raw = g_raw.clamp(-clip, clip)
+        g = g_raw + wd * w.index_select(0, idx)
+        if state is None:
+            if lazy or wd == 0.0:
+                weight._set_data(w.index_add(0, idx, -lr * g))
+            else:
+                new_w = w * (1.0 - lr * wd)
+                weight._set_data(new_w.index_add(0, idx, -lr * g_raw))
+            return
+        m = state._data
+        if not lazy:
+            new_m = m * momentum - lr * wd * w
+            new_m = new_m.index_add(0, idx, -lr * g_raw)
+            state._set_data(new_m)
+            weight._set_data(w + new_m)
+            return
+        m_rows = m.index_select(0, idx) * momentum - lr * g
+        state._set_data(m.index_copy(0, idx, m_rows))
+        weight._set_data(w.index_add(0, idx, m_rows))
+
+
+def _sparse_adam_update(weight, grad, mean, var, lr_t, beta1, beta2,
+                        epsilon, wd, rescale, clip):
+    """Lazy row-sparse Adam (reference optimizer_op.cc adam FComputeEx):
+    rows absent from the gradient keep their weights and stale
+    moments."""
+    w = weight._data
+    with torch.no_grad():
+        idx, g = _rsp_rows(grad, w.device)
+        g = g * rescale
+        if clip is not None and clip > 0:   # <=0 is "no clip"
+            g = g.clamp(-clip, clip)
+        g = g + wd * w.index_select(0, idx)
+        m_rows = beta1 * mean._data.index_select(0, idx) + (1 - beta1) * g
+        v_rows = beta2 * var._data.index_select(0, idx) + \
+            (1 - beta2) * g * g
+        mean._set_data(mean._data.index_copy(0, idx, m_rows))
+        var._set_data(var._data.index_copy(0, idx, v_rows))
+        step = lr_t * m_rows / (torch.sqrt(v_rows) + epsilon)
+        weight._set_data(w.index_add(0, idx, -step))
 
 
 def _mp_lowp_dtypes():
@@ -186,6 +252,11 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if _is_rsp(grad):
+            _sparse_sgd_update(weight, grad, state, lr, self.momentum, wd,
+                               self.rescale_grad, self._clip(),
+                               self.lazy_update)
+            return
         if state is None:
             nd.sgd_update(weight, grad, lr=lr, wd=wd,
                           rescale_grad=self.rescale_grad,
@@ -275,6 +346,11 @@ class Adam(Optimizer):
         coef2 = 1.0 - self.beta2 ** t
         lr_t = lr * (coef2 ** 0.5) / coef1
         mean, var = state
+        if _is_rsp(grad):
+            _sparse_adam_update(weight, grad, mean, var, lr_t, self.beta1,
+                                self.beta2, self.epsilon, wd,
+                                self.rescale_grad, self._clip())
+            return
         nd.adam_update(weight, grad, mean, var, lr=lr_t, beta1=self.beta1,
                        beta2=self.beta2, epsilon=self.epsilon, wd=wd,
                        rescale_grad=self.rescale_grad,

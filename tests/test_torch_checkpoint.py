@@ -6,7 +6,8 @@
   int8; without jax's x64 mode it narrows 64-bit arrays), bfloat16
   (promoted to float32) and 0-d arrays (written as shape (1,)); the same
   dict gives byte-identical files. The port keeps float64 and int64
-  under their own flags. A sparse entry raises NotImplementedError.
+  under their own flags. Row-sparse and CSR entries load as the port's
+  sparse arrays.
 - ResNet-18 v1 (thumbnail, 32x32, 8 classes) exported by the JAX
   package runs through the port's ``SymbolBlock.imports`` and
   ``InferenceServer.from_checkpoint``; the port's export of the same
@@ -121,14 +122,19 @@ def test_bfloat16_is_saved_as_float32_by_both(tmp_path):
 
 
 def test_sparse_entry_raises(tmp_path):
+    # The JAX-written row-sparse entry loads bit for bit (the name is
+    # kept from when it raised).
     from mxnet_tpu.ndarray import sparse as jsparse
 
     dense = np.zeros((4, 3), np.float32)
     dense[1] = 1.0
+    dense[3] = -2.5
     fname = str(tmp_path / "s.params")
     jmx.nd.save(fname, {"rs": jsparse.row_sparse_array(dense)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        mx.nd.load(fname, ctx=mx.cpu())
+    got = mx.nd.load(fname, ctx=mx.cpu())["rs"]
+    assert got.stype == "row_sparse" and got.shape == (4, 3)
+    np.testing.assert_array_equal(got.indices.asnumpy(), [1, 3])
+    np.testing.assert_array_equal(got.asnumpy(), dense)
 
 
 def test_invalid_file_raises(tmp_path):

@@ -132,8 +132,15 @@ def test_flip_and_stype_and_tobytes():
         np.testing.assert_array_equal(a.flip(1).asnumpy(), X[:, ::-1])
         assert a.stype == "default"
         assert a.tobytes() == X.tobytes()
-        with pytest.raises(NotImplementedError):
-            a.tostype("csr")
+        # Sparse storage types cast through nd.sparse; an unknown one
+        # raises.
+        x2 = mx.nd.array(X.reshape(X.shape[0], -1), ctx=mx.cpu())
+        csr = x2.tostype("csr")
+        assert csr.stype == "csr" and csr.shape == x2.shape
+        np.testing.assert_array_equal(csr.asnumpy(), x2.asnumpy())
+        assert x2.tostype("row_sparse").stype == "row_sparse"
+        with pytest.raises(ValueError):
+            a.tostype("nope")
 
 
 FUNCTIONS = {

@@ -223,9 +223,22 @@ def test_prefetching_iter_delivers_what_its_stager_placed():
     assert all(isinstance(d, np.ndarray) for d in got[0][0])
 
 
-def test_libsvm_iter_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mx.io.LibSVMIter(data_libsvm="x.t", data_shape=(3,))
+def test_libsvm_iter_names_its_roadmap_item(tmp_path):
+    # tests/test_io.py's LibSVM case, bit for bit the JAX iterator's
+    # batch (the name is kept from when it raised).
+    path = str(tmp_path / "data.libsvm")
+    with open(path, "w") as f:
+        f.write("1 0:1.5 3:2.0\n0 1:1.0\n1 2:3.0\n")
+    b = next(mx.io.LibSVMIter(data_libsvm=path, data_shape=(4,),
+                              batch_size=3, ctx=CPU))
+    jb = next(jmx.io.LibSVMIter(data_libsvm=path, data_shape=(4,),
+                                batch_size=3))
+    assert b.data[0].stype == "csr" and b.data[0].context == CPU
+    np.testing.assert_array_equal(b.data[0].asnumpy()[0], [1.5, 0, 0, 2.0])
+    np.testing.assert_array_equal(b.data[0].asnumpy(),
+                                  jb.data[0].asnumpy())
+    np.testing.assert_array_equal(b.label[0].asnumpy(),
+                                  jb.label[0].asnumpy())
 
 
 def test_data_desc_and_batch_equal_jax():

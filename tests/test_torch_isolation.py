@@ -24,8 +24,12 @@ FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
 def _port_files():
+    """chip_smoke.py and every .py of the port. The build directory
+    (``mxnet_tpu_torch/_build``, which git ignores and the kernel builds
+    fill with libraries) is not walked."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
+    for d, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
+        dirs[:] = [n for n in dirs if n != "_build"]
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
 
@@ -128,7 +132,9 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.compile, mxnet_tpu_torch.compile.store, "
         "mxnet_tpu_torch.compile.distribute, "
         "mxnet_tpu_torch.tools.compile_cache, "
-        "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.ops.sequence\n"
+        "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.ops.sequence, "
+        "mxnet_tpu_torch.ndarray.sparse, "
+        "mxnet_tpu_torch.examples.train_matrix_factorization\n"
         "import importlib\n"
         "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"

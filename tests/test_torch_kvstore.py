@@ -7,8 +7,8 @@ checkpoints, on the same numpy values in both packages (sums of float32
 values in the same order: equal; optimizer updates: 8 float32 ulps of
 the largest entry). The codec: packed bytes, dequantized values and
 error-feedback residuals over three pushes, equal to the JAX numpy
-codec's bit for bit. ``dist_*`` stores and row-sparse pulls raise with
-their ROADMAP item.
+codec's bit for bit. A ``dist_*`` store served in this process answers
+push, pull and ``row_sparse_pull``; an unknown store type raises.
 """
 import json
 
@@ -177,10 +177,10 @@ def test_compression_params_are_stored_and_validated():
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async",
                                   "dist_device_sync"])
 def test_dist_stores_name_the_roadmap(name, monkeypatch, tmp_path):
-    # create() gives the parameter-server store now: a scheduler and a
-    # server of this process (threads) serve one worker, whose sparse
-    # paths name their roadmap item. tests/test_torch_kvstore_dist.py
-    # runs the stores across processes.
+    # create() gives the parameter-server store: a scheduler and a
+    # server of this process (threads) serve one worker, which pulls
+    # rows of a row-sparse key. tests/test_torch_kvstore_dist.py runs
+    # the stores across processes.
     import threading
 
     from mxnet_tpu_torch.kvstore_server import KVStoreServer, Scheduler
@@ -205,8 +205,16 @@ def test_dist_stores_name_the_roadmap(name, monkeypatch, tmp_path):
             out = mx.nd.zeros((2,))
         kv.pull("w", out=out)
         np.testing.assert_array_equal(out.asnumpy(), np.ones(2))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
-            kv.row_sparse_pull("w", out=out, row_ids=out)
+        with mx.cpu():
+            kv.init("e", mx.nd.array(np.arange(8.0).reshape(4, 2))
+                    .tostype("row_sparse"))
+            rows = mx.nd.array([3, 1], dtype="int64")
+            got = mx.nd.sparse.zeros("row_sparse", (2, 2))
+        kv.row_sparse_pull("e", out=got, row_ids=rows)
+        assert got.shape == (4, 2)
+        np.testing.assert_array_equal(got.indices.asnumpy(), [3, 1])
+        np.testing.assert_array_equal(got.data.asnumpy(),
+                                      [[6.0, 7.0], [2.0, 3.0]])
         # The server's profiler answers every command: dumps, and the
         # device trace's (a CPU trace in a server).
         assert isinstance(kv.server_profiler_command("dumps")[0], str)
@@ -224,8 +232,16 @@ def test_dist_stores_name_the_roadmap(name, monkeypatch, tmp_path):
 
 
 def test_unknown_store_and_row_sparse_pull_raise():
+    # An unknown type raises; row_sparse_pull stays abstract on the base
+    # class (as in the JAX package) and a local store answers it.
     with pytest.raises(ValueError):
         mx.kv.create("nope")
+    with pytest.raises(NotImplementedError):
+        mx.kv.KVStore().row_sparse_pull(0, out=None, row_ids=None)
     kv = mx.kv.create("local")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        kv.row_sparse_pull(0, out=None, row_ids=None)
+    with mx.cpu():
+        kv.init(0, mx.nd.array(np.arange(6.0).reshape(3, 2)))
+        out = mx.nd.zeros((3, 2))
+        kv.row_sparse_pull(0, out=out, row_ids=mx.nd.array([2],
+                                                           dtype="int64"))
+    np.testing.assert_array_equal(out.asnumpy(), [[0, 0], [0, 0], [4, 5]])

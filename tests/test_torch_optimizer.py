@@ -246,13 +246,21 @@ def test_registry_names_match_jax():
 
 
 def test_sparse_helpers_name_the_roadmap():
+    # The row-sparse helpers update the gradient's rows only, and a
+    # Parameter takes grad_stype="row_sparse" (tests/test_torch_sparse.py
+    # holds them to the JAX package).
     from mxnet_tpu_torch import optimizer
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        optimizer._sparse_sgd_update(None, None, None, 0.1, 0, 0, 1, -1,
-                                     True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        mx.gluon.Parameter("w", shape=(2, 2), grad_stype="row_sparse")
+    with mx.cpu():
+        w = mx.nd.ones((4, 2))
+        g = mx.nd.sparse.row_sparse_array(
+            (np.ones((2, 2), np.float32), np.array([1, 1])), shape=(4, 2))
+        optimizer._sparse_sgd_update(w, g, None, 0.1, 0, 0, 1, -1, True)
+    np.testing.assert_allclose(w.asnumpy(),
+                               [[1, 1], [0.8, 0.8], [1, 1], [1, 1]],
+                               rtol=1e-6)
+    p = mx.gluon.Parameter("w", shape=(2, 2), grad_stype="row_sparse")
+    assert p.grad_stype == "row_sparse"
 
 
 # -- lr schedulers --------------------------------------------------------------

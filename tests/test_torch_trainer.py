@@ -560,17 +560,31 @@ def test_jax_trainer_states_load_into_the_port(tmp_path):
 
 
 def test_multi_context_and_dist_name_the_roadmap():
-    # Several contexts and dist stores train now (tests/
+    # Several contexts and dist stores train (tests/
     # test_torch_trainer_contexts.py, tests/test_torch_kvstore_dist.py);
-    # row-sparse gradients still name their roadmap item.
-    with mx.cpu():
-        net = mx.gluon.nn.Dense(2, in_units=3)
-    net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
-    tr = mx.gluon.Trainer(net.collect_params(), "sgd")
-    assert tr._contexts == [mx.cpu(0), mx.cpu(1)]
-    net.weight._grad_stype = "row_sparse"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11c"):
+    # a row-sparse weight over two contexts takes the lazy update on the
+    # first and is copied to the second: with every gradient row nonzero
+    # and no weight decay it is plain SGD's step.
+    x = np.random.RandomState(3).randn(4, 3).astype(np.float32)
+    got = []
+    for stype in ("row_sparse", "default"):
+        with mx.cpu():
+            net = mx.gluon.nn.Dense(2, in_units=3)
+        net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
+        for c in (mx.cpu(0), mx.cpu(1)):
+            net.weight.set_data(mx.nd.array(np.ones((2, 3)), ctx=c))
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd")
+        assert tr._contexts == [mx.cpu(0), mx.cpu(1)]
+        net.weight._grad_stype = stype
+        for c in (mx.cpu(0), mx.cpu(1)):
+            with mx.autograd.record():
+                loss = net(mx.nd.array(x, ctx=c)).sum()
+            loss.backward()
         tr.step(1)
+        w = [d.asnumpy() for d in net.weight.list_data()]
+        np.testing.assert_array_equal(w[0], w[1])
+        got.append(w[0])
+    np.testing.assert_allclose(got[0], got[1], rtol=1e-6)
     net2 = _port_net(13, 7, 3)
     tr = mx.gluon.Trainer(net2.collect_params(), "sgd",
                           update_on_kvstore=True)

@@ -143,13 +143,35 @@ def run_sync(kv):
     kv.pull("comp", out=cout)
     check(cout.asnumpy(), np.full(SHAPE, RATE * nw), "2bit compressed push")
 
-    # Phase 7: row-sparse paths name their roadmap item.
-    try:
-        kv.row_sparse_pull("3", out=out, row_ids=nd([0]))
-    except NotImplementedError as exc:
-        assert "11c" in str(exc), exc
-    else:
-        raise AssertionError("row_sparse_pull did not raise")
+    # Phase 7: row-sparse push and pull of selected rows (the optimizer
+    # above runs on the servers: stored += rate * sum of the pushes).
+    rsp_shape = (10, 4)
+    kv.init("rsp", nd(np.zeros(rsp_shape)).tostype("row_sparse"))
+    rows = np.array([1, 5, 7], np.int64)
+    kv.push("rsp", mx.nd.sparse.row_sparse_array(
+        (np.full((3, rsp_shape[1]), float(my), np.float32), rows),
+        shape=rsp_shape, ctx=mx.cpu()))
+    out_r = nd(np.zeros((3, rsp_shape[1])))
+    kv.row_sparse_pull("rsp", out=out_r,
+                       row_ids=nd([0, 1, 5], dtype="int64"))
+    want = np.zeros(rsp_shape, np.float32)
+    want[rows] = RATE * total
+    check(out_r.asnumpy(), want[[0, 1, 5]], "row_sparse_pull rows")
+    # A row-sparse key larger than the big-array bound stays whole on one
+    # server, and still pushes and pulls rows.
+    big_rsp = (900, 5)          # 4500 elements > the bound of 4000
+    kv.init("rsp_big", nd(np.zeros(big_rsp)).tostype("row_sparse"))
+    assert len(kv._shards("rsp_big", big_rsp, "row_sparse")) == 1
+    rows_b = np.array([3, 870], np.int64)
+    kv.push("rsp_big", mx.nd.sparse.row_sparse_array(
+        (np.full((2, 5), float(my), np.float32), rows_b), shape=big_rsp,
+        ctx=mx.cpu()))
+    out_b = mx.nd.sparse.zeros("row_sparse", (2, 5), ctx=mx.cpu())
+    kv.row_sparse_pull("rsp_big", out=out_b,
+                       row_ids=nd(rows_b, dtype="int64"))
+    check(out_b.data.asnumpy(), np.full((2, 5), RATE * total),
+          "big rsp rows")
+    check(out_b.indices.asnumpy(), rows_b, "big rsp row ids")
 
     # Optimizer state lives on the servers: it round-trips.
     tag = os.environ["DMLC_PS_ROOT_PORT"]
