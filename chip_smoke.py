@@ -45,7 +45,8 @@ phase falls back to the host or to a plain version):
    ``attention_trained_fp32`` path).
 7. ResNet-50 v1 trained at full width: img/s at batch 32 through
    ``examples.train_imagenet.benchmark_rate`` in fp32 (TF32 off) and
-   bf16, no flash-attention kernel launched; then, for two seeds, one
+   bf16, no flash-attention kernel launched; then, for the seeds of
+   ``PARITY_SEEDS``, one
    step at batch 8 from the same weights in fp32 and float64 on the card
    and on the host: the float64 steps agree to float64 rounding, and the
    card's fp32 update is as close to the float64 one, tensor by tensor,
@@ -238,7 +239,7 @@ phase falls back to the host or to a plain version):
    gradients, its blocks staged through the host and counted; (3)
    ``-n 2 -s 1``: two workers train ResNet-50 v1 b32 (fp32, TF32 off)
    through ``gluon.Trainer(kvstore="dist_sync")`` (SGD lr 0.025, momentum
-   0.9, wd 1e-4; 2 warmup steps, 6 timed; ``DIST_RESNET``), with the
+   0.9, wd 1e-4; 2 warmup steps, 4 timed; ``DIST_RESNET``), with the
    scheduler and server on the host:
    img/s summed, push ms, pull ms, the server's apply ms and the MB
    pushed per step; the workers' pulled weights bit for bit after every
@@ -259,8 +260,9 @@ phase falls back to the host or to a plain version):
    their count; SGD lr 0.004, momentum 0.9, wd 5e-4; synthetic 300x300
    noise scenes of 1-4 boxes from the seed, no dataset): (1) train img/s
    at b32 through ``gluon.Trainer``, fp32 (TF32 off) and bf16 over fp32
-   masters, 3 warmup steps and the median of 5 windows of 8, the last
-   window's mean loss ``SSD300["loss_drop"]`` below the first's, one
+   masters, 3 warmup steps and the median of 5 windows of 8, the loss
+   against the targets frozen after the warmup ``SSD300["loss_drop"]``
+   lower at the ends of the last two windows than before the first, one
    torch.profiler line each (device ms, idle share, top kernels); (2) one
    float64 step at b2 from the same weights on card and host (relative
    L2 of loss, outputs and gradients within ``ZOO_F64_REL_L2``); (3)
@@ -414,7 +416,52 @@ phase falls back to the host or to a plain version):
    the port launches. Each reading is a JSON line with the card's name
    and power limit.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25) is driven with
+26. quantization and contrib: (1) tests/test_quantization.py's LeNet on
+   its synthetic 4-class images, fed through ``contrib.io.DataLoaderIter``
+   over a gluon ``DataLoader`` and trained with ``Module.fit`` on gpu(0)
+   (adam, 10 epochs), then ``quantize_model`` with naive calibration over
+   100 examples: fp32 accuracy above 0.7, int8 within 0.01 of it, 3 int8
+   GEMMs (``INT8_GEMMS``) a forward; (2) ResNet-50 v1 at full width
+   (224x224, 1000 classes, fp32, TF32 off, random weights from SEED and
+   phase 10's BatchNorm statistics) exported, calibrated on the card
+   naive over 128 images (4 batches of 32) and entropy over 32 (seconds;
+   54 quantized nodes: 53 convolutions and the classifier), the naive
+   run's ranges (its nodes' ``min_data``/``max_data``) held to those of
+   the host's naive ``quantize_model`` over the same 128 images
+   (``QUANT_RANGE_RTOL``); the
+   int8 checkpoint written with ``save_checkpoint`` (54 int8 weights,
+   int8 when loaded) and served through ``InferenceServer.from_checkpoint``
+   at buckets 1/8/32, plain and with ``MXNET_SUBGRAPH_BACKEND=
+   fused_bn_relu``: 54 int8 GEMMs a forward on both, K4a (and K4) 33
+   launches a partitioned forward and none plain, each K4a launch of a
+   partitioned b32 forward within phase 9's tolerance of its plain
+   version; partitioned against plain and the card's logits against the
+   host's int8 forward (float64 contractions) on 2 images within the
+   host's own int8 distance from its fp32 forward of those images, and
+   the card's top-1 the host's on them; int8 img/s at
+   b32, plain and partitioned, beside the fp32 checkpoint's; int8 against
+   fp32 logits (relative L2, top-1 agreement); (3) the same ResNet-50 as
+   a symbolic ``Module`` on gpu(0) with ``mx.sym.Custom`` of a softmax
+   registered through ``mx.operator.register`` (NDArray arithmetic, its
+   backward p - onehot(label)): ``CUSTOM_STEPS`` SGD steps, each from the
+   state it shares with the same Module built with ``SoftmaxOutput``, the
+   updates within ``CUSTOM_UPDATE_REL_L2``, every callback array on
+   gpu(0), step ms of both; ``mx.nd.Custom`` of a sigmoid under
+   ``autograd.record()`` against the closed form and its gradient; (4)
+   ``gluon.contrib`` at published widths: a three-layer ConvLSTM
+   (``CONVLSTM``: Shi et al. 2015's Moving MNIST setting, 128/64/64
+   channels, 5x5 kernels, (16, 16, 16) inputs, 10 frames, b16), 3 SGD
+   steps with finite losses and one step's gradients at b2 against the
+   host's float64 (``CONTRIB_F64_REL_L2``); ``LSTMPCell(2048, 512)``
+   (``LSTMP_NCE``: Jozefowicz et al. 2016) over T 20 at b32 under
+   ``VariationalDropoutCell`` into ``NCELoss`` over a 793 471 x 512 table
+   with 25 noise samples a position: step ms, peak bytes, one output mask
+   for every step, and one step at drop rate 0 against the host's float64
+   at a 65 536-row table; ``SparseEmbedding`` at phase 25's user count:
+   one ``gluon.Trainer`` Adam step moves exactly the batch's rows. Each
+   reading is a JSON line with the card's name and power limit.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -1426,12 +1473,12 @@ def phase_resnet_trained():
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     _reset_launches()  # the main path starts here
     mx.random.seed(SEED)
-    result = {"phase": "resnet50_v1_trained", "batch": 32, "windows": 3,
+    result = {"phase": "resnet50_v1_trained", "batch": 32, "windows": 2,
               "iters_per_window": 16}
     for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
         t0 = time.perf_counter()
         rate = train_imagenet.benchmark_rate("resnet50", 32, dtype,
-                                             device=mx.gpu(0), windows=3)
+                                             device=mx.gpu(0), windows=2)
         result[tag] = {"img_s_b32": rate,
                        "ms_per_step": 32e3 / rate,
                        "phase_s": time.perf_counter() - t0}
@@ -1461,7 +1508,7 @@ def phase_resnet_trained():
 # set from readings over these seeds on an H100 (PERF.md, Findings): per
 # tensor the card's error was at most 3.4 times the host's, over the net
 # (relative L2) at most 1.04 times.
-PARITY_SEEDS = (0, 1)
+PARITY_SEEDS = (0,)
 PARITY_BATCH = 8
 PARITY_LIMITS = {"f64_loss": 1e-9, "f64_momentum": 1e-5, "f64_aux": 1e-6,
                  "f64_weight_rtol": 2.0 ** -22, "f64_weight_step": 1e-5,
@@ -2328,7 +2375,7 @@ def phase_resnet_trainer(card_line):
     y = nd.array(ys, ctx=mx.gpu(0))
     result = {"phase": "resnet50_v1_trainer", "card": card_line,
               "batch": 32, "optimizer": ["sgd", TRAINER_OPT],
-              "windows": 3, "iters_per_window": 10}
+              "windows": 2, "iters_per_window": 10}
     _reset_launches()  # the main path starts here
     card = torch.cuda.get_device_name(0)
     for tag, dtype in (("fp32", None), ("bf16_mp", "bfloat16")):
@@ -2337,7 +2384,8 @@ def phase_resnet_trainer(card_line):
         opt = dict(TRAINER_OPT, multi_precision=dtype is not None)
         trainer = gluon.Trainer(net.collect_params(), "sgd", opt)
         t0 = time.perf_counter()
-        rate, loss = _trainer_img_s(net, trainer, x, y, dtype is not None)
+        rate, loss = _trainer_img_s(net, trainer, x, y, dtype is not None,
+                                    windows=2)
         entry = {"img_s_b32": rate, "ms_per_step": 32e3 / rate,
                  "loss": loss, "phase_s": time.perf_counter() - t0,
                  "fused_plans": trainer._applier.num_compiles}
@@ -2740,7 +2788,7 @@ def phase_input_pipeline(card_line, synthetic):
             s = train_imagenet.build_train_step("resnet50", dtype=dtype,
                                                 device=gpu)
             with _pipeline(rec, gpu, True, random_aug=True) as pipe:
-                fed[tag] = _fed_rate(s, pipe)
+                fed[tag] = _fed_rate(s, pipe, windows=2)
             fed[tag]["synthetic_img_s"] = synthetic[tag]["img_s_b32"]
             log("phase 13: fed", tag, fed[tag])
         mx.random.seed(SEED)
@@ -2748,7 +2796,8 @@ def phase_input_pipeline(card_line, synthetic):
                                             device=gpu)
         loader, batches = _loader_batches(rec, workers=4)
         try:
-            fed["bf16_dataloader_4_workers"] = _fed_rate(s, batches)
+            fed["bf16_dataloader_4_workers"] = _fed_rate(s, batches,
+                                                         windows=2)
         finally:
             loader.close()
         # The DataLoader records no data::wait spans: its wait is the
@@ -3180,10 +3229,10 @@ def phase_checkpoint(card_line):
         import logging
         logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
             logging.ERROR)
-        # 3 + 3 x 10 = 33 steps a configuration: the every-10 one ends
-        # at step 1 + 3 x 33 = 100, a multiple of 10, so its newest
+        # 3 + 2 x 10 = 23 steps a configuration: the every-10 one ends
+        # at step 1 + 3 x 23 = 70, a multiple of 10, so its newest
         # commit is its last step.
-        rates = [_ckpt_rate(step, x, y, tmpdir, every)
+        rates = [_ckpt_rate(step, x, y, tmpdir, every, windows=2)
                  for every in (0, 1, 10, 0)]
         logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
             logging.NOTSET)
@@ -5075,9 +5124,9 @@ ZOO_TRAIN = (("inception-v3", 32, (3, 299, 299)),
              ("alexnet", 512, (3, 224, 224)),
              ("alexnet", 32, (3, 224, 224)))
 ZOO_SERVED = (("vgg16", 224), ("inceptionv3", 299))
-# Timed windows of each training row (benchmark_rate's median): 3, not
+# Timed windows of each training row (benchmark_rate's median): 2, not
 # its default 5, to keep the whole script's time as phases are added.
-ZOO_WINDOWS = 3
+ZOO_WINDOWS = 2
 # The reference's published V100 img/s (BASELINE.md:17, 28, 35): a
 # reading beside ours, not a target.
 ZOO_REFERENCE_V100 = {"inceptionv3_train_b32": 214.48,
@@ -5577,7 +5626,7 @@ DIST_ATTN = {"units": 1024, "heads": 16, "batch": 8, "seq": 2048, "steps": 5,
 # Goyal et al.; 2 x 32 = 64). At phase 11's lr 0.1 this random-label batch
 # of 64 diverged; `_dist_plain_witness` trains the same batch from the
 # same weights in plain PyTorch at that rate and at `WITNESS_RATES`.
-DIST_RESNET = {"batch": 32, "image": 224, "warmup": 2, "steps": 6,
+DIST_RESNET = {"batch": 32, "image": 224, "warmup": 2, "steps": 4,
                "module_batches": 2, "opt": {"learning_rate": 0.025, "momentum": 0.9, "wd": 1e-4}}
 # The plain witness's rates: part 3's, half and twice it (a worker's
 # gradient counted twice or half as often would follow one of those),
@@ -6216,12 +6265,14 @@ SSD300 = {
     "opt": {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4},
     "warmup": 3, "windows": 5, "iters": 8, "profile_iters": 3,
     "f64_batch": 2, "dist_warmup": 2, "dist_steps": 3,
-    # Part 1 holds the mean loss of the last timed window this far below
-    # the first's. A step's loss is not one objective (mining takes the
-    # negatives scored worst just then) and climbs for ~5 steps after the
-    # warmup and where mining switches sets (probe_ssd_loss); over 5
-    # windows of 8 the last fell 16%, 10% and 21% below the first (fp32,
-    # fp32 with cuDNN deterministic, bf16; one H100 at 700 W).
+    # Part 1 holds the loss against the targets frozen after the warmup,
+    # at the ends of the last two timed windows (their mean), this far
+    # below its value before the windows. A step's own loss is not one
+    # objective (mining takes the negatives scored worst just then), and
+    # both it and the frozen one rise 15-20% for ~5-8 steps where momentum
+    # overshoots (probe_ssd_loss): one window's mean rose 5% above the
+    # first's in a run that learned. Over 40 steps the frozen loss fell
+    # 25-33% in five runs, fp32 and bf16 (one H100 at 700 W).
     "loss_drop": 0.05,
     # Part 4: rank 0's losses against the in-process witness training the
     # two workers' batches on their mean gradient (relative).
@@ -6473,7 +6524,10 @@ def _ssd_rates(mx, card_line):
         for _ in range(c["warmup"] - 1):
             loss = step()
         first = float(loss.asnumpy().ravel()[0])
-        rates, means = [], []
+        # One objective across the windows: the targets (matches and the
+        # mined negatives) of the weights after the warmup, held fixed.
+        frozen_start, frozen = _ssd_eval(mx, net, x, y, bf16=dtype is not None)
+        rates, means, frozen_ends = [], [], []
         for _ in range(c["windows"]):
             t0 = time.perf_counter()
             held = [step().detach() for _ in range(c["iters"])]
@@ -6482,11 +6536,16 @@ def _ssd_rates(mx, card_line):
                          (time.perf_counter() - t0))
             means.append(float(np.mean([l.asnumpy().ravel()[0]
                                         for l in held])))
+            frozen_ends.append(_ssd_eval(mx, net, x, y, frozen,
+                                         dtype is not None)[0])
         check(np.all(np.isfinite(means)) and last < initial and
-              means[-1] <= (1 - c["loss_drop"]) * means[0],
-              "SSD300 %s: the loss did not fall by %g over the timed "
-              "windows: first step %r, window means %s"
-              % (tag, c["loss_drop"], initial, means))
+              np.mean(frozen_ends[-2:]) <= (1 - c["loss_drop"]) *
+              frozen_start,
+              "SSD300 %s: the loss against the targets frozen after the "
+              "warmup did not fall by %g over the timed windows: %r, then "
+              "after each window %s; first step %r, window means %s"
+              % (tag, c["loss_drop"], frozen_start, frozen_ends, initial,
+                 means))
         prof = _profile("ssd300 train %s b%d" % (tag, c["batch"]), step,
                         iters=c["profile_iters"])
         out[tag] = {"img_s": sorted(rates)[len(rates) // 2],
@@ -6496,6 +6555,7 @@ def _ssd_rates(mx, card_line):
                     "loss_first_step": initial,
                     "loss_after_warmup": first, "loss_last": last,
                     "loss_window_means": means,
+                    "loss_frozen_targets": [frozen_start] + frozen_ends,
                     "device_ms": prof["device_ms"],
                     "idle_share": prof["idle_share"],
                     "top_kernels": prof["top_kernels"][:3],
@@ -7258,7 +7318,7 @@ PLACE_RESNET = {"batch": 32, "tp_steps": 3, "global_batch": 64,
 # token about twice, so the nll stays at ln(10 000) (also over 90 steps
 # and at rates 0.3-1000 on the host). The example's own check (the nll
 # falls over `steps`) runs at the same widths over its vocabulary of 20.
-PLACE_LM = {"steps": 30, "width_steps": 10, "learn_vocab": 20}
+PLACE_LM = {"steps": 30, "width_steps": 5, "learn_vocab": 20}
 # group2ctx's two-group symbol against one device (tests/test_executor_
 # groups.py's tolerances: forward rtol, gradients rtol, atol).
 PLACE_GROUPS_TOL = (1e-5, 1e-4, 1e-5)
@@ -7768,7 +7828,7 @@ def phase_placement(card_line):
 
 
 # Phase 22: telemetry and profiling on the training paths.
-TELE_COST_STEPS = 10        # steps a configuration of part 3 is timed over
+TELE_COST_STEPS = 6         # steps a configuration of part 3 is timed over
 TELE_COST_ORDER = ("off", "default", "device_spans",
                    "device_spans", "default", "off")
 TELE_XPROF_S = 0.5          # seconds of the /debug/xprof capture (part 1)
@@ -7796,6 +7856,70 @@ def _http(url, method="GET"):
 def _trace_events(path):
     with open(path) as f:
         return json.load(f)["traceEvents"]
+
+
+def probe_xprof_abort(card_line, captures=30, park=True):
+    """Phase 22 part 1's ``/debug/xprof`` capture (TELE_XPROF_S) from
+    another thread while this one trains ResNet-50 v1 b32 bf16 through
+    TrainStep, `captures` times in one process, with no check: one line a
+    capture, its status, the steps it spanned and its kernel records.
+    ``park=False`` replaces ``profiler._quiesced`` by a no-op, so the
+    session starts and stops while this thread launches. A native abort
+    ends the process; its exit code tells. Not run by main():
+    ``python3 -c "import chip_smoke as c; c.probe_xprof_abort(
+    c.phase_device(), park=False)"``."""
+    import contextlib
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler, telemetry
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    if not park:
+        profiler._quiesced = contextlib.nullcontext
+    tmp = tempfile.mkdtemp(prefix="xprof_probe_")
+    step = train_imagenet.build_train_step(TELE_RESNET["network"], 1000,
+                                           "bfloat16", mx.gpu(0))
+    plane = telemetry.HealthPlane(xprof_dir=os.path.join(tmp, "xprof"))
+    server = telemetry.start_http_server(0, health=plane)
+    base = "http://%s:%d" % server.server_address[:2]
+    rng = np.random.RandomState(SEED)
+    b, side = TELE_RESNET["batch"], TELE_RESNET["image"]
+    x = torch.from_numpy(rng.rand(b, 3, side, side).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, b).astype(np.float32)).cuda()
+    for _ in range(3):
+        float(step(x, y))
+    t_start = time.perf_counter()
+    try:
+        for k in range(captures):
+            reply = []
+            t = threading.Thread(target=lambda: reply.append(_http(
+                base + "/debug/xprof?seconds=%g" % TELE_XPROF_S, "POST")))
+            t.start()
+            i = 0
+            while t.is_alive() or i < 5:
+                i += 1
+                float(step(x, y))
+            t.join(timeout=120)
+            kernels = None
+            if reply and reply[0][0] == 200:
+                path = os.path.join(json.loads(reply[0][1])["dir"],
+                                    "trace.json")
+                kernels = sum(1 for e in _trace_events(path)
+                              if e.get("cat") == "kernel")
+                shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+            log(json.dumps({"probe": "xprof_abort", "park": park,
+                            "capture": k, "status": reply and reply[0][0],
+                            "steps": i, "kernel_records": kernels,
+                            "process_s": time.perf_counter() - t_start,
+                            "card": card_line}))
+    finally:
+        server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _lost_kernel_records(events):
@@ -9601,6 +9725,929 @@ def phase_sparse(card_line):
     return {"sparse": launches}
 
 
+# -- slice 22: int8 calibration, custom operators, gluon.contrib ---------------
+
+# tests/test_quantization.py's LeNet acceptance.
+QUANT_LENET = {"batch": 50, "epochs": 10, "lr": 0.01, "calib": 100,
+               "min_fp32": 0.7, "max_drop": 0.01}
+# ResNet-50 v1 quantized at full width, served at phase 10's buckets.
+QUANT_RESNET = {"batch": 32, "item": (3, 224, 224), "naive_examples": 128,
+                "entropy_examples": 32, "buckets": (1, 8, 32),
+                "host_images": 2}
+QUANT_NODES = 54              # 53 convolutions and the classifier
+QUANT_K4A_PER_FORWARD = 33    # phase 10's fragments
+# Naive ranges over the same images, card against host: the same fp32
+# forward with other summation orders (cuDNN against the host's
+# convolutions). An activation's error is a few u times the depth it
+# went through (about 50 layers, u = 2^-24 each, grown by BatchNorm's
+# scales): ~1e-5 of the layer's largest magnitude; the limit leaves 10x.
+QUANT_RANGE_RTOL = 1e-4
+# int8 logits, card against host and partitioned against plain: the
+# contractions are exact on both sides (int32 on the card, float64 on
+# the host), so they differ only where an fp32 rounding before a
+# requantization (cuDNN's BatchNorm, K4a's or the host's; about half the
+# BatchNorm outputs differ by an ulp) moves an activation across a
+# rounding edge. One such flip changes the next accumulators by whole
+# weights, which moves more activations across edges downstream: on the
+# host the first flip of a partitioned against a plain int8 forward of
+# this net (64 px, b8) came at the 17th quantized layer, and 139 204 of
+# 6 979 584 int8 activations differed by the classifier, by up to 7
+# steps. Two int8 evaluations then differ by int8 noise, not fp32
+# rounding: each is an int8 approximation of the fp32 net, so the limit
+# is int8's own distance from fp32 (relative L2), taken on the host from
+# its int8 and fp32 forwards of the same images, so that nothing the
+# card computes sets its own limit. A card fault that scales the logits
+# by k reads about sqrt((k-1)^2 + flips^2) and fails once |k-1| nears
+# the limit; the card's top-1 must also be the host's. K4a itself is
+# held per fragment to its tolerance against its plain version on the
+# same inputs (K4A_RTOL, K4A_ATOL_REL, phase 9's).
+K4A_RTOL, K4A_ATOL_REL = 1e-5, 1e-6
+CUSTOM_STEPS = 3
+# The custom softmax head against SoftmaxOutput on the same logits: the
+# probabilities and the gradient p - onehot from two float32 softmaxes
+# (exp, the sum, a division), a few roundings apart: 4u relative L2
+# (u = 2^-24) ~ 2.4e-7; limit 1e-6.
+CUSTOM_HEAD_REL_L2 = 1e-6
+# The Modules' updates from one state: the forward is the same
+# computation (cuDNN deterministic) and the backward is linear in the
+# head's gradient, but it passes 53 train-mode BatchNorms, whose
+# gradient subtracts each channel's mean and projection of its input
+# gradient: the cancellation grows a relative difference. On an H100
+# the updates differed by 8.2e-6 to 9.7e-6 (PERF.md, Findings), ~40x
+# the head's 4u. Limit 1e-4 (10x).
+CUSTOM_UPDATE_REL_L2 = 1e-4
+# Shi et al. 2015, Moving MNIST: 64x64 frames as 4x4 patches give
+# (16, 16, 16) inputs; three ConvLSTM layers of 128, 64, 64 channels,
+# 5x5 kernels, 10 input frames, batch 16. Parity at batch 2.
+CONVLSTM = {"batch": 16, "frames": 10, "input": (16, 16, 16),
+            "hidden": (128, 64, 64), "kernel": 5, "lr": 0.01, "steps": 3,
+            "parity_batch": 2}
+# Jozefowicz et al. 2016, LSTM-2048-512 over the One Billion Word
+# vocabulary (793 471 words), NCE with 25 noise samples a position (the
+# top of the upstream nce-loss scripts' 5-25), T 20, batch 32; tied
+# input embedding. Parity at a 65 536-row table, batch 8, drop rate 0.
+LSTMP_NCE = {"batch": 32, "T": 20, "hidden": 2048, "proj": 512,
+             "vocab": 793471, "noise": 25, "drop": 0.2, "lr": 0.1,
+             "steps": 3, "parity_vocab": 65536, "parity_batch": 8}
+# One step's gradients, card fp32 (TF32 off) against host float64,
+# relative L2 over every tensor: each K-term dot product carries about
+# sqrt(K) u (K up to 3 200 for a 5x5x128 convolution, 2 048 for the
+# LSTMP's; u = 2^-24), ~3.4e-6, and smooth gates (sigmoid, tanh; no
+# kinks) pass it on without growth: limit 1e-5.
+CONTRIB_F64_REL_L2 = 1e-5
+
+
+def _lenet_data():
+    """tests/test_quantization.py's synthetic 4-class images (class k
+    puts a bright patch in quadrant k)."""
+    rng = np.random.RandomState(42)
+    n = 400
+    X = (rng.rand(n, 1, 12, 12) * 0.3).astype(np.float32)
+    y = rng.randint(0, 4, n).astype(np.float32)
+    quads = [(slice(0, 6), slice(0, 6)), (slice(0, 6), slice(6, 12)),
+             (slice(6, 12), slice(0, 6)), (slice(6, 12), slice(6, 12))]
+    for i in range(n):
+        r, c = quads[int(y[i])]
+        X[i, 0, r, c] += 1.0
+    return X, y
+
+
+def _lenet_sym(mx):
+    data = mx.sym.var("data")
+    c1 = mx.sym.Convolution(data, kernel=(3, 3), num_filter=8, name="c1")
+    a1 = mx.sym.Activation(c1, act_type="relu")
+    p1 = mx.sym.Pooling(a1, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    f1 = mx.sym.FullyConnected(p1, num_hidden=32, name="f1")
+    a2 = mx.sym.Activation(f1, act_type="relu")
+    f2 = mx.sym.FullyConnected(a2, num_hidden=4, name="f2")
+    return mx.sym.SoftmaxOutput(f2, name="softmax")
+
+
+def _quant_lenet(mx):
+    """Part 1: the LeNet trained with Module.fit on the card from a
+    gluon DataLoader through contrib.io.DataLoaderIter, quantized with
+    naive calibration over 100 examples, scored int8."""
+    from mxnet_tpu_torch.contrib.io import DataLoaderIter
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+
+    c = QUANT_LENET
+    X, y = _lenet_data()
+    gdata = mx.gluon.data
+
+    def loader_iter(lo, hi, shuffle=False):
+        with mx.gpu(0):
+            return DataLoaderIter(gdata.DataLoader(
+                gdata.ArrayDataset(X[lo:hi], y[lo:hi]),
+                batch_size=c["batch"], shuffle=shuffle))
+
+    mx.random.seed(SEED)
+    np.random.seed(SEED)
+    train = loader_iter(0, 300, True)
+    with mx.gpu(0):
+        on_card = train.next().data[0].context == mx.gpu(0)
+        train.reset()
+    mod = mx.mod.Module(_lenet_sym(mx), context=mx.gpu(0),
+                        label_names=["softmax_label"])
+    t0 = time.perf_counter()
+    with mx.gpu(0):
+        mod.fit(train, num_epoch=c["epochs"], optimizer="adam",
+                optimizer_params={"learning_rate": c["lr"]})
+    fit_s = time.perf_counter() - t0
+    test = loader_iter(300, 400)
+    with mx.gpu(0):
+        fp32 = mod.score(test, mx.metric.Accuracy())[0][1]
+    arg, aux = mod.get_params()
+    t0 = time.perf_counter()
+    with mx.gpu(0):
+        qsym, qargs, qaux = quantize_model(
+            mod.symbol, arg, aux, calib_mode="naive",
+            calib_data=loader_iter(0, c["calib"]),
+            num_calib_examples=c["calib"])
+    calib_s = time.perf_counter() - t0
+    qmod = mx.mod.Module(qsym, context=mx.gpu(0),
+                         label_names=["softmax_label"])
+    with mx.gpu(0):
+        test.reset()
+        qmod.bind(data_shapes=test.provide_data,
+                  label_shapes=test.provide_label, for_training=False)
+        qmod.set_params(qargs, qaux, allow_missing=False)
+        test.reset()
+        g0, f0 = qo.INT8_GEMMS, qmod._execs[0].num_forwards
+        q = qmod.score(test, mx.metric.Accuracy())[0][1]
+    forwards = qmod._execs[0].num_forwards - f0
+    quantized = sorted(n for n in qargs if n.endswith("_quantized_weight"))
+    return {"fp32_accuracy": fp32, "int8_accuracy": q,
+            "quantized_weights": quantized,
+            "int8_dtypes": sorted({str(qargs[n].dtype) for n in quantized}),
+            "int8_gemms": qo.INT8_GEMMS - g0, "forwards": forwards,
+            "batches_on_card": bool(on_card), "fit_s": fit_s,
+            "calib_s": calib_s}
+
+
+def _quant_export(mx, tmp):
+    """ResNet-50 v1 (random weights from SEED, BatchNorm statistics
+    randomized as phase 10's) exported; (prefix, symbol, arg, aux)."""
+    import os
+
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    net.hybridize()
+    with torch.no_grad(), autograd.pause():
+        net(nd.zeros((1,) + QUANT_RESNET["item"], ctx=mx.gpu(0)))
+    _randomize_bn(net, SEED + 6)
+    with torch.no_grad(), autograd.pause():
+        net(nd.zeros((1,) + QUANT_RESNET["item"], ctx=mx.gpu(0)))
+    prefix = os.path.join(tmp, "resnet50_v1")
+    net.export(prefix)
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0, ctx=mx.gpu(0))
+    return prefix, sym, arg, aux
+
+
+def _quant_nodes(qsym):
+    return [n._name for n in qsym._topo()
+            if n._op in ("_contrib_quantized_conv",
+                         "_contrib_quantized_fully_connected")]
+
+
+def _quant_calibrate(mx, sym, arg, aux, images):
+    """Naive over naive_examples and entropy over entropy_examples, on
+    the card (seconds, quantized nodes); the naive run's ranges (its
+    nodes' min_data/max_data) against the host's naive quantize_model
+    over the same examples, with the worst share of QUANT_RANGE_RTOL."""
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    c = QUANT_RESNET
+    b = c["batch"]
+    out = {}
+    qsyms = {}
+    for mode, n, ctx in (("naive", c["naive_examples"], mx.gpu(0)),
+                         ("entropy", c["entropy_examples"], mx.gpu(0)),
+                         ("naive_host", c["naive_examples"], mx.cpu())):
+        it = mx.io.NDArrayIter(images[:n], batch_size=b, ctx=ctx)
+        t0 = time.perf_counter()
+        qsym, qargs, qaux = q.quantize_model(
+            sym, arg, aux, ctx=ctx, calib_mode=mode.split("_")[0],
+            calib_data=it, num_calib_examples=n, label_names=())
+        torch.cuda.synchronize()
+        out[mode] = {"seconds": time.perf_counter() - t0, "examples": n,
+                     "quantized_nodes": len(_quant_nodes(qsym))}
+        qsyms[mode] = (qsym, qargs, qaux)
+
+    def ranges(qsym):
+        names = set(_quant_nodes(qsym))
+        return {n._name: (float(n._attrs["min_data"]),
+                          float(n._attrs["max_data"]))
+                for n in qsym._topo() if n._name in names}
+
+    card, host = ranges(qsyms["naive"][0]), ranges(qsyms["naive_host"][0])
+    share = 0.0 if sorted(card) == sorted(host) else math.inf
+    for name, (lo, hi) in host.items():
+        amax = max(abs(lo), abs(hi))
+        clo, chi = card.get(name, (math.inf, math.inf))
+        share = max(share, max(abs(clo - lo), abs(chi - hi))
+                    / (QUANT_RANGE_RTOL * amax))
+    out["range_layers"] = len(host)
+    out["range_worst_share"] = share
+    return out, qsyms["naive"]
+
+
+def _quant_serve(mx, qprefix, fp32_prefix, images, card_line):
+    """The int8 checkpoint served plain and partitioned (and the fp32
+    one, for its rate): launches read just before and just after each
+    served path; outputs against each other and the host's int8
+    forward; img/s at b32."""
+    import os
+
+    from mxnet_tpu_torch import nd, rtc, serving
+    from mxnet_tpu_torch.examples import fused_bn_relu as fb
+    from mxnet_tpu_torch.ops import quantization_ops as qo
+
+    c = QUANT_RESNET
+    item, buckets = c["item"], c["buckets"]
+    b = c["batch"]
+    reqs = [images[:1], images[:5], images[:b]]
+    res, servers, reads = {}, {}, {}
+    try:
+        for tag in ("plain", "partitioned"):
+            if tag == "partitioned":
+                os.environ["MXNET_SUBGRAPH_BACKEND"] = fb.BACKEND
+            _reset_all_launches()   # the served path starts here
+            g0 = qo.INT8_GEMMS
+            try:
+                srv = serving.InferenceServer.from_checkpoint(
+                    qprefix, 0, item_shape=item, buckets=buckets,
+                    max_delay_ms=5, ctx=mx.gpu(0))
+            finally:
+                os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+            servers[tag] = srv
+            with ThreadPoolExecutor(len(reqs)) as pool:
+                futs = list(pool.map(srv.submit, reqs))
+            outs = [f.result(timeout=300) for f in futs]
+            reads["quantization_served_" + tag] = _all_launches()
+            gemms = qo.INT8_GEMMS - g0
+            forwards = sum(ex.num_forwards
+                           for ex in srv._model._executors.values())
+            res[tag] = {"forwards": forwards, "int8_gemms": gemms,
+                        "bn_relu_launches": fb.LAUNCHES,
+                        "rtc_launches": rtc.LAUNCHES,
+                        "compile_count": srv.compile_count,
+                        "shapes_ok": [tuple(o.shape) for o in outs]
+                        == [(1, 1000), (5, 1000), (b, 1000)],
+                        "finite": all(bool(torch.isfinite(o.data_).all())
+                                      for o in outs),
+                        "b32": outs[2].data_.float().cpu().numpy()}
+        # K4a per fragment, on one partitioned forward of a b32 batch
+        # (after the path's reading; the b32 bucket's Executor, bound
+        # partitioned): each launch against its plain version on the
+        # same card input.
+        fragments = []
+        launch = fb.bn_relu
+
+        def held(x, gamma, beta, mean, var, eps=1e-3, fix_gamma=True,
+                 axis=1):
+            got = launch(x, gamma, beta, mean, var, eps, fix_gamma, axis)
+            want = fb.bn_relu_reference(x, gamma, beta, mean, var, eps,
+                                        fix_gamma, axis)
+            fragments.append(max_violation(
+                got, want, K4A_RTOL,
+                K4A_ATOL_REL * float(want.abs().max())))
+            return got
+
+        fb.bn_relu = held
+        try:
+            servers["partitioned"]._model(nd.array(images[:b],
+                                                   ctx=mx.gpu(0)))
+        finally:
+            fb.bn_relu = launch
+        res["k4a_fragments"] = {"held": len(fragments),
+                                "worst_violation": max(fragments)}
+        fp32 = serving.InferenceServer.from_checkpoint(
+            fp32_prefix, 0, item_shape=item, buckets=(b,), max_delay_ms=5,
+            ctx=mx.gpu(0))
+        servers["fp32"] = fp32
+        want = fp32.predict(images[:b]).asnumpy()
+        plain, part = res["plain"]["b32"], res["partitioned"]["b32"]
+        scale = float(np.abs(plain).max())
+
+        def rel_l2(a, b):
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+        res["partitioned_vs_plain"] = {
+            "rel_l2": rel_l2(part, plain),
+            "max_abs_over_max_logit": float(np.abs(part - plain).max())
+            / scale}
+        # The host's int8 and fp32 forwards of the same checkpoints on
+        # host_images images: the card's int8 logits are held against
+        # the first, within the host's own int8 distance from the second.
+        h = c["host_images"]
+        host = {}
+        t0 = time.perf_counter()
+        for tag, pre in (("int8", qprefix), ("fp32", fp32_prefix)):
+            sym, arg, aux = mx.model.load_checkpoint(pre, 0, ctx=mx.cpu())
+            args = dict(arg, data=nd.array(images[:h], ctx=mx.cpu()))
+            host[tag] = sym.bind(mx.cpu(), args, aux_states=aux,
+                                 grad_req="null").forward()[0].asnumpy()
+        res["host_int8_vs_fp32"] = {
+            "images": h, "rel_l2": rel_l2(host["int8"], host["fp32"]),
+            "top1_agreement": float(np.mean(host["int8"].argmax(1)
+                                            == host["fp32"].argmax(1))),
+            "host_s": time.perf_counter() - t0}
+        res["card_vs_host"] = {
+            "images": h, "rel_l2": rel_l2(plain[:h], host["int8"]),
+            "max_abs_over_max_logit": float(np.abs(plain[:h]
+                                                   - host["int8"]).max())
+            / float(np.abs(host["int8"]).max()),
+            "top1_agreement": float(np.mean(plain[:h].argmax(1)
+                                            == host["int8"].argmax(1)))}
+        res["int8_vs_fp32"] = {
+            "rel_l2": rel_l2(plain, want),
+            "top1_agreement": float(np.mean(plain.argmax(1)
+                                            == want.argmax(1)))}
+        batch = nd.array(images[:b], ctx=mx.gpu(0))
+        for tag, srv in servers.items():
+            ms = time_ms(lambda: srv._model(batch).wait_to_read(), iters=10)
+            res.setdefault(tag, {}).update({"forward_ms_b32": ms,
+                                            "img_s_b32": b * 1e3 / ms})
+        for tag in ("plain", "partitioned"):
+            res[tag].pop("b32")
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+    log(json.dumps({"phase": "quantization", "reading": "served",
+                    "card": card_line, "served": res}))
+    return res, reads
+
+
+def _register_chip_ops(mx, seen):
+    """The custom softmax (upstream example/numpy-ops/custom_softmax.py,
+    in NDArray arithmetic; its backward p - onehot(label)) and the
+    sigmoid of tests/test_contrib.py; every in_data context recorded in
+    `seen`."""
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.extend(a.context for a in in_data)
+            x = in_data[0]
+            e = mx.nd.broadcast_sub(x, x.max(axis=1, keepdims=True)).exp()
+            self.assign(out_data[0], req[0],
+                        mx.nd.broadcast_div(e, e.sum(axis=1, keepdims=True)))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            seen.extend(a.context for a in in_data)
+            y = out_data[0]
+            self.assign(in_grad[0], req[0],
+                        y - mx.nd.one_hot(in_data[1], y.shape[1]))
+
+    @mx.operator.register("chip_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            seen.append(ctx)
+            return Softmax()
+
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.extend(a.context for a in in_data)
+            y = 1.0 / (1.0 + (-in_data[0]).exp())
+            self.assign(out_data[0], req[0], y)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] * y * (1 - y))
+
+    @mx.operator.register("chip_sigmoid")
+    class SigmoidProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            seen.append(ctx)
+            return Sigmoid()
+
+
+def _custom_module(mx, fp32_prefix, images):
+    """Part 3: ResNet-50 v1 b32 as a Module on gpu(0) with the custom
+    softmax head, CUSTOM_STEPS SGD steps, each from the state it shares
+    with the same Module built with SoftmaxOutput; then mx.nd.Custom
+    imperatively on the card."""
+    from mxnet_tpu_torch import autograd
+
+    seen = []
+    _register_chip_ops(mx, seen)
+    logits = mx.sym.load(fp32_prefix + "-symbol.json")
+    label = mx.sym.var("softmax_label")
+    heads = {"custom": mx.sym.Custom(logits, label, op_type="chip_softmax",
+                                     name="softmax"),
+             "softmax_output": mx.sym.SoftmaxOutput(logits, label,
+                                                    name="softmax")}
+    arg, aux = mx.model.load_params(fp32_prefix, 0, ctx=mx.gpu(0))
+    b = QUANT_RESNET["batch"]
+    rng = np.random.default_rng(SEED + 27)
+    mods = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, sym in heads.items():
+            m = mx.mod.Module(sym, context=mx.gpu(0),
+                              label_names=["softmax_label"])
+            m.bind(data_shapes=[("data", (b,) + QUANT_RESNET["item"])],
+                   label_shapes=[("softmax_label", (b,))])
+            m.init_params(arg_params=arg, aux_params=aux)
+            m.init_optimizer(optimizer="sgd",
+                             optimizer_params={"learning_rate": 0.1})
+            mods[tag] = m
+        errs, ms = [], {"custom": [], "softmax_output": []}
+        for step in range(CUSTOM_STEPS):
+            a0, x0 = mods["custom"].get_params()
+            mods["softmax_output"].set_params(a0, x0)
+            w0 = {k: v.asnumpy() for k, v in a0.items()}
+            batch = mx.io.DataBatch(
+                [mx.nd.array(images[step * b % len(images):][:b],
+                             ctx=mx.gpu(0))],
+                [mx.nd.array(rng.integers(0, 1000, b).astype(np.float32),
+                             ctx=mx.gpu(0))])
+            upd = {}
+            for tag, m in mods.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.forward_backward(batch)
+                m.update()
+                torch.cuda.synchronize()
+                ms[tag].append((time.perf_counter() - t0) * 1e3)
+                upd[tag] = {k: v.asnumpy() - w0[k]
+                            for k, v in m.get_params()[0].items()}
+            errs.append(_rel_l2(upd["custom"], upd["softmax_output"]))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    module_seen = list(seen)
+    logits = mx.nd.array(rng.standard_normal((b, 1000)).astype(np.float32)
+                         * 3, ctx=mx.gpu(0))
+    label = mx.nd.array(rng.integers(0, 1000, b).astype(np.float32),
+                        ctx=mx.gpu(0))
+    heads = {}
+    for tag in ("custom", "softmax_output"):
+        x = logits.copy()
+        x.attach_grad()
+        with autograd.record():
+            y = mx.nd.Custom(x, label, op_type="chip_softmax") \
+                if tag == "custom" else mx.nd.SoftmaxOutput(x, label)
+        y.backward()
+        heads[tag] = {"prob": y.asnumpy(), "grad": x.grad.asnumpy()}
+    head = {k: _rel_l2({"": heads["custom"][k]},
+                       {"": heads["softmax_output"][k]})
+            for k in ("prob", "grad")}
+    seen.clear()
+    x_np = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+    x = mx.nd.array(x_np, ctx=mx.gpu(0))
+    x.attach_grad()
+    with autograd.record():
+        y = mx.nd.Custom(x, op_type="chip_sigmoid")
+        loss = y.sum()
+    loss.backward()
+    s = 1 / (1 + np.exp(-x_np.astype(np.float64)))
+    sig = {"forward_rel": float(np.abs(y.asnumpy() - s).max()
+                                / np.abs(s).max()),
+           "grad_rel": float(np.abs(x.grad.asnumpy() - s * (1 - s)).max()
+                             / np.abs(s * (1 - s)).max()),
+           "on_card": bool(seen) and all(c == mx.gpu(0) for c in seen)}
+    return {"update_rel_l2": errs, "limit": CUSTOM_UPDATE_REL_L2,
+            "head_rel_l2": head, "head_limit": CUSTOM_HEAD_REL_L2,
+            "step_ms": ms, "callbacks": len(module_seen),
+            "callbacks_on_card": bool(module_seen)
+            and all(c == mx.gpu(0) for c in module_seen),
+            "imperative_sigmoid": sig}
+
+
+def _convlstm_net(mx, ctx):
+    """Three stacked Conv2DLSTMCells and a 1x1 conv to the next frame's
+    channels, on `ctx`, Xavier from SEED."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+
+    c = CONVLSTM
+    k = c["kernel"]
+
+    class Net(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.stack = gluon.rnn.SequentialRNNCell()
+                cin = c["input"][0]
+                for h in c["hidden"]:
+                    self.stack.add(crnn.Conv2DLSTMCell(
+                        (cin,) + c["input"][1:], h, k, k, i2h_pad=k // 2))
+                    cin = h
+                self.head = gluon.nn.Conv2D(c["input"][0], 1,
+                                            in_channels=cin)
+
+        def forward(self, seq):
+            n, t = seq.shape[:2]
+            begin = self.stack.begin_state(batch_size=n, ctx=seq.context,
+                                           dtype=seq.dtype)
+            out, _ = self.stack.unroll(t, seq, begin_state=begin,
+                                       layout="NTC", merge_outputs=True)
+            return self.head(out.reshape((n * t,) + out.shape[2:]))
+
+    mx.random.seed(SEED)
+    net = Net()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _loss_step(net, args, target, trainer=None, batch=None):
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        loss = ((net(*args) - target) ** 2).mean()
+    loss.backward()
+    if trainer is not None:
+        trainer.step(batch)
+    return float(loss.asnumpy())
+
+
+def _grads_of(net):
+    from mxnet_tpu_torch.gluon.utils import relative_names
+
+    params = net.collect_params()
+    rel = relative_names(list(params.keys()), net.prefix)
+    return {rel[n]: p.grad().asnumpy().astype(np.float64)
+            for n, p in params.items() if p.grad_req != "null"}
+
+
+def _f64_twin(mx, net, make):
+    """`make(ctx)` on the host with `net`'s weights, then cast to
+    float64 (a float64 array set through nd.array would narrow)."""
+    from mxnet_tpu_torch.gluon.utils import params_from_numpy
+
+    host = make(mx.cpu())
+    params_from_numpy(host, {n: p.data().asnumpy() for n, p in
+                             net.collect_params().items()},
+                      prefix=net.prefix)
+    host.cast("float64")
+    return host
+
+
+def _convlstm(mx):
+    """Part 4a: the ConvLSTM trained CONVLSTM["steps"] SGD steps on the
+    card; one step's gradients at parity_batch against the host's
+    float64."""
+    from mxnet_tpu_torch import gluon
+
+    c = CONVLSTM
+    rng = np.random.default_rng(SEED + 28)
+    shape = (c["batch"], c["frames"]) + c["input"]
+    seq = rng.random(shape, dtype=np.float32)
+    target = rng.random((c["batch"] * c["frames"],) + c["input"],
+                        dtype=np.float32)
+    net = _convlstm_net(mx, mx.gpu(0))
+    p = c["parity_batch"]
+    xs = mx.nd.array(seq[:p], ctx=mx.gpu(0))
+    ts = mx.nd.array(target[:p * c["frames"]], ctx=mx.gpu(0))
+    host = _f64_twin(mx, net, lambda ctx: _convlstm_net(mx, ctx))
+    _loss_step(net, (xs,), ts)
+    card = _grads_of(net)
+    t0 = time.perf_counter()
+    _loss_step(host, (mx.nd.array(seq[:p], ctx=mx.cpu(), dtype="float64"),),
+               mx.nd.array(target[:p * c["frames"]], ctx=mx.cpu(),
+                           dtype="float64"))
+    host_s = time.perf_counter() - t0
+    want = _grads_of(host)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": c["lr"]})
+    x = mx.nd.array(seq, ctx=mx.gpu(0))
+    t = mx.nd.array(target, ctx=mx.gpu(0))
+    losses, ms = [], []
+    for _ in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_loss_step(net, (x,), t, trainer, c["batch"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": ms, "f64_rel_l2": _rel_l2(card,
+                                                                    want),
+            "f64_worst_tensor": max(_rel_max(card, want).values()),
+            "host_f64_s": host_s, "limit": CONTRIB_F64_REL_L2}
+
+
+def _lstmp_nce_net(mx, ctx, vocab, drop):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib import loss as closs
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+
+    c = LSTMP_NCE
+
+    class Net(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.cell = crnn.VariationalDropoutCell(
+                    crnn.LSTMPCell(c["hidden"], c["proj"],
+                                   input_size=c["proj"]),
+                    drop_inputs=drop, drop_states=drop, drop_outputs=drop)
+                self.weight = self.params.get(
+                    "weight", shape=(vocab, c["proj"]),
+                    init=mx.init.Normal(0.05))
+                self.bias = self.params.get("bias", shape=(vocab,),
+                                            init="zeros")
+                self.nce = closs.NCELoss(c["noise"], vocab)
+
+        def hidden(self, tokens):
+            w = self.weight.data(tokens.context)
+            emb = mx.nd.take(w, tokens)             # tied input embedding
+            begin = self.cell.begin_state(batch_size=tokens.shape[0],
+                                          ctx=emb.context, dtype=emb.dtype)
+            out, _ = self.cell.unroll(tokens.shape[1], emb,
+                                      begin_state=begin, layout="NTC",
+                                      merge_outputs=True)
+            return out
+
+        def forward(self, tokens, labels, noise):
+            out = self.hidden(tokens)
+            ctx = tokens.context
+            return self.nce(out.reshape((-1, c["proj"])),
+                            self.weight.data(ctx), self.bias.data(ctx),
+                            labels.reshape((-1,)),
+                            noise.reshape((-1, c["noise"]))).mean()
+
+    mx.random.seed(SEED)
+    net = Net()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _nce_batch(mx, rng, vocab, batch, ctx, dtype="float32"):
+    """(tokens, next tokens, noise ids) of one LM batch, as arrays."""
+    c = LSTMP_NCE
+    tok = rng.integers(0, vocab, (batch, c["T"] + 1))
+    noise = rng.integers(0, vocab, (batch, c["T"], c["noise"]))
+    return tuple(mx.nd.array(a.astype(np.float64), ctx=ctx, dtype=dtype)
+                 for a in (tok[:, :-1], tok[:, 1:], noise))
+
+
+def _lstmp_nce(mx):
+    """Part 4b: LSTM-2048-512 under VariationalDropoutCell into NCELoss
+    over the One Billion Word table on the card (step ms, peak bytes,
+    one mask across time); one step at drop rate 0 against the host's
+    float64 at parity_vocab rows."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    c = LSTMP_NCE
+    rng = np.random.default_rng(SEED + 29)
+    out = {}
+    net = _lstmp_nce_net(mx, mx.gpu(0), c["parity_vocab"], 0.0)
+    host = _f64_twin(mx, net, lambda ctx: _lstmp_nce_net(
+        mx, ctx, c["parity_vocab"], 0.0))
+    batch = _nce_batch(mx, rng, c["parity_vocab"], c["parity_batch"],
+                      mx.cpu(), "float64")
+    with autograd.record():
+        net(*[a.astype("float32").as_in_context(mx.gpu(0))
+              for a in batch]).backward()
+    card = _grads_of(net)
+    t0 = time.perf_counter()
+    with autograd.record():
+        host(*batch).backward()
+    out["host_f64_s"] = time.perf_counter() - t0
+    want = _grads_of(host)
+    out["f64_rel_l2"] = _rel_l2(card, want)
+    out["f64_worst_tensor"] = max(_rel_max(card, want).values())
+    out["limit"] = CONTRIB_F64_REL_L2
+    del net, host
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    net = _lstmp_nce_net(mx, mx.gpu(0), c["vocab"], c["drop"])
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": c["lr"]})
+    losses, ms = [], []
+    for _ in range(c["steps"]):
+        toks, labels, noise = _nce_batch(mx, rng, c["vocab"], c["batch"],
+                                        mx.gpu(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = net(toks, labels, noise)
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asnumpy()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out.update({"losses": losses, "step_ms": ms,
+                "table_bytes": c["vocab"] * c["proj"] * 4,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base})
+    with autograd.record():
+        h = net.hidden(toks).asnumpy()             # (N, T, 512)
+    zero = h == 0
+    state_mask = net.cell._state_mask
+    out["masks"] = {
+        "output_zero_share": float(zero.mean()),
+        "output_same_every_step": bool((zero == zero[:, :1]).all()),
+        "state_mask_values": sorted(set(np.unique(
+            state_mask.asnumpy()).round(6).tolist()))
+        if state_mask is not None else None}
+    return out
+
+
+def _sparse_embedding(mx):
+    """Part 4c: SparseEmbedding at phase 25's user count: one
+    gluon.Trainer Adam step moves exactly the batch's rows, and their
+    moments; every other row bit for bit."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.contrib import nn as cnn
+
+    args = _mf_args()
+    data = _mf_data(args)
+    mx.random.seed(SEED)
+    net = cnn.SparseEmbedding(args.num_users, args.rank)
+    net.initialize(mx.init.Normal(0.1), ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": args.lr})
+    u, _, r = _mf_batches(mx, data, args, mx.gpu(0), 1)[0]
+    before = _mf_state(net)
+    with autograd.record():
+        loss = ((net(u).sum(axis=1) - r) ** 2).sum()
+    loss.backward()
+    trainer.step(u.shape[0])
+    after, moments = _mf_state(net), _mf_moments(net, trainer)
+    rows = np.unique(data[0][:args.batch_size].astype(np.int64))
+    (name, w0), = before.items()
+    changed = np.nonzero((after[name] != w0).any(axis=1))[0]
+    rest = np.setdiff1d(np.arange(w0.shape[0]), rows)
+    return {"rows": int(rows.size), "changed": int(changed.size),
+            "changed_are_batch": bool(np.array_equal(changed, rows)),
+            "moments_are_batch": all(
+                np.array_equal(np.nonzero((m != 0).any(axis=1))[0], rows)
+                for m in moments[name]),
+            "rest_bit_for_bit": bool(np.array_equal(after[name][rest],
+                                                    w0[rest])),
+            "grad_stype": net.weight.grad_stype}
+
+
+def phase_quantization_contrib(card_line):
+    """Phase 26 (see the module docstring). Returns its launch counts by
+    path."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    read = {"phase": "quantization", "card": card_line}
+    reads = {}
+
+    def reading(name, value):
+        read[name] = value
+        log(json.dumps({"phase": "quantization", "reading": name,
+                        "card": card_line, name: value}))
+
+    _reset_all_launches()   # the LeNet path starts here
+    reading("lenet", _quant_lenet(mx))
+    reads["quantization_lenet"] = _all_launches()   # read just after
+    tmp = tempfile.mkdtemp(prefix="quant-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "mxnet_tpu_torch",
+        "_build"))
+    try:
+        prefix, sym, arg, aux = _quant_export(mx, tmp)
+        rng = np.random.default_rng(SEED + 26)
+        images = rng.random((QUANT_RESNET["naive_examples"],)
+                            + QUANT_RESNET["item"], dtype=np.float32)
+        _reset_all_launches()   # the calibration path starts here
+        calib, (qsym, qargs, qaux) = _quant_calibrate(mx, sym, arg, aux,
+                                                      images)
+        reads["quantization_calibrate"] = _all_launches()
+        reading("calibration", calib)
+        qprefix = os.path.join(tmp, "resnet50_v1_int8")
+        mx.model.save_checkpoint(qprefix, 0, qsym, qargs, qaux)
+        with open(qprefix + "-0000.params", "rb") as f:
+            blob = f.read()
+        int8_names = sorted(n for n in qargs if str(qargs[n].dtype) == "int8")
+        reading("checkpoint", {
+            "int8_params": len(int8_names),
+            "params_bytes": len(blob),
+            "int8_loaded": all(
+                str(v.dtype) == "int8" for k, v in
+                mx.model.load_checkpoint(qprefix, 0, ctx=mx.cpu())[1].items()
+                if k in int8_names)})
+        served, served_reads = _quant_serve(mx, qprefix, prefix, images,
+                                            card_line)
+        read["served"] = served
+        reads.update(served_reads)
+        _reset_all_launches()   # the custom-op path starts here
+        reading("custom_op", _custom_module(mx, prefix, images))
+        reads["custom_op_module"] = _all_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _reset_all_launches()   # the gluon.contrib path starts here
+    reading("convlstm", _convlstm(mx))
+    reading("lstmp_nce", _lstmp_nce(mx))
+    reading("sparse_embedding", _sparse_embedding(mx))
+    reads["gluon_contrib"] = _all_launches()
+    read["launches"] = reads
+    read["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(read, default=str))
+
+    le = read["lenet"]
+    check(le["fp32_accuracy"] > QUANT_LENET["min_fp32"],
+          "quantization: LeNet fp32 accuracy %.3f" % le["fp32_accuracy"])
+    check(abs(le["fp32_accuracy"] - le["int8_accuracy"])
+          <= QUANT_LENET["max_drop"] + 1e-9,
+          "quantization: LeNet int8 %.3f against fp32 %.3f"
+          % (le["int8_accuracy"], le["fp32_accuracy"]))
+    check(le["int8_dtypes"] == ["int8"] and len(le["quantized_weights"]) == 3
+          and le["int8_gemms"] == 3 * le["forwards"] > 0
+          and le["batches_on_card"], "quantization: LeNet %s" % le)
+    ca = read["calibration"]
+    check(all(ca[m]["quantized_nodes"] == QUANT_NODES
+              for m in ("naive", "entropy", "naive_host"))
+          and ca["range_layers"] == QUANT_NODES,
+          "quantization: quantized nodes %s" % ca)
+    check(ca["range_worst_share"] <= 1.0, "quantization: card ranges "
+          "against the host's at %.3f of their limit" %
+          ca["range_worst_share"])
+    ck = read["checkpoint"]
+    check(ck["int8_params"] == QUANT_NODES and ck["int8_loaded"],
+          "quantization: the int8 checkpoint %s" % ck)
+    for tag in ("plain", "partitioned"):
+        s = served[tag]
+        per = QUANT_K4A_PER_FORWARD if tag == "partitioned" else 0
+        check(s["shapes_ok"] and s["finite"]
+              and s["compile_count"] == len(QUANT_RESNET["buckets"]),
+              "quantization: served %s %s" % (tag, s))
+        check(s["int8_gemms"] == QUANT_NODES * s["forwards"] > 0,
+              "quantization: %s ran %d int8 GEMMs in %d forwards"
+              % (tag, s["int8_gemms"], s["forwards"]))
+        check(s["bn_relu_launches"] == s["rtc_launches"]
+              == per * s["forwards"], "quantization: %s K4a/K4 launches "
+              "%d/%d in %d forwards" % (tag, s["bn_relu_launches"],
+                                        s["rtc_launches"], s["forwards"]))
+    frags = served["k4a_fragments"]
+    check(frags["held"] == QUANT_K4A_PER_FORWARD
+          and frags["worst_violation"] <= 0, "quantization: K4a against "
+          "its plain version in the int8 forward: %s" % frags)
+    limit = served["host_int8_vs_fp32"]["rel_l2"]
+    for key in ("partitioned_vs_plain", "card_vs_host"):
+        check(served[key]["rel_l2"] <= limit,
+              "quantization: %s at relative L2 %g, above the host's int8 "
+              "distance from fp32, %g" % (key, served[key]["rel_l2"], limit))
+    check(served["card_vs_host"]["top1_agreement"] == 1.0,
+          "quantization: card int8 top-1 against the host's %s"
+          % served["card_vs_host"])
+    co = read["custom_op"]
+    check(max(co["head_rel_l2"].values()) <= CUSTOM_HEAD_REL_L2,
+          "custom op: the head against SoftmaxOutput's %s (limit %g)"
+          % (co["head_rel_l2"], CUSTOM_HEAD_REL_L2))
+    check(max(co["update_rel_l2"]) <= CUSTOM_UPDATE_REL_L2,
+          "custom op: updates against SoftmaxOutput's %s (limit %g)"
+          % (co["update_rel_l2"], CUSTOM_UPDATE_REL_L2))
+    check(co["callbacks_on_card"] and co["callbacks"] > 0,
+          "custom op: a callback saw an array off the card")
+    sg = co["imperative_sigmoid"]
+    check(sg["forward_rel"] <= 1e-5 and sg["grad_rel"] <= 1e-5
+          and sg["on_card"], "custom op: imperative sigmoid %s" % sg)
+    for name in ("convlstm", "lstmp_nce"):
+        r = read[name]
+        check(all(math.isfinite(v) for v in r["losses"]),
+              "%s: a loss is not finite: %s" % (name, r["losses"]))
+        check(r["f64_rel_l2"] <= CONTRIB_F64_REL_L2,
+              "%s: card fp32 against host float64 at relative L2 %g "
+              "(limit %g)" % (name, r["f64_rel_l2"], CONTRIB_F64_REL_L2))
+    mk = read["lstmp_nce"]["masks"]
+    keep = 1.0 / (1.0 - LSTMP_NCE["drop"])
+    check(mk["output_same_every_step"]
+          and 0.5 * LSTMP_NCE["drop"] < mk["output_zero_share"]
+          < 1.5 * LSTMP_NCE["drop"]
+          and mk["state_mask_values"] == [0.0, round(keep, 6)],
+          "lstmp: dropout masks %s" % mk)
+    se = read["sparse_embedding"]
+    check(se["changed_are_batch"] and se["moments_are_batch"]
+          and se["rest_bit_for_bit"] and se["grad_stype"] == "row_sparse",
+          "SparseEmbedding: %s" % se)
+    for path, launches in reads.items():
+        expect = {"bn_relu": 0, "rtc": 0}
+        if path == "quantization_served_partitioned":
+            n = QUANT_K4A_PER_FORWARD * served["partitioned"]["forwards"]
+            expect = {"bn_relu": n, "rtc": n}
+        check(launches["bn_relu"] == expect["bn_relu"]
+              and launches["rtc"] == expect["rtc"]
+              and launches["k1_k2_k3"] == (0, 0, 0)
+              and launches["scale_add"] == launches["relu"] == 0
+              and not any(launches["d1_d2"]),
+              "quantization: launches on %s: %s" % (path, launches))
+    return reads
+
+
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
                "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd,
                "place2": _place_part_tp2, "place4": _place_part_dp2tp2,
@@ -9656,6 +10703,7 @@ def main():
     gateway_reads = _timed(phase_gateway, card_line)
     cc_reads = _timed(phase_compile_cache, card_line)
     sparse_reads = _timed(phase_sparse, card_line)
+    quant_reads = _timed(phase_quantization_contrib, card_line)
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -9709,7 +10757,8 @@ def main():
     # (gateway_checkpoint_partitioned). Phase 24's three children each
     # launch K1 once, K4a (and K4's rtc launch) 33 times and D1 once
     # (CC_LAUNCHES, every count read). Phase 25's sparse path launches
-    # none of them.
+    # none of them. Phase 26's six paths launch K4a (and K4's rtc launch
+    # under it) on the partitioned int8 server only, 33 times a forward.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
@@ -9718,7 +10767,7 @@ def main():
                        ("model_zoo", zoo["launches"]),
                        *placement.items(), *telemetry_reads.items(),
                        *gateway_reads.items(), *cc_reads.items(),
-                       *sparse_reads.items()):
+                       *sparse_reads.items(), *quant_reads.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

@@ -70,6 +70,8 @@ _LAZY = {
     "module": ".module",
     "mod": ".module",
     "rnn": ".rnn",
+    "operator": ".operator_custom",
+    "contrib": ".contrib",
 }
 
 

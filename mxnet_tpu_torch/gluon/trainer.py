@@ -61,6 +61,7 @@ import torch
 
 from .. import env as _env
 from .. import optimizer as opt
+from .. import profiler as _profiler
 from ..checkpoint import guard as _guard
 from ..ndarray import sparse as _sp
 from ..ops import optimizer_ops as _oo
@@ -320,6 +321,7 @@ class Trainer:
 
         ``ignore_stale_grad`` is accepted and, as in the JAX package,
         changes nothing: no gradient freshness is tracked."""
+        _profiler.step_boundary()
         ctx = _xtrace.current()
         with _xtrace.activate(ctx if ctx is not None
                               else _xtrace.new_root()):

@@ -46,11 +46,15 @@ class Operator:
     train_aware : dispatch passes ``training=`` from the autograd mode.
     needs_rng : dispatch passes ``generator=``, the op's device's.
     creates : dispatch passes ``device=``, where the result is made.
+    infer_shape : ``fn(attrs, input shapes, None where unknown) ->
+        (input shapes, output shapes)``; ``Symbol.infer_shape`` takes it
+        instead of running ``fn`` on ``meta`` tensors (``Custom``'s asks
+        the user's ``CustomOpProp`` and never runs the user's forward).
     """
 
     def __init__(self, name: str, fn: Callable, *, differentiable=True,
                  num_inputs=None, aliases=(), train_aware=False,
-                 needs_rng=False, creates=False):
+                 needs_rng=False, creates=False, infer_shape=None):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
@@ -59,20 +63,22 @@ class Operator:
         self.train_aware = train_aware
         self.needs_rng = needs_rng
         self.creates = creates
+        self.infer_shape = infer_shape
 
     def __repr__(self):
         return "Operator(%s)" % self.name
 
 
 def register(name, *, differentiable=True, num_inputs=None, aliases=(),
-             train_aware=False, needs_rng=False, creates=False):
+             train_aware=False, needs_rng=False, creates=False,
+             infer_shape=None):
     """Decorator: register a torch FCompute under `name`."""
 
     def deco(fn):
         op = Operator(name, fn, differentiable=differentiable,
                       num_inputs=num_inputs, aliases=aliases,
                       train_aware=train_aware, needs_rng=needs_rng,
-                      creates=creates)
+                      creates=creates, infer_shape=infer_shape)
         OP_REGISTRY[name] = op
         for a in aliases:
             OP_REGISTRY[a] = op

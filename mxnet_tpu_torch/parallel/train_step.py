@@ -137,6 +137,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from .. import random as _random
 from ..checkpoint import guard as _guard
 from ..telemetry import attribution as _attr
@@ -672,6 +673,7 @@ class TrainStep:
         global batch, its block along ``dp`` (``mesh.local_slice`` gives
         the rows; ``dist.local_slice`` on a dp-only mesh), and the loss
         is the global batch's, the same on every rank."""
+        _profiler.step_boundary()
         t_start = time.perf_counter()
         if self._hp_component is None:
             self._hp_component = _hp.unique_component("train_step")

@@ -32,6 +32,15 @@ Two layers, as in the JAX package:
    :func:`_primer_launches` one-element kernels on the current card and
    synchronises, and only then opens the window (``start_trace``): the
    lost records are the primer's, outside the window.
+   A session that starts or stops on one thread while another trains
+   (a health plane's ``/debug/xprof``) waits for that thread to park at
+   its next step boundary (:func:`step_boundary`, which ``TrainStep``
+   and ``gluon.Trainer`` call), and the training thread resumes when
+   the start (or the stop) is done. Without that wait such captures
+   aborted the process now and then (glibc's double free, or a
+   segmentation fault, in a native thread of torch.profiler 2.11 on an
+   H100): ``chip_smoke.probe_xprof_abort`` aborted after 21 and after 15
+   captures beside a ResNet-50 TrainStep, and ran 40 and 100 with it.
 2. Framework level — a view over ``telemetry.REGISTRY``: while the
    profiler runs, the op registry's dispatch path records each
    operator's host dispatch time into the ``mx_dispatch_seconds``
@@ -51,6 +60,7 @@ statistics only. User-defined Counters are live process-global gauges
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -134,6 +144,65 @@ def _primer_launches():
                                * (time.monotonic() - _T_IMPORT))
 
 
+# Step boundaries (module docstring). A thread trains while it reaches
+# its next boundary within twice its last step (plus _PARK_SLACK_S); a
+# session's start or stop on another thread waits that long at most, and
+# never more than _PARK_S, for it to park; a parked thread waits for the
+# transition at most _PARKED_MAX_S.
+_PARK_S = 5.0
+_PARK_SLACK_S = 0.1
+_PARKED_MAX_S = 60.0
+_boundaries = {}            # thread ident -> (time of its last, step before)
+_park_request = None        # (parked, resume) Events while one waits
+
+
+def step_boundary():
+    """Mark a step boundary of the calling thread: parks it while
+    another thread starts or stops a profiler session."""
+    me, now = threading.get_ident(), time.monotonic()
+    last = _boundaries.get(me)
+    _boundaries[me] = (now, None if last is None else now - last[0])
+    request = _park_request
+    if request is not None:
+        request[0].set()
+        request[1].wait(_PARKED_MAX_S)
+
+
+def _park_deadline():
+    """When every other thread that trains should have reached its next
+    step boundary (at most _PARK_S from now); None where none trains."""
+    me, now = threading.get_ident(), time.monotonic()
+    alive = {t.ident for t in threading.enumerate()}
+    due = []
+    for ident, (seen, step) in list(_boundaries.items()):
+        if ident not in alive:
+            _boundaries.pop(ident, None)
+        elif ident != me and step is not None and \
+                now < seen + 2 * step + _PARK_SLACK_S:
+            due.append(seen + 2 * step + _PARK_SLACK_S)
+    return min(max(due), now + _PARK_S) if due else None
+
+
+@contextlib.contextmanager
+def _quiesced():
+    """Run the body while another thread that trains is parked at a step
+    boundary; at once where none trains, and after its deadline where
+    none parks by then."""
+    global _park_request
+    deadline = _park_deadline()
+    if deadline is None:
+        yield
+        return
+    parked, resume = threading.Event(), threading.Event()
+    _park_request = (parked, resume)
+    try:
+        parked.wait(max(0.0, deadline - time.monotonic()))
+        yield
+    finally:
+        _park_request = None
+        resume.set()
+
+
 def _prime(activities):
     """Launch the primer on the current card and wait for it, where the
     session traces CUDA and this process has initialised it."""
@@ -164,9 +233,10 @@ class _Session:
 
     def start(self):
         try:
-            self.prof.prepare_trace()       # CUDA activity on
-            _prime(self.activities)
-            self.prof.start_trace()         # the window opens
+            with _quiesced():
+                self.prof.prepare_trace()       # CUDA activity on
+                _prime(self.activities)
+                self.prof.start_trace()         # the window opens
         except BaseException:
             _session_slot.release()
             raise
@@ -177,7 +247,8 @@ class _Session:
             return
         self.active = False
         try:
-            self.prof.stop()
+            with _quiesced():
+                self.prof.stop()
         finally:
             _session_slot.release()
 

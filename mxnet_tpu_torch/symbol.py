@@ -436,6 +436,24 @@ class Symbol:
                     shapes[("out", node._uid, oi)] = tuple(
                         sub[("out", o._uid, o._out_index or 0)])
                 continue
+            # An op's own shape rule (registry.Operator.infer_shape)
+            # before a run on meta tensors.
+            shape_rule = getattr(_registry.OP_REGISTRY.get(op_name),
+                                 "infer_shape", None)
+            if shape_rule is not None:
+                try:
+                    got_in, got_out = shape_rule(
+                        node._clean_attrs(),
+                        [shape_of(i) for i in node._inputs])
+                except Exception as e:  # the user's rule failed
+                    raise MXNetError("infer_shape failed at %s: %s"
+                                     % (node._name or op_name, e)) from None
+                for inp, s in zip(node._inputs, got_in):
+                    if inp._op is None and inp._name and s is not None:
+                        shapes.setdefault(inp._name, tuple(s))
+                for i, s in enumerate(got_out):
+                    shapes[("out", node._uid, i)] = tuple(s)
+                continue
             in_shapes = []
             for inp in node._inputs:
                 s = shape_of(inp)

@@ -134,7 +134,18 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.tools.compile_cache, "
         "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.ops.sequence, "
         "mxnet_tpu_torch.ndarray.sparse, "
-        "mxnet_tpu_torch.examples.train_matrix_factorization\n"
+        "mxnet_tpu_torch.examples.train_matrix_factorization, "
+        "mxnet_tpu_torch.contrib, mxnet_tpu_torch.contrib.io, "
+        "mxnet_tpu_torch.contrib.quantization, "
+        "mxnet_tpu_torch.operator_custom, mxnet_tpu_torch.gluon.contrib, "
+        "mxnet_tpu_torch.gluon.contrib.nn, "
+        "mxnet_tpu_torch.gluon.contrib.nn.basic_layers, "
+        "mxnet_tpu_torch.gluon.contrib.rnn, "
+        "mxnet_tpu_torch.gluon.contrib.rnn.rnn_cell, "
+        "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell, "
+        "mxnet_tpu_torch.gluon.contrib.data, "
+        "mxnet_tpu_torch.gluon.contrib.data.sampler, "
+        "mxnet_tpu_torch.gluon.contrib.loss\n"
         "import importlib\n"
         "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"
@@ -169,6 +180,14 @@ def test_default_context_is_gpu0_and_tpu_aliases_gpu():
     # Optimizer states with no context to follow go to the default one.
     lambda: mx.optimizer.get_updater(mx.optimizer.create("sgd")).set_states(
         __import__("pickle").dumps({0: np.ones((2,), np.float32)})),
+    # int8 calibration binds on the current context when given none.
+    lambda: mx.contrib.quantization.quantize_model(
+        mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2, name="fc"),
+        {"fc_weight": mx.nd.ones((2, 3), ctx=mx.cpu()),
+         "fc_bias": mx.nd.zeros((2,), ctx=mx.cpu())}, {},
+        calib_data=mx.io.NDArrayIter(np.ones((2, 3), np.float32),
+                                     batch_size=2, ctx=mx.cpu())),
+    lambda: mx.gluon.contrib.nn.SparseEmbedding(10, 4).initialize(),
 ])
 def test_no_ctx_without_cuda_raises(make):
     if torch.cuda.is_available():

@@ -486,9 +486,15 @@ def test_every_name_of_the_five_files_is_registered():
     assert not missing, missing
     # The other files' names came with later slices (ctc_loss and its 3
     # aliases; detection's 33; serving's 6 quantization names; linalg's
-    # 27 and the contrib tail's 12): the port's registry holds every name
-    # of the JAX package's, and none besides.
-    assert len(jreg.OP_REGISTRY) == len(treg.OP_REGISTRY) == 397
+    # 27 and the contrib tail's 12; `Custom`, which each package
+    # registers when its mx.operator is imported, imported here in both
+    # so the count does not hang on which test files ran before): the
+    # port's registry holds every name of the JAX package's, and none
+    # besides.
+    import mxnet_tpu.operator_custom  # noqa: F401
+    import mxnet_tpu_torch.operator_custom  # noqa: F401
+
+    assert len(jreg.OP_REGISTRY) == len(treg.OP_REGISTRY) == 398
     assert set(jreg.OP_REGISTRY) == set(treg.OP_REGISTRY)
 
 

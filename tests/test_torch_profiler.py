@@ -182,3 +182,76 @@ def test_profile_trace_loss_finds_the_launches_without_kernel_records():
     assert ptl._lost(events[:0]) == (0, 0, None, None)
     if not torch.cuda.is_available():
         assert ptl.main(["--session", "torch"]) == 2
+
+
+def test_a_session_beside_a_training_thread_starts_and_stops_while_it_parks(
+        monkeypatch):
+    # A health plane's /debug/xprof starts and stops its session on its
+    # own thread while another trains: each transition runs while the
+    # training thread waits at its step boundary.
+    import threading
+    import time
+
+    prof_mod = mx.profiler
+    state = {"in_step": False, "steps": 0}
+    done = threading.Event()
+
+    def train():
+        while not done.is_set():
+            prof_mod.step_boundary()
+            state["in_step"] = True
+            time.sleep(0.005)           # the step's launches
+            state["in_step"] = False
+            state["steps"] += 1
+
+    worker = threading.Thread(target=train, daemon=True)
+    worker.start()
+    try:
+        while state["steps"] < 3:
+            time.sleep(0.001)
+        seen = {}
+        session = prof_mod.open_session()
+        assert session is not None
+        for name in ("prepare_trace", "start_trace", "stop"):
+            real = getattr(session.prof, name)
+
+            def wrapped(real=real, name=name):
+                samples = []
+                for _ in range(5):
+                    samples.append(state["in_step"])
+                    time.sleep(0.004)
+                seen[name] = samples
+                return real()
+            monkeypatch.setattr(session.prof, name, wrapped)
+        with session:
+            steps = state["steps"]
+            time.sleep(0.05)
+            assert state["steps"] > steps       # it trains in the window
+    finally:
+        done.set()
+        worker.join(timeout=10)
+    assert seen == {name: [False] * 5
+                    for name in ("prepare_trace", "start_trace", "stop")}
+    assert prof_mod._park_request is None
+
+
+def test_a_session_on_the_training_thread_itself_does_not_wait():
+    # The step boundaries of TrainStep and gluon.Trainer are the calling
+    # thread's own: a session it opens after a step starts at once.
+    import threading
+    import time
+
+    net = mx.gluon.nn.Dense(2, in_units=3)
+    net.initialize(ctx=mx.cpu())
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    with mx.autograd.record():
+        loss = net(mx.nd.ones((2, 3), ctx=mx.cpu())).sum()
+    loss.backward()
+    trainer.step(2)
+    assert threading.get_ident() in mx.profiler._boundaries
+    t0 = time.monotonic()
+    session = mx.profiler.open_session()
+    with session:
+        _program(mx, mx.cpu())
+    assert time.monotonic() - t0 < mx.profiler._PARK_S / 2
