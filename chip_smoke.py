@@ -199,7 +199,7 @@ phase falls back to the host or to a plain version):
 
 18. model zoo: Inception-v3 (299x299) and AlexNet (224x224), 1000
    classes, trained through ``examples.train_imagenet.benchmark_rate``
-   (SGD, the windows of phase 7) in fp32 (TF32 off) and bf16 over fp32
+   (SGD, two windows of ``ZOO_ITERS`` steps) in fp32 (TF32 off) and bf16 over fp32
    masters, Inception-v3 at b32 and AlexNet at b512 (BASELINE.md's b32
    x 16) and b32 (``ZOO_TRAIN``); VGG-16 and Inception-v3 forward img/s
    at b32 on a batch on the card, fp32 and bf16 (``ZOO_SERVED``); one
@@ -461,7 +461,53 @@ phase falls back to the host or to a plain version):
    one ``gluon.Trainer`` Adam step moves exactly the batch's rows. Each
    reading is a JSON line with the card's name and power limit.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26) is driven with
+27. toolkit (``mx.contrib.text``, ``mx.contrib.svrg_optimization``,
+   ``mx.test_utils``, ``mx.monitor``, ``mx.viz`` and the RecordIO file
+   tools), each part a path of its own: (1) ``SVRGModule`` over upstream
+   example/svrg_module's linear regression at YearPredictionMSD's width
+   (90 features, one output, ``LinearRegressionOutput``; ``SVRG_MSD``:
+   65 536 synthetic rows, a cut from the dataset's 463 715) at b128 with
+   SGD on gpu(0), 4 epochs, ``update_freq`` 2: the stored full gradient
+   against the mean of the per-batch gradients at the snapshot
+   (``SVRG_FULL_REL_L2``), the first corrected gradient after a snapshot
+   against the full one (``SVRG_FIRST_REL_L2``), a corrected gradient
+   against the host's float64 formula on the same buffers
+   (``SVRG_CORRECTED_REL_L2``), the MSE falling from epoch 0 to 3; an
+   SVRG epoch's batches/s beside a plain ``Module``'s and a full pass's
+   seconds; (2) ``contrib.text`` (``TEXT``): a GloVe-format file of
+   100 000 synthetic tokens at 300 dimensions (glove.840B.300d's width)
+   and one at 50, ``GloVe`` and ``CustomEmbedding`` over them, a
+   ``Vocabulary`` from ``count_tokens_from_str`` over a synthetic corpus
+   and the ``CompositeEmbedding`` of both: every ``idx_to_vec`` on gpu(0)
+   and the host matrix bit for bit, ``get_vecs_by_tokens`` the host rows
+   bit for bit, a ``gluon.nn.Embedding`` set from ``idx_to_vec`` giving
+   those rows on the card; load seconds and the matrices' bytes; (3) the
+   test oracles (``ORACLE``) over ``nd.contrib.flash_attention`` in fp32
+   (TF32 off): ``check_consistency`` on ``[cpu(0), gpu(0)]`` at (1, 16,
+   1024, 64) within ``kernel_tolerance``, ``check_numeric_gradient`` at
+   (1, 1, 16, 32) on gpu(0) at the JAX package's tolerances with steps
+   of 1e-2 (``ORACLE``), the card's gradients also against the host's
+   float64 (``ORACLE_GRAD_REL_L2``), and
+   ``check_speed`` of the causal symbol at (8, 16, 2048, 64), ``whole``
+   and ``forward``: the whole time may not be below the sum of phase 3's
+   fp32 K1, K2 and K3 device times, and K1, K2 and K3 launch at least
+   once each (the kernels line's ``test_utils_oracles`` path); (4)
+   ``Monitor(1, pattern=".*")`` through ``Module.fit(monitor=)`` on phase
+   15's ResNet-50 v1 symbol at b32 for 3 batches: every output reported
+   every batch, each statistic mean(|x|) of the output's host copy within
+   ``MONITOR_STAT_RTOL``, step ms with and without it; ``print_summary``'s
+   total the bound module's parameter count; ``plot_network``'s DOT text
+   naming every node but the weights; (5) the file tools on 512
+   synthetic 224x224 PNGs in 8 class folders (``FILE_TOOLS``): ``im2rec
+   --list``, then ``python -m mxnet_tpu_torch.tools.im2rec --encoding
+   .png`` in a child process (PNG through the port's codec, OpenCV or
+   not), ``rec2idx`` (its ``.idx`` byte for byte im2rec's) and
+   ``rec_shard split`` into 4 balanced shards, the manifest opened by
+   ``RecordDataset``, every decoded image its PNG's pixels bit for bit,
+   and ResNet-50 v1 b32 trained 4 ``TrainStep`` steps from those
+   records with finite losses; pack and feed img/s.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -1474,11 +1520,12 @@ def phase_resnet_trained():
     _reset_launches()  # the main path starts here
     mx.random.seed(SEED)
     result = {"phase": "resnet50_v1_trained", "batch": 32, "windows": 2,
-              "iters_per_window": 16}
+              "iters_per_window": 8}
     for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
         t0 = time.perf_counter()
         rate = train_imagenet.benchmark_rate("resnet50", 32, dtype,
-                                             device=mx.gpu(0), windows=2)
+                                             device=mx.gpu(0), iters=8,
+                                             windows=2)
         result[tag] = {"img_s_b32": rate,
                        "ms_per_step": 32e3 / rate,
                        "phase_s": time.perf_counter() - t0}
@@ -3259,7 +3306,7 @@ def phase_checkpoint(card_line):
         result["sigterm_in_update"] = _sigterm_in_update(tmpdir, x, y)
         t0 = time.perf_counter()
         result["train_resume_demo"] = train_resume.main(
-            ["--steps", "24", "--kill-after", "8", "--step-delay", "0.1"])
+            ["--steps", "16", "--kill-after", "6", "--step-delay", "0.1"])
         result["train_resume_demo"]["seconds"] = time.perf_counter() - t0
         launches = _all_launches()   # read just after the path
     finally:
@@ -5125,8 +5172,10 @@ ZOO_TRAIN = (("inception-v3", 32, (3, 299, 299)),
              ("alexnet", 32, (3, 224, 224)))
 ZOO_SERVED = (("vgg16", 224), ("inceptionv3", 299))
 # Timed windows of each training row (benchmark_rate's median): 2, not
-# its default 5, to keep the whole script's time as phases are added.
+# its default 5, of 8 steps at b32 and 5 at b512, not 16 and 10, to keep
+# the whole script's time as phases are added.
 ZOO_WINDOWS = 2
+ZOO_ITERS = {32: 8, 512: 5}
 # The reference's published V100 img/s (BASELINE.md:17, 28, 35): a
 # reading beside ours, not a target.
 ZOO_REFERENCE_V100 = {"inceptionv3_train_b32": 214.48,
@@ -5228,13 +5277,13 @@ def _zoo_rates(mx, card_line):
     train = {}
     for network, batch, shape in ZOO_TRAIN:
         row = {"batch": batch, "image_shape": list(shape),
-               "iters_per_window": 16 if batch <= 32 else 10,
+               "iters_per_window": ZOO_ITERS[batch],
                "windows": ZOO_WINDOWS, "card": card_line}
         for tag, dtype in (("fp32", None), ("bf16", "bfloat16")):
             t0 = time.perf_counter()
             rate = train_imagenet.benchmark_rate(
                 network, batch, dtype, device=mx.gpu(0), image_shape=shape,
-                windows=ZOO_WINDOWS)
+                iters=ZOO_ITERS[batch], windows=ZOO_WINDOWS)
             row[tag] = {"img_s": rate, "ms_per_step": batch * 1e3 / rate,
                         "seconds": time.perf_counter() - t0}
             torch.cuda.empty_cache()
@@ -7837,6 +7886,7 @@ TELE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                 "flash_bwd_dq_wgmma_kernel")
 TELE_RESNET = {"network": "resnet50", "batch": 32, "image": 224}
 TELE_ATTN = {"units": 1024, "heads": 16, "batch": 8, "seq": 2048}
+XPROF_SERVE_CLIENTS = 4     # probe_xprof_abort(load="serve")'s clients
 
 
 def _http(url, method="GET"):
@@ -7858,16 +7908,20 @@ def _trace_events(path):
         return json.load(f)["traceEvents"]
 
 
-def probe_xprof_abort(card_line, captures=30, park=True):
+def probe_xprof_abort(card_line, captures=30, park=True, load="train"):
     """Phase 22 part 1's ``/debug/xprof`` capture (TELE_XPROF_S) from
-    another thread while this one trains ResNet-50 v1 b32 bf16 through
-    TrainStep, `captures` times in one process, with no check: one line a
-    capture, its status, the steps it spanned and its kernel records.
-    ``park=False`` replaces ``profiler._quiesced`` by a no-op, so the
-    session starts and stops while this thread launches. A native abort
-    ends the process; its exit code tells. Not run by main():
-    ``python3 -c "import chip_smoke as c; c.probe_xprof_abort(
-    c.phase_device(), park=False)"``."""
+    another thread while the card works, `captures` times in one process,
+    with no check: one line a capture, its status, the steps (or served
+    batches) it spanned and its kernel records. ``load="train"``: this
+    thread trains ResNet-50 v1 b32 bf16 through TrainStep;
+    ``load="serve"``: an ``InferenceServer`` serves the same net in fp32
+    (buckets 1/8/32) to ``XPROF_SERVE_CLIENTS`` client threads sending 8
+    rows a request, its worker parking at ``profiler.step_boundary``
+    before each batch. ``park=False`` replaces ``profiler._quiesced`` by
+    a no-op, so the session starts and stops while the card's work is
+    launched. A native abort ends the process; its exit code tells. Not
+    run by main(): ``python3 -c "import chip_smoke as c;
+    c.probe_xprof_abort(c.phase_device(), park=False, load='serve')"``."""
     import contextlib
     import os
     import shutil
@@ -7875,35 +7929,60 @@ def probe_xprof_abort(card_line, captures=30, park=True):
     import threading
 
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import profiler, telemetry
+    from mxnet_tpu_torch import profiler, serving, telemetry
     from mxnet_tpu_torch.examples import train_imagenet
 
     if not park:
         profiler._quiesced = contextlib.nullcontext
     tmp = tempfile.mkdtemp(prefix="xprof_probe_")
-    step = train_imagenet.build_train_step(TELE_RESNET["network"], 1000,
-                                           "bfloat16", mx.gpu(0))
     plane = telemetry.HealthPlane(xprof_dir=os.path.join(tmp, "xprof"))
     server = telemetry.start_http_server(0, health=plane)
     base = "http://%s:%d" % server.server_address[:2]
     rng = np.random.RandomState(SEED)
     b, side = TELE_RESNET["batch"], TELE_RESNET["image"]
-    x = torch.from_numpy(rng.rand(b, 3, side, side).astype(
-        np.float32)).cuda()
-    y = torch.from_numpy(rng.randint(0, 1000, b).astype(np.float32)).cuda()
-    for _ in range(3):
-        float(step(x, y))
+    done = threading.Event()
+    served = [0]
+    if load == "train":
+        step = train_imagenet.build_train_step(
+            TELE_RESNET["network"], 1000, "bfloat16", mx.gpu(0))
+        x = torch.from_numpy(rng.rand(b, 3, side, side).astype(
+            np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 1000, b).astype(
+            np.float32)).cuda()
+        for _ in range(3):
+            float(step(x, y))
+        clients, srv = [], None
+    else:
+        net = _resnet50()
+        srv = serving.InferenceServer(lambda v: net(v),
+                                      item_shape=(3, side, side),
+                                      buckets=(1, 8, 32), max_delay_ms=2)
+        rows = rng.rand(8, 3, side, side).astype(np.float32)
+
+        def client():
+            while not done.is_set():
+                srv.predict(rows)
+                served[0] += 1
+
+        clients = [threading.Thread(target=client, daemon=True)
+                   for _ in range(XPROF_SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
     t_start = time.perf_counter()
     try:
         for k in range(captures):
             reply = []
             t = threading.Thread(target=lambda: reply.append(_http(
                 base + "/debug/xprof?seconds=%g" % TELE_XPROF_S, "POST")))
+            before = served[0]
             t.start()
             i = 0
             while t.is_alive() or i < 5:
                 i += 1
-                float(step(x, y))
+                if load == "train":
+                    float(step(x, y))
+                else:
+                    time.sleep(0.01)
             t.join(timeout=120)
             kernels = None
             if reply and reply[0][0] == 200:
@@ -7913,11 +7992,19 @@ def probe_xprof_abort(card_line, captures=30, park=True):
                               if e.get("cat") == "kernel")
                 shutil.rmtree(os.path.dirname(path), ignore_errors=True)
             log(json.dumps({"probe": "xprof_abort", "park": park,
-                            "capture": k, "status": reply and reply[0][0],
-                            "steps": i, "kernel_records": kernels,
+                            "load": load, "capture": k,
+                            "status": reply and reply[0][0],
+                            "steps": i if load == "train" else None,
+                            "requests": served[0] - before,
+                            "kernel_records": kernels,
                             "process_s": time.perf_counter() - t_start,
                             "card": card_line}))
     finally:
+        done.set()
+        for c in clients:
+            c.join(timeout=60)
+        if srv is not None:
+            srv.shutdown()
         server.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -10648,6 +10735,648 @@ def phase_quantization_contrib(card_line):
     return reads
 
 
+# -- slice 23: the toolkit -----------------------------------------------------
+
+# Part 1: upstream example/svrg_module's linear regression over
+# YearPredictionMSD (90 features, one output): 65 536 synthetic rows from
+# the seed, a cut from the dataset's 463 715 training rows.
+SVRG_MSD = {"features": 90, "rows": 65536, "dataset_rows": 463715,
+            "batch": 128, "epochs": 4, "update_freq": 2, "lr": 0.05}
+SVRG_FULL_REL_L2 = 1e-5        # stored full gradient vs the batch mean
+SVRG_FIRST_REL_L2 = 1e-6       # first corrected gradient vs the full one
+SVRG_CORRECTED_REL_L2 = 1e-5   # a corrected gradient vs float64 on the host
+# Part 2: glove.840B.300d's width, 100 000 synthetic tokens, and a second
+# file at 50; a synthetic corpus over them with unknown words.
+TEXT = {"tokens": 100000, "dims": (300, 50), "corpus_tokens": 1000000,
+        "oov_share": 0.05, "probe_tokens": 4096}
+# Part 3: the oracles over nd.contrib.flash_attention in fp32. The
+# finite differences step by 1e-2, not check_numeric_gradient's default
+# 1e-3: the sum of the op's output is accurate to about 2^-20 of each
+# term under K1's split TF32 (fp32 alone: a few ulps of the sum), and
+# at 1e-3 that rounding over 2 eps is near the atol of 1e-3 (an H100
+# 80GB HBM3 at 700 W: 2.4e-3 off at an entry of 4.3e-4; the host's fp32
+# plain version 2.55e-3 off at (1, 1, 16, 64), tests/torch_parity_probes.py
+# fd_noise); 1e-2 balances it against the central difference's eps^2
+# error. rtol and atol stay the defaults.
+ORACLE = {"consistency": (1, 16, 1024, 64), "gradient": (1, 1, 16, 32),
+          "eps": 1e-2, "speed": (8, 16, 2048, 64), "speed_n": 10}
+ORACLE_GRAD_REL_L2 = 2e-4      # card autograd vs the host's float64
+# Part 4: phase 15's ResNet-50 v1 Module at b32, 3 batches a run.
+MONITOR = {"batch": 32, "batches": 3, "item": (3, 224, 224)}
+MONITOR_STAT_RTOL = 1e-6
+# Part 5: the file tools on 512 synthetic 224x224 PNGs in 8 classes.
+FILE_TOOLS = {"images": 512, "classes": 8, "side": 224, "shards": 4,
+              "steps": 4, "batch": 32, "network": "resnet50",
+              "outputs": 1000}
+
+
+def _linreg_sym(mx):
+    data = mx.sym.var("data")
+    out = mx.sym.FullyConnected(data, num_hidden=1, name="fc")
+    return mx.sym.LinearRegressionOutput(out, name="lin_reg")
+
+
+def _epoch_rate(mod, it, limit=None):
+    """Batches/s of one pass of forward, backward and update over `it`
+    (its first `limit` batches), the card synchronized at both ends."""
+    it.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in it:
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        n += 1
+        if n == limit:
+            break
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def _toolkit_svrg(mx):
+    """Part 1: SVRGModule over the linear regression on gpu(0)."""
+    from mxnet_tpu_torch.contrib.svrg_optimization import SVRGModule
+
+    c = SVRG_MSD
+    ctx = mx.gpu(0)
+    rng = np.random.default_rng(SEED + 27)
+    X = rng.standard_normal((c["rows"], c["features"]), dtype=np.float32)
+    w_true = rng.standard_normal(c["features"]) / np.sqrt(c["features"])
+    y = (X @ w_true + 0.1 * rng.standard_normal(c["rows"])).astype(
+        np.float32)[:, None]
+    train = mx.io.NDArrayIter(X, y, batch_size=c["batch"], shuffle=False,
+                              label_name="lin_reg_label", ctx=ctx)
+    mod = SVRGModule(_linreg_sym(mx), data_names=("data",),
+                     label_names=("lin_reg_label",),
+                     update_freq=c["update_freq"], context=ctx)
+    mse, ends = [], []
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+
+    def on_epoch(epoch, sym, arg, aux):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        w = arg["fc_weight"].asnumpy().astype(np.float64)
+        b = arg["fc_bias"].asnumpy().astype(np.float64)
+        mse.append(float(np.mean((X64 @ w.T + b - y64) ** 2)))
+        ends[-1] = (ends[-1], time.perf_counter())
+
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=c["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": c["lr"]}, eval_metric="mse",
+            epoch_end_callback=on_epoch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = {"rows": c["rows"], "rows_cut_from": c["dataset_rows"],
+           "features": c["features"], "batch": c["batch"],
+           "epochs": c["epochs"], "update_freq": c["update_freq"],
+           "mse_by_epoch": mse, "fit_seconds": fit_s}
+    # An SVRG epoch without a full pass (epochs 1 and 3 of update_freq
+    # 2): from the end of the epoch before, the host's MSE excluded.
+    nb = c["rows"] // c["batch"]
+    spans = [ends[e][0] - ends[e - 1][1] for e in range(1, c["epochs"])
+             if e % c["update_freq"]]
+    out["svrg_batches_s"] = nb / float(np.median(spans))
+    names = mod._param_names
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.update_full_grads(train)
+    torch.cuda.synchronize()
+    out["full_gradient_pass_s"] = time.perf_counter() - t0
+    full = {n: mod._param_dict[n].asnumpy().astype(np.float64)
+            for n in names}
+    out["full_on_card"] = all(mod._param_dict[n].context == ctx
+                              for n in names)
+    # (a) The stored full gradient against the mean of the per-batch
+    # gradients at the snapshot, accumulated on the host in float64.
+    train.reset()
+    acc = {n: 0.0 for n in names}
+    nb = 0
+    for batch in train:
+        mod._mod_aux.forward(batch, is_train=True)
+        mod._mod_aux.backward()
+        for n in names:
+            acc[n] = acc[n] + mod._mod_aux._execs[0].grad_dict[
+                n].asnumpy().astype(np.float64)
+        nb += 1
+    out["full_vs_batch_mean_rel_l2"] = _rel_l2(
+        full, {n: acc[n] / nb for n in names})
+    # (b) The first update after the snapshot: g(w, b) - g(w~, b) is 0.
+    train.reset()
+    batches = iter(train)
+    mod.forward(next(batches), is_train=True)
+    mod.backward()
+    mod._update_svrg_gradients()
+    out["first_vs_full_rel_l2"] = _rel_l2(
+        {n: mod._execs[0].grad_dict[n].asnumpy() for n in names}, full)
+    mod.update()
+    # (c) A corrected gradient away from the snapshot against the host's
+    # float64 formula on the same buffers.
+    mod.forward(next(batches), is_train=True)
+    mod.backward()
+    host = {n: mod._execs[0].grad_dict[n].asnumpy().astype(np.float64)
+            - mod._mod_aux._execs[0].grad_dict[n].asnumpy().astype(
+                np.float64) + full[n] for n in names}
+    mod._update_svrg_gradients()
+    out["corrected_vs_host_f64_rel_l2"] = _rel_l2(
+        {n: mod._execs[0].grad_dict[n].asnumpy() for n in names}, host)
+    out["grads_on_card"] = all(
+        ex.grad_dict[n].context == ctx for n in names
+        for ex in mod._execs + mod._mod_aux._execs)
+    # Reading: a plain Module epoch over the same batches, beside the SVRG
+    # epoch's (two executors a batch).
+    plain = mx.mod.Module(_linreg_sym(mx), data_names=("data",),
+                          label_names=("lin_reg_label",), context=ctx)
+    plain.bind(data_shapes=train.provide_data,
+               label_shapes=train.provide_label)
+    plain.init_params()
+    plain.init_optimizer(optimizer="sgd",
+                         optimizer_params={"learning_rate": c["lr"]})
+    _epoch_rate(plain, train, limit=16)         # warm
+    out["module_batches_s"] = _epoch_rate(plain, train)
+    out["batches_per_epoch"] = nb
+    return out
+
+
+def _write_glove(path, tokens, dim, rng):
+    """A GloVe-format text file: token and `dim` signed values of three
+    decimals a line ("+0.123"), built as bytes in numpy. Returns nothing;
+    the loader's matrix is what is compared."""
+    levels = np.frombuffer("".join(
+        "%+.3f " % (k / 1000.0) for k in range(-2000, 2001)).encode(),
+        np.uint8).reshape(-1, 7)
+    width = len(tokens[0]) + 1
+    with open(path, "wb") as f:
+        for s in range(0, len(tokens), 8192):
+            n = min(8192, len(tokens) - s)
+            rows = levels[rng.integers(0, len(levels), (n, dim))].reshape(
+                n, dim * 7)
+            rows[:, -1] = ord("\n")
+            heads = np.frombuffer("".join(
+                t + " " for t in tokens[s:s + n]).encode(),
+                np.uint8).reshape(n, width)
+            f.write(np.concatenate([heads, rows], axis=1).tobytes())
+
+
+def _toolkit_text(mx, tmp):
+    """Part 2: contrib.text at a published width on gpu(0)."""
+    import os
+
+    from mxnet_tpu_torch.contrib import text
+
+    c = TEXT
+    ctx = mx.gpu(0)
+    rng = np.random.default_rng(SEED + 28)
+    tokens = ["tok%06d" % i for i in range(c["tokens"])]
+    paths = [os.path.join(tmp, "glove.840B.300d.txt"),
+             os.path.join(tmp, "vectors.50d.txt")]
+    t0 = time.perf_counter()
+    for path, dim in zip(paths, c["dims"]):
+        _write_glove(path, tokens, dim, rng)
+    out = {"tokens": c["tokens"], "dims": list(c["dims"]),
+           "write_s": time.perf_counter() - t0,
+           "file_bytes": [os.path.getsize(p) for p in paths]}
+    t0 = time.perf_counter()
+    glove = text.embedding.GloVe(pretrained_file_path=paths[0])
+    out["load_s_300d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    custom = text.embedding.CustomEmbedding(paths[1])
+    out["load_s_50d"] = time.perf_counter() - t0
+    # A Zipf-like corpus over the file's tokens with unknown words mixed in.
+    n = c["corpus_tokens"]
+    ranks = np.minimum(rng.zipf(1.2, n), c["tokens"]) - 1
+    words = [tokens[r] for r in ranks]
+    for i in np.flatnonzero(rng.random(n) < c["oov_share"]):
+        words[i] = "oov%05d" % (i % 20000)
+    corpus = "\n".join(" ".join(words[s:s + 20])
+                       for s in range(0, n, 20))
+    t0 = time.perf_counter()
+    counter = text.utils.count_tokens_from_str(corpus)
+    vocab = text.Vocabulary(counter, reserved_tokens=["<pad>"])
+    comp = text.embedding.CompositeEmbedding(vocab, [glove, custom])
+    out["vocab_and_composite_s"] = time.perf_counter() - t0
+    out["vocab"] = len(vocab)
+    out["composite_vec_len"] = comp.vec_len
+    checks = {}
+    for tag, emb in (("glove", glove), ("custom", custom),
+                     ("composite", comp)):
+        v = emb.idx_to_vec
+        checks[tag + "_on_card"] = v.context == ctx
+        checks[tag + "_bit_for_bit"] = bool(np.array_equal(
+            v.asnumpy(), emb._idx_to_vec))
+        out["matrix_bytes_" + tag] = int(emb._idx_to_vec.nbytes)
+    probe = [vocab.idx_to_token[i] for i in rng.integers(
+        0, len(vocab), c["probe_tokens"])] + ["never-seen", "oov99999"]
+    got = comp.get_vecs_by_tokens(probe)
+    want = comp._idx_to_vec[[comp.token_to_idx.get(t, 0) for t in probe]]
+    checks["vecs_on_card"] = got.context == ctx
+    checks["vecs_bit_for_bit"] = bool(np.array_equal(got.asnumpy(), want))
+    layer = mx.gluon.nn.Embedding(len(comp), comp.vec_len)
+    layer.initialize(ctx=ctx)
+    layer.weight.set_data(comp.idx_to_vec)
+    ids = comp.to_indices(probe)
+    rows = layer(mx.nd.array(ids, ctx=ctx))
+    checks["embedding_on_card"] = rows.context == ctx
+    checks["embedding_bit_for_bit"] = bool(np.array_equal(
+        rows.asnumpy(), comp._idx_to_vec[ids]))
+    out["checks"] = checks
+    return out
+
+
+def _toolkit_oracles(mx, card_line, kernel_ms):
+    """Part 3: test_utils' oracles over nd.contrib.flash_attention on the
+    card in fp32, K1-K3 launched through them."""
+    from mxnet_tpu_torch import test_utils
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    c = ORACLE
+    rng = np.random.default_rng(SEED + 29)
+    out = {}
+    qkv = [rng.uniform(-1, 1, c["consistency"]).astype(np.float32)
+           for _ in range(3)]
+    want = fa.flash_attention_reference(*(torch.from_numpy(a)
+                                          for a in qkv))[0]
+    rtol, atol = fa.kernel_tolerance(torch.float32, want)
+
+    def attend(q, k, v):
+        return mx.nd.contrib.flash_attention(q, k, v)
+
+    t0 = time.perf_counter()
+    outs = test_utils.check_consistency(attend, qkv,
+                                        ctx_list=[mx.cpu(0), mx.gpu(0)],
+                                        rtol=rtol, atol=atol)
+    out["consistency"] = {
+        "shape": list(c["consistency"]), "rtol": rtol, "atol": atol,
+        "max_abs_err": float(np.abs(outs[1] - outs[0]).max()),
+        "worst_share": float((np.abs(outs[1] - outs[0])
+                              / (atol + rtol * np.abs(outs[0]))).max()),
+        "seconds": time.perf_counter() - t0}
+    small = [rng.uniform(-1, 1, c["gradient"]).astype(np.float32)
+             for _ in range(3)]
+    t0 = time.perf_counter()
+    test_utils.check_numeric_gradient(attend, small, eps=c["eps"],
+                                      ctx=mx.gpu(0))
+    out["numeric_gradient"] = {"shape": list(c["gradient"]), "rtol": 1e-2,
+                               "atol": 1e-3, "eps": c["eps"],
+                               "passed": True,
+                               "seconds": time.perf_counter() - t0}
+    # The card's autograd (K2, K3) against the host's float64 autograd
+    # of the plain version on the same inputs.
+    card = [mx.nd.array(a, ctx=mx.gpu(0)) for a in small]
+    for a in card:
+        a.attach_grad()
+    with mx.autograd.record():
+        attend(*card).sum().backward()
+    host = [torch.from_numpy(a).double().requires_grad_() for a in small]
+    fa.flash_attention_reference(*host)[0].sum().backward()
+    out["numeric_gradient"]["card_vs_host_f64_rel_l2"] = _rel_l2(
+        {i: a.grad.asnumpy() for i, a in enumerate(card)},
+        {i: h.grad.numpy() for i, h in enumerate(host)})
+    q, k, v = (mx.sym.var(n) for n in "qkv")
+    sym = mx.sym.contrib.flash_attention(q, k, v, causal=True)
+    shape = c["speed"]
+    speed = {}
+    for typ in ("whole", "forward"):
+        speed[typ + "_ms"] = 1e3 * test_utils.check_speed(
+            sym, ctx=mx.gpu(0), N=c["speed_n"], typ=typ, q=shape, k=shape,
+            v=shape)
+    speed["kernels_device_ms"] = kernel_ms
+    speed["kernels_device_ms_sum"] = sum(kernel_ms.values())
+    speed["shape"] = list(shape)
+    speed["causal"] = True
+    out["speed"] = speed
+    return out
+
+
+def _recording_monitor(mx):
+    """A ``Monitor(1, pattern=".*")`` whose ``toc_print`` keeps each
+    batch's ``toc()`` rows with the executors' outputs copied to the
+    host."""
+    class Recording(mx.monitor.Monitor):
+        def __init__(self):
+            super().__init__(1, pattern=".*")
+            self.rows = []
+
+        def toc_print(self):
+            res = self.toc()
+            outs = {}
+            for exe in self.exes:
+                for name, o in zip(exe.output_names, exe.outputs):
+                    outs[name] = o.asnumpy()
+            self.rows.append((res, outs))
+
+    return Recording()
+
+
+def _toolkit_monitor_viz(mx, tmp):
+    """Part 4: Monitor through Module.fit and the visualization of phase
+    15's ResNet-50 v1 symbol, on gpu(0)."""
+    import contextlib
+    import io
+
+    c = MONITOR
+    ctx = mx.gpu(0)
+    net = _resnet50(seed=SEED)
+    sym, arg, aux = _module_symbol(net, tmp)
+    del net
+    rng = np.random.default_rng(SEED + 30)
+    n = c["batch"] * c["batches"]
+    xs = rng.random((n,) + c["item"], dtype=np.float32)
+    ys = rng.integers(0, 10, n).astype(np.float32)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (c["batch"],) + c["item"])],
+             label_shapes=[("softmax_label", (c["batch"],))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(TRAINER_OPT))
+
+    def fit(monitor=None):
+        it = mx.io.NDArrayIter(xs, ys, batch_size=c["batch"], ctx=ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, monitor=monitor)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / c["batches"]
+
+    fit()                                       # warm
+    mon = _recording_monitor(mx)
+    out = {"step_ms_monitor": fit(mon), "step_ms_plain": fit()}
+    out["step_ms_monitor_again"] = fit(_recording_monitor(mx))
+    names = list(mod.output_names)
+    out["reported"] = [[name for _, name, _ in res] for res, _ in mon.rows]
+    out["every_output_every_batch"] = len(mon.rows) == c["batches"] and all(
+        sorted(r) == sorted(names) for r in out["reported"])
+    worst = 0.0
+    for res, outs in mon.rows:
+        for _, name, stat in res:
+            got = float(stat.strip("[]").split()[0])
+            want = float(np.abs(outs[name].astype(np.float64)).mean())
+            worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+    out["stat_worst_rel"] = worst
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        total = mx.viz.print_summary(
+            sym, shape={"data": (c["batch"],) + c["item"]})
+    arg_now, _ = mod.get_params()
+    out["summary_total_params"] = total
+    out["module_params"] = int(sum(int(np.prod(v.shape))
+                                   for v in arg_now.values()))
+    out["summary_lines"] = len(buf.getvalue().splitlines())
+    plot = mx.viz.plot_network(sym, title="resnet50_v1")
+    dot = getattr(plot, "source", plot)
+    hidden = ("_weight", "_bias", "_gamma", "_beta", "_moving_mean",
+              "_moving_var")
+    missing = [node._name for node in sym._topo()
+               if node._name and node._op != "_group"
+               and not (node._op is None and node._name.endswith(hidden))
+               and '"%s' % node._name not in dot]
+    out["dot_bytes"] = len(dot)
+    out["dot_missing_nodes"] = missing[:10]
+    out["dot_names_every_node"] = not missing
+    return out
+
+
+def _png_tree(root, rng):
+    """FILE_TOOLS["images"] smooth 224x224 BGR images with noise, written
+    as PNG (the port's codec) into FILE_TOOLS["classes"] class folders.
+    Returns {relative path: pixels}."""
+    import os
+
+    from mxnet_tpu_torch.image import png
+
+    c = FILE_TOOLS
+    side = c["side"]
+    ramp = np.linspace(0, 255, side, dtype=np.float32)
+    images = {}
+    for i in range(c["images"]):
+        cls = "class%d" % (i % c["classes"])
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        base = (ramp[None, :, None] * rng.random(3) + ramp[:, None, None]
+                * rng.random(3)) / 2
+        img = np.clip(base + rng.integers(0, 16, (side, side, 3)), 0,
+                      255).astype(np.uint8)
+        rel = os.path.join(cls, "img%04d.png" % i)
+        with open(os.path.join(root, rel), "wb") as f:
+            f.write(png.encode(img))
+        images[rel] = img
+    return images
+
+
+def _run_tool(args):
+    """``python -m mxnet_tpu_torch.tools.<...>``: (seconds, stdout)."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m"] + args, capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, "%s exited %d: %s"
+          % (" ".join(args[:1]), res.returncode, res.stderr[-2000:]))
+    return time.perf_counter() - t0, res.stdout
+
+
+def _toolkit_file_tools(mx, tmp):
+    """Part 5: the RecordIO file tools over a PNG tree, then TrainStep
+    fed from the shards."""
+    import os
+
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.data import RecordDataset
+    from mxnet_tpu_torch.examples import train_imagenet
+    from mxnet_tpu_torch.tools import im2rec, rec2idx, rec_shard
+
+    c = FILE_TOOLS
+    rng = np.random.default_rng(SEED + 31)
+    root = os.path.join(tmp, "images")
+    t0 = time.perf_counter()
+    images = _png_tree(root, rng)
+    out = {"images": c["images"], "classes": c["classes"],
+           "write_s": time.perf_counter() - t0}
+    try:
+        import cv2  # noqa: F401
+        out["cv2"] = True
+    except ImportError:
+        out["cv2"] = False
+    prefix = os.path.join(tmp, "train")
+    # --list, rec2idx and rec_shard through their mains in this process;
+    # the pack runs as ``python -m`` (a child costs 5-15 s of imports).
+    t0 = time.perf_counter()
+    im2rec.main([prefix, root, "--list"])
+    out["list_s"] = time.perf_counter() - t0
+    out["pack_s"], _ = _run_tool(["mxnet_tpu_torch.tools.im2rec", prefix,
+                                  root, "--encoding", ".png"])
+    out["pack_images_s"] = c["images"] / out["pack_s"]
+    t0 = time.perf_counter()
+    rec2idx.main([prefix + ".rec", prefix + ".rebuilt.idx"])
+    out["index_s"] = time.perf_counter() - t0
+    with open(prefix + ".idx", "rb") as a, \
+            open(prefix + ".rebuilt.idx", "rb") as b:
+        out["idx_byte_for_byte"] = a.read() == b.read()
+    shards = os.path.join(tmp, "shards", "train")
+    t0 = time.perf_counter()
+    manifest = rec_shard.split(prefix + ".rec", c["shards"], shards)
+    out["split_s"] = time.perf_counter() - t0
+    out["shard_records"] = [s["records"] for s in manifest["shards"]]
+    out["balanced"] = (max(out["shard_records"]) - min(out["shard_records"])
+                       <= 1 and sum(out["shard_records"]) == c["images"])
+    lst = {}
+    with open(prefix + ".lst") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            lst[int(parts[0])] = (float(parts[1]), parts[-1])
+    dataset = RecordDataset(shards + "-manifest.json")
+    out["dataset_records"] = len(dataset)
+    mismatched = 0
+    labels_ok = True
+    for i in range(len(dataset)):
+        header, img = recordio.unpack_img(dataset.read(i))
+        label, rel = lst[int(header.id)]
+        labels_ok &= header.label == label
+        mismatched += not np.array_equal(img, images[rel])
+    out["decoded_mismatches"] = mismatched
+    out["labels_match_list"] = bool(labels_ok)
+    step = train_imagenet.build_train_step(c["network"], c["outputs"], None,
+                                           mx.gpu(0))
+    dev = mx.gpu(0).torch_device
+    mean = torch.tensor(PIPE_MEAN, device=dev).view(1, 3, 1, 1)
+    std = torch.tensor(PIPE_STD, device=dev).view(1, 3, 1, 1)
+
+    def batch(k):
+        rows = [recordio.unpack_img(dataset.read(k * c["batch"] + j))
+                for j in range(c["batch"])]
+        x = torch.from_numpy(np.stack([img[:, :, ::-1] for _, img in rows])
+                             .transpose(0, 3, 1, 2).copy()).to(dev)
+        y = torch.tensor([float(h.label) for h, _ in rows], device=dev)
+        return (x.float() - mean) / std, y
+
+    float(step(*batch(0)))                      # build
+    torch.cuda.synchronize()
+    losses = []
+    t0 = time.perf_counter()
+    for k in range(c["steps"]):
+        losses.append(float(step(*batch(k))))
+    out["feed_img_s"] = c["steps"] * c["batch"] / (time.perf_counter() - t0)
+    out["losses"] = losses
+    return out
+
+
+def phase_toolkit(card_line, kernel_ms):
+    """Phase 27 (see the module docstring). `kernel_ms`: phase 3's fp32
+    K1/K2/K3 device ms at (8, 16, 2048, 64), causal. Returns its launch
+    counts by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    read = {"phase": "toolkit", "card": card_line}
+    reads = {}
+
+    def reading(name, value):
+        read[name] = value
+        log(json.dumps({"phase": "toolkit", "reading": name,
+                        "card": card_line, name: value}, default=str))
+
+    tmp = tempfile.mkdtemp(prefix="toolkit-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "mxnet_tpu_torch",
+        "_build"))
+    try:
+        for name, path, part in (
+                ("svrg", "toolkit_svrg", lambda: _toolkit_svrg(mx)),
+                ("text", "toolkit_text", lambda: _toolkit_text(mx, tmp)),
+                ("oracles", "test_utils_oracles",
+                 lambda: _toolkit_oracles(mx, card_line, kernel_ms)),
+                ("monitor_viz", "toolkit_monitor_viz",
+                 lambda: _toolkit_monitor_viz(mx, tmp)),
+                ("file_tools", "toolkit_file_tools",
+                 lambda: _toolkit_file_tools(mx, tmp))):
+            _reset_all_launches()   # this part's path starts here
+            t0 = time.perf_counter()
+            value = part()
+            reads[path] = _all_launches()   # read just after it
+            value["seconds"] = time.perf_counter() - t0
+            reading(name, value)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    read["launches"] = reads
+    read["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "toolkit", "card": card_line,
+                    "launches": reads, "seconds": read["seconds"]},
+                   default=str))
+
+    sv = read["svrg"]
+    check(sv["full_vs_batch_mean_rel_l2"] <= SVRG_FULL_REL_L2,
+          "svrg: full gradient against the batch mean at relative L2 %g"
+          % sv["full_vs_batch_mean_rel_l2"])
+    check(sv["first_vs_full_rel_l2"] <= SVRG_FIRST_REL_L2,
+          "svrg: first update after the snapshot at relative L2 %g from "
+          "the full gradient" % sv["first_vs_full_rel_l2"])
+    check(sv["corrected_vs_host_f64_rel_l2"] <= SVRG_CORRECTED_REL_L2,
+          "svrg: corrected gradient against the host's float64 at %g"
+          % sv["corrected_vs_host_f64_rel_l2"])
+    check(sv["mse_by_epoch"][-1] < sv["mse_by_epoch"][0]
+          and all(math.isfinite(v) for v in sv["mse_by_epoch"]),
+          "svrg: MSE by epoch %s" % sv["mse_by_epoch"])
+    check(sv["full_on_card"] and sv["grads_on_card"],
+          "svrg: a gradient buffer left the card")
+    tx = read["text"]
+    check(all(tx["checks"].values()), "text: %s" % tx["checks"])
+    ng = read["oracles"]["numeric_gradient"]
+    check(ng["card_vs_host_f64_rel_l2"] <= ORACLE_GRAD_REL_L2,
+          "oracles: the card's attention gradients at relative L2 %g from "
+          "the host's float64" % ng["card_vs_host_f64_rel_l2"])
+    sp = read["oracles"]["speed"]
+    check(sp["whole_ms"] >= sp["kernels_device_ms_sum"],
+          "check_speed whole %.3f ms below K1+K2+K3's device %.3f ms"
+          % (sp["whole_ms"], sp["kernels_device_ms_sum"]))
+    check(sp["forward_ms"] > 0, "check_speed forward %s" % sp)
+    mv = read["monitor_viz"]
+    check(mv["every_output_every_batch"],
+          "monitor: reported %s" % mv["reported"])
+    check(mv["stat_worst_rel"] <= MONITOR_STAT_RTOL,
+          "monitor: a statistic at %g relative from mean(|x|) of the "
+          "host copy" % mv["stat_worst_rel"])
+    check(mv["summary_total_params"] == mv["module_params"] > 0,
+          "print_summary counts %d parameters, the module holds %d"
+          % (mv["summary_total_params"], mv["module_params"]))
+    check(mv["dot_names_every_node"], "plot_network misses %s"
+          % mv["dot_missing_nodes"])
+    ft = read["file_tools"]
+    check(ft["idx_byte_for_byte"], "rec2idx's .idx differs from im2rec's")
+    check(ft["balanced"] and ft["dataset_records"] == FILE_TOOLS["images"],
+          "rec_shard: shards %s" % ft["shard_records"])
+    check(ft["decoded_mismatches"] == 0 and ft["labels_match_list"],
+          "file tools: %d decoded images differ from their PNGs"
+          % ft["decoded_mismatches"])
+    check(all(math.isfinite(v) for v in ft["losses"]),
+          "file tools: losses %s" % ft["losses"])
+    for path, launches in reads.items():
+        k = launches["k1_k2_k3"]
+        if path == "test_utils_oracles":
+            check(all(n >= 1 for n in k), "oracles launched K1-K3 %s"
+                  % (k,))
+        else:
+            check(k == (0, 0, 0), "%s launched K1-K3 %s" % (path, k))
+        check(launches["rtc"] == launches["bn_relu"] == 0
+              and launches["scale_add"] == launches["relu"] == 0
+              and not any(launches["d1_d2"]),
+              "toolkit: launches on %s: %s" % (path, launches))
+    log("phase 27: SVRG %.0f batches/s (Module %.0f), full pass %.2f s; "
+        "text load %.1f s (300d); check_speed whole %.2f ms (K1-K3 device "
+        "%.2f ms); monitor step %.1f ms (plain %.1f); pack %.0f img/s, "
+        "feed %.1f img/s; oracle launches %s"
+        % (sv["svrg_batches_s"], sv["module_batches_s"],
+           sv["full_gradient_pass_s"], tx["load_s_300d"], sp["whole_ms"],
+           sp["kernels_device_ms_sum"], mv["step_ms_monitor"],
+           mv["step_ms_plain"], ft["pack_images_s"], ft["feed_img_s"],
+           reads["test_utils_oracles"]["k1_k2_k3"]))
+    return reads
+
+
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
                "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd,
                "place2": _place_part_tp2, "place4": _place_part_dp2tp2,
@@ -10704,6 +11433,9 @@ def main():
     cc_reads = _timed(phase_compile_cache, card_line)
     sparse_reads = _timed(phase_sparse, card_line)
     quant_reads = _timed(phase_quantization_contrib, card_line)
+    toolkit_reads = _timed(phase_toolkit, card_line, {
+        "k1": fwd["fp32"]["device_ms"], "k2": dkv["fp32"]["device_ms"],
+        "k3": dq["fp32"]["device_ms"]})
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -10759,6 +11491,8 @@ def main():
     # (CC_LAUNCHES, every count read). Phase 25's sparse path launches
     # none of them. Phase 26's six paths launch K4a (and K4's rtc launch
     # under it) on the partitioned int8 server only, 33 times a forward.
+    # Phase 27's test oracles (test_utils_oracles) launch K1, K2 and K3
+    # in fp32; its other four paths launch none of them.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
@@ -10767,7 +11501,8 @@ def main():
                        ("model_zoo", zoo["launches"]),
                        *placement.items(), *telemetry_reads.items(),
                        *gateway_reads.items(), *cc_reads.items(),
-                       *sparse_reads.items(), *quant_reads.items()):
+                       *sparse_reads.items(), *quant_reads.items(),
+                       *toolkit_reads.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

@@ -72,6 +72,10 @@ _LAZY = {
     "rnn": ".rnn",
     "operator": ".operator_custom",
     "contrib": ".contrib",
+    "test_utils": ".test_utils",
+    "visualization": ".visualization",
+    "viz": ".visualization",
+    "monitor": ".monitor",
 }
 
 

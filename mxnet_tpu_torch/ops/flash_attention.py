@@ -513,7 +513,19 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
                                         block_k)
 
 
-@register("_contrib_flash_attention", aliases=("flash_attention",))
+def _flash_attention_shapes(attrs, in_shapes):
+    """Shape rule of the op (``Symbol.infer_shape`` takes it instead of a
+    run on meta tensors, which the kernels' wrappers refuse): the output
+    has q's (batch, heads, query length) and v's head dim."""
+    q, _, v = in_shapes
+    if q is None:
+        raise ValueError("flash_attention needs the shape of q")
+    return list(in_shapes), [tuple(q[:-1]) + (tuple(v)[-1] if v is not None
+                                              else q[-1],)]
+
+
+@register("_contrib_flash_attention", aliases=("flash_attention",),
+          infer_shape=_flash_attention_shapes)
 def _flash_attention_op(q, k, v, causal=False, scale=None, block_q=128,
                         block_k=128):
     # Slices of a packed (batch, 3, heads, seq, dim) array are strided

@@ -35,8 +35,12 @@ Two layers, as in the JAX package:
    A session that starts or stops on one thread while another trains
    (a health plane's ``/debug/xprof``) waits for that thread to park at
    its next step boundary (:func:`step_boundary`, which ``TrainStep``
-   and ``gluon.Trainer`` call), and the training thread resumes when
-   the start (or the stop) is done. Without that wait such captures
+   and ``gluon.Trainer`` call, and the serving loops before each batch
+   or decode step), and the training thread resumes when the start (or
+   the stop) is done. A serving loop marks itself idle
+   (:func:`step_idle`) before it waits on its queue: a session then
+   never waits for it, and it parks at its next boundary if a start or
+   stop is still under way. Without that wait such captures
    aborted the process now and then (glibc's double free, or a
    segmentation fault, in a native thread of torch.profiler 2.11 on an
    H100): ``chip_smoke.probe_xprof_abort`` aborted after 21 and after 15
@@ -148,11 +152,13 @@ def _primer_launches():
 # its next boundary within twice its last step (plus _PARK_SLACK_S); a
 # session's start or stop on another thread waits that long at most, and
 # never more than _PARK_S, for it to park; a parked thread waits for the
-# transition at most _PARKED_MAX_S.
+# transition at most _PARKED_MAX_S. A thread marked idle is not waited
+# for; its step is then its last busy stretch, from its last boundary to
+# going idle.
 _PARK_S = 5.0
 _PARK_SLACK_S = 0.1
 _PARKED_MAX_S = 60.0
-_boundaries = {}            # thread ident -> (time of its last, step before)
+_boundaries = {}   # thread ident -> (time of its last mark, step, idle)
 _park_request = None        # (parked, resume) Events while one waits
 
 
@@ -161,11 +167,30 @@ def step_boundary():
     another thread starts or stops a profiler session."""
     me, now = threading.get_ident(), time.monotonic()
     last = _boundaries.get(me)
-    _boundaries[me] = (now, None if last is None else now - last[0])
+    if last is None:
+        step = None
+    elif last[2]:
+        step = last[1]          # back from idle: its last busy stretch
+    else:
+        step = now - last[0]
+    _boundaries[me] = (now, step, False)
     request = _park_request
     if request is not None:
         request[0].set()
         request[1].wait(_PARKED_MAX_S)
+
+
+def step_idle():
+    """Mark the calling thread idle until its next :func:`step_boundary`
+    (a serving loop about to wait on its queue): a session's start or
+    stop does not wait for it, and one waiting now goes ahead."""
+    me, now = threading.get_ident(), time.monotonic()
+    last = _boundaries.get(me)
+    _boundaries[me] = (now, None if last is None else
+                       last[1] if last[2] else now - last[0], True)
+    request = _park_request
+    if request is not None:
+        request[0].set()
 
 
 def _park_deadline():
@@ -174,10 +199,10 @@ def _park_deadline():
     me, now = threading.get_ident(), time.monotonic()
     alive = {t.ident for t in threading.enumerate()}
     due = []
-    for ident, (seen, step) in list(_boundaries.items()):
+    for ident, (seen, step, idle) in list(_boundaries.items()):
         if ident not in alive:
             _boundaries.pop(ident, None)
-        elif ident != me and step is not None and \
+        elif ident != me and not idle and step is not None and \
                 now < seen + 2 * step + _PARK_SLACK_S:
             due.append(seen + 2 * step + _PARK_SLACK_S)
     return min(max(due), now + _PARK_S) if due else None
@@ -196,7 +221,17 @@ def _quiesced():
     parked, resume = threading.Event(), threading.Event()
     _park_request = (parked, resume)
     try:
-        parked.wait(max(0.0, deadline - time.monotonic()))
+        # A thread may go idle (or pass its boundary) just before the
+        # request is posted: the deadline is read again as the wait goes,
+        # never past the first one.
+        cap = deadline
+        while deadline is not None and not parked.wait(
+                min(0.01, max(0.0, deadline - time.monotonic()))):
+            deadline = _park_deadline()
+            if deadline is not None:
+                deadline = min(deadline, cap)
+                if time.monotonic() >= deadline:
+                    break
         yield
     finally:
         _park_request = None

@@ -56,6 +56,7 @@ import torch
 
 from .. import log as _log
 from .. import ndarray as nd
+from .. import profiler as _profiler
 from ..base import torch_dtype
 from ..cached_op import CachedOp
 from ..context import current_context
@@ -640,6 +641,13 @@ class DecodeLoop:
     def _run(self):
         while True:
             with self._cond:
+                if (self._running and not self._pending
+                        and self._occupied == 0
+                        and self._pending_swap is None):
+                    # Waiting on the queue: a profiler session starting
+                    # or stopping on another thread does not wait for
+                    # this one.
+                    _profiler.step_idle()
                 while (self._running and not self._pending
                        and self._occupied == 0
                        and self._pending_swap is None):
@@ -683,6 +691,10 @@ class DecodeLoop:
                     "sequence expired after %.1f ms in decode queue"
                     % ((now - seq.t_submit) * 1e3)))
             self._released(released, depth)
+            if admits or self._occupied:
+                # Before the launches: a session starting or stopping on
+                # another thread parks this one here.
+                _profiler.step_boundary()
             if admits:
                 self._admit(admits)
             if self._occupied:

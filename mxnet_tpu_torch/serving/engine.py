@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import ndarray as nd
+from .. import profiler as _profiler
 from ..cached_op import CachedOp
 from ..context import current_context
 from ..ndarray.ndarray import NDArray
@@ -323,6 +324,9 @@ class InferenceServer:
         # Watchdog lane: a device call (or executor bind) that wedges
         # stalls the whole queue drain: a `serving_hang`, with this
         # worker thread's stack in the diagnostic bundle.
+        # A profiler session starting or stopping on another thread
+        # parks this one here; between batches it counts as idle.
+        _profiler.step_boundary()
         _watchdog.begin(self._wd_lane)
         try:
             self._run_batch_inner(requests, bucket)
@@ -331,6 +335,7 @@ class InferenceServer:
                 _hp.set_ready(self._hp_component)
         finally:
             _watchdog.end(self._wd_lane)
+            _profiler.step_idle()
 
     def _run_batch_inner(self, requests, bucket):
         t0 = time.perf_counter()

@@ -54,6 +54,7 @@ import numpy as np
 
 from .. import log as _log
 from .. import ndarray as nd
+from .. import profiler as _profiler
 from ..context import current_context
 from ..ndarray.ndarray import NDArray
 from ..telemetry import healthplane as _hp
@@ -864,6 +865,10 @@ class ModelGateway:
                 if live:
                     bucket = st.spec.policy.bucket_for(
                         sum(r.rows for r in live))
+                    # A profiler session starting or stopping on another
+                    # thread parks this one here; between batches it
+                    # counts as idle.
+                    _profiler.step_boundary()
                     try:
                         self._run_batch(st.spec, backend, gen, live,
                                         bucket)
@@ -871,6 +876,8 @@ class ModelGateway:
                         for req in live:
                             if not req.future.done():
                                 req.future.set_exception(exc)
+                    finally:
+                        _profiler.step_idle()
             finally:
                 with self._cond:
                     n = st.inflight.get(gen, 0) - 1

@@ -145,7 +145,16 @@ def test_importing_the_port_loads_no_jax():
         "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell, "
         "mxnet_tpu_torch.gluon.contrib.data, "
         "mxnet_tpu_torch.gluon.contrib.data.sampler, "
-        "mxnet_tpu_torch.gluon.contrib.loss\n"
+        "mxnet_tpu_torch.gluon.contrib.loss, "
+        "mxnet_tpu_torch.contrib.text, mxnet_tpu_torch.contrib.text.vocab, "
+        "mxnet_tpu_torch.contrib.text.utils, "
+        "mxnet_tpu_torch.contrib.text.embedding, "
+        "mxnet_tpu_torch.contrib.svrg_optimization, "
+        "mxnet_tpu_torch.contrib.svrg_optimization.svrg_module, "
+        "mxnet_tpu_torch.contrib.svrg_optimization.svrg_optimizer, "
+        "mxnet_tpu_torch.test_utils, mxnet_tpu_torch.monitor, "
+        "mxnet_tpu_torch.visualization, mxnet_tpu_torch.tools.im2rec, "
+        "mxnet_tpu_torch.tools.rec2idx, mxnet_tpu_torch.tools.rec_shard\n"
         "import importlib\n"
         "importlib.import_module('mxnet_tpu_torch.parallel.ring_attention')\n"
         "import mxnet_tpu_torch.data as d\n"
@@ -188,6 +197,12 @@ def test_default_context_is_gpu0_and_tpu_aliases_gpu():
         calib_data=mx.io.NDArrayIter(np.ones((2, 3), np.float32),
                                      batch_size=2, ctx=mx.cpu())),
     lambda: mx.gluon.contrib.nn.SparseEmbedding(10, 4).initialize(),
+    # The test oracles build their arrays on the current context.
+    lambda: mx.test_utils.rand_ndarray((2, 3)),
+    lambda: mx.test_utils.check_consistency(lambda a: a, [np.ones(2)]),
+    # An embedding's matrix is handed out on the current context.
+    lambda: mx.contrib.text.embedding.CompositeEmbedding(
+        mx.contrib.text.Vocabulary(), []).idx_to_vec,
 ])
 def test_no_ctx_without_cuda_raises(make):
     if torch.cuda.is_available():

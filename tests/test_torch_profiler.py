@@ -255,3 +255,129 @@ def test_a_session_on_the_training_thread_itself_does_not_wait():
     with session:
         _program(mx, mx.cpu())
     assert time.monotonic() - t0 < mx.profiler._PARK_S / 2
+
+
+class _SlowModel:
+    """A served model whose batch takes `seconds` on the worker thread,
+    flagging while it runs."""
+
+    compile_count = 0
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+        self.in_batch = False
+        self.batches = 0
+
+    def __call__(self, batch):
+        import time
+
+        self.in_batch = True
+        time.sleep(self.seconds)
+        self.in_batch = False
+        self.batches += 1
+        return batch
+
+
+def test_an_idle_serving_loop_does_not_delay_a_session():
+    # The server's worker marks itself idle after each batch: a session
+    # opened while it waits on its queue starts and stops at once, where
+    # its last batch (1 s) would otherwise hold the start up to 2.1 s.
+    import time
+
+    model = _SlowModel(1.0)
+    server = mx.serving.InferenceServer(
+        model=model, item_shape=(2,), max_batch=1, ctx=mx.cpu(),
+        warmup=False)
+    try:
+        for _ in range(2):
+            server.predict(np.ones((1, 2), np.float32))
+        t0 = time.monotonic()
+        with mx.profiler.open_session():
+            pass
+        assert time.monotonic() - t0 < 0.5
+    finally:
+        server.shutdown()
+    assert model.batches == 2
+
+
+def test_a_busy_serving_loop_parks_while_a_session_starts_and_stops(
+        monkeypatch):
+    # Under load the server's worker parks before its next batch while
+    # another thread starts or stops a session: no batch runs inside a
+    # transition, and batches run inside the window.
+    import threading
+    import time
+
+    model = _SlowModel(0.005)
+    server = mx.serving.InferenceServer(
+        model=model, item_shape=(2,), max_batch=1, max_delay_ms=0.0,
+        ctx=mx.cpu(), warmup=False)
+    done = threading.Event()
+
+    def load():
+        while not done.is_set():
+            server.predict(np.ones((1, 2), np.float32))
+
+    clients = [threading.Thread(target=load, daemon=True) for _ in range(2)]
+    for c in clients:
+        c.start()
+    try:
+        while model.batches < 5:
+            time.sleep(0.001)
+        seen = {}
+        session = mx.profiler.open_session()
+        for name in ("prepare_trace", "start_trace", "stop"):
+            real = getattr(session.prof, name)
+
+            def wrapped(real=real, name=name):
+                samples = []
+                for _ in range(5):
+                    samples.append(model.in_batch)
+                    time.sleep(0.004)
+                seen[name] = samples
+                return real()
+            monkeypatch.setattr(session.prof, name, wrapped)
+        with session:
+            batches = model.batches
+            time.sleep(0.05)
+            assert model.batches > batches      # it serves in the window
+    finally:
+        done.set()
+        for c in clients:
+            c.join(timeout=10)
+        server.shutdown()
+    assert seen == {name: [False] * 5
+                    for name in ("prepare_trace", "start_trace", "stop")}
+    assert mx.profiler._park_request is None
+
+
+def test_the_gateway_loop_marks_its_batches():
+    # The gateway's dispatch loop marks a boundary before each batch and
+    # goes idle after it.
+    import time
+
+    from mxnet_tpu_torch.serving import gateway
+
+    marks = []
+    real_boundary = mx.profiler.step_boundary
+    real_idle = mx.profiler.step_idle
+    try:
+        mx.profiler.step_boundary = lambda: marks.append("b")
+        mx.profiler.step_idle = lambda: marks.append("i")
+        assert gateway._profiler is mx.profiler
+        gw = gateway.ModelGateway(ctx=mx.cpu())
+        try:
+            gw.register(mx.serving.ModelSpec(
+                "m", fn=lambda w, x: x * w,
+                params=[mx.nd.ones((2,), ctx=mx.cpu())],
+                item_shape=(2,), max_batch=2))
+            gw.predict("m", np.ones((1, 2), np.float32))
+            time.sleep(0.05)
+        finally:
+            gw.shutdown()
+    finally:
+        mx.profiler.step_boundary = real_boundary
+        mx.profiler.step_idle = real_idle
+    # The warmup runs on the caller's thread; the served batch marks
+    # "b" then "i" on the gateway's.
+    assert marks[-2:] == ["b", "i"]
