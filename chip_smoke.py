@@ -115,8 +115,8 @@ phase falls back to the host or to a plain version):
 14. checkpoint: ResNet-50 v1 at full width (b32, SGD lr 0.1, momentum
    0.9, wd 1e-4, random weights from seed 0) through
    ``mxnet_tpu_torch.checkpoint``: the bytes of a TrainStep
-   ``state_dict``; fp32 TrainStep img/s (benchmark_rate's windows) with
-   no saves, an async ``CheckpointManager.save`` every step and every 10
+   ``state_dict``; fp32 TrainStep img/s (one window of 10 steps after 3
+   warm ones, a configuration) with no saves, an async ``CheckpointManager.save`` every step and every 10
    steps, and no saves again (``keep_last=2`` in a temporary directory,
    whose free space and filesystem type are printed), with the
    ``checkpoint::snapshot`` ms, the writer's MB/s, write and commit ms
@@ -269,7 +269,7 @@ phase falls back to the host or to a plain version):
    ``MultiBoxDetection`` (nms_threshold 0.45, nms_topk 400) of a b32
    forward: ms, D1 launched once, the output bit for bit the plain
    route's on the card; (4) ``-n 2 -s 1``: two workers train it (fp32,
-   b32 each) through ``gluon.Trainer(kvstore="dist_sync")``, 2 + 3
+   b32 each) through ``gluon.Trainer(kvstore="dist_sync")``, 2 + 2
    steps, img/s summed, push, pull and server-apply ms, the workers bit
    for bit every step, rank 0's losses those of one process stepping on
    both batches' mean gradient (``SSD300["dist_witness_rtol"]``),
@@ -280,7 +280,7 @@ phase falls back to the host or to a plain version):
    Proposal over a 38x63 map with the JAX defaults; ROIPooling/ROIAlign
    7x7 over (1, 512, 38, 63) with 300 ROIs; DeformableConvolution 512 ->
    512; R-FCN's deformable PS-ROI; FlowNetC's correlation); (6)
-   ``examples.train_rcnn`` 20 steps on the card; then D1 (greedy NMS) at
+   ``examples.train_rcnn`` 10 steps on the card; then D1 (greedy NMS) at
    the SSD decode's and Proposal's shapes and D2 (ROIPooling forward and
    backward, fp32) against their plain versions on the card: D1's keep
    masks and D2's forward bit for bit, D2's gradient within
@@ -334,7 +334,20 @@ phase falls back to the host or to a plain version):
    and idle share over ``TELE_COST_STEPS`` steps off
    (``telemetry.set_enabled(False)``), at the default, and with
    attribution's device spans on, in two rounds (one in each order); (4)
-   ``examples.train_telemetry`` to its own ``ok``.
+   ``examples.train_telemetry`` to its own ``ok``; (5) the port's
+   telemetry tools, each through its ``main(argv)`` in this process,
+   over the files parts 1 and 2 committed: ``diagnose`` over the
+   flight recorder's directory, plain and ``--merge``, summarizes every
+   bundle, its ``env:`` lines name the card and its ``cuda:0`` lines the
+   bundles' bytes; ``goodput_report summary`` prints the wall-clock and
+   goodput ratio ``goodput.load_ledger`` reads from the ledger, and
+   ``compare`` of the ledger with itself every delta as zero;
+   ``profile_tool top`` over part 1's and part 2's collapsed captures
+   (``TELE_CAPTURES``: each window's spans through
+   ``flamegraph.dump_collapsed``) prints shares summing to at most 100%,
+   ``merge -o`` writes a capture whose self time is the two inputs' sum,
+   and ``profile_tool diff`` and ``flame_diff`` print the same rows for
+   the pair.
 23. the multi-model gateway: (1) one ``ModelGateway`` over five models
    registered with warmup (each runs one signature per bucket):
    ResNet-50 v1 fp32 (TF32 off) as an fn model over its weights
@@ -507,7 +520,27 @@ phase falls back to the host or to a plain version):
    and ResNet-50 v1 b32 trained 4 ``TrainStep`` steps from those
    records with finite losses; pack and feed img/s.
 
-Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27) is driven with
+28. the benches of ``mxnet_tpu_torch/tools`` (``TOOLS``), each part a
+   path of its own, in this process but for the dist group's scheduler
+   and server: (1) ``dispatch_bench`` (10-op chain, 256x256, 200
+   iterations) on gpu(0), eager and ``CachedOp`` op/s and µs per op, the
+   two chains' sums on the card bit for bit; (2) ``quantized_bench`` at
+   its shapes (conv 256 -> 256, 3x3 on 14x14, and FC 2048 -> 1000, b32;
+   fp32 with TF32 off against the int8 operators): both rows, int8 GEMMs
+   run on the card, and the card's int8 conv and FC outputs against the
+   same operators on the host within two float32 roundings of the
+   rescale at the host's largest output; (3) ``decode_bench`` over 64
+   224x224 PNG records without resize at 0, 2 and 4 decode threads:
+   img/s finite and positive, every batch on gpu(0); the JAX tool's JPEG
+   workload (resize to 256) where this host has cv2, else the JPEG
+   records' refusal naming cv2; (4) ``bandwidth.measure``: the
+   ``device`` kvstore on the one card at the tool's three sizes, then a
+   ``dist_sync`` group of one scheduler and one server with this process
+   its worker, its arrays on the card and then on the host: GB/s
+   finite and positive, every pulled first element the 1.0 pushed, the
+   device kvstore below HBM's rate. None of the port's kernels launches.
+
+Each path (4, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28) is driven with
 every launch count set to 0 just before it and read just after. Then one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line. The weights are
 random, from a seed. The K1-K3 rows' ``ms``, ``plain_ms`` and
@@ -2835,7 +2868,7 @@ def phase_input_pipeline(card_line, synthetic):
             s = train_imagenet.build_train_step("resnet50", dtype=dtype,
                                                 device=gpu)
             with _pipeline(rec, gpu, True, random_aug=True) as pipe:
-                fed[tag] = _fed_rate(s, pipe, windows=2)
+                fed[tag] = _fed_rate(s, pipe, windows=1)
             fed[tag]["synthetic_img_s"] = synthetic[tag]["img_s_b32"]
             log("phase 13: fed", tag, fed[tag])
         mx.random.seed(SEED)
@@ -2844,7 +2877,7 @@ def phase_input_pipeline(card_line, synthetic):
         loader, batches = _loader_batches(rec, workers=4)
         try:
             fed["bf16_dataloader_4_workers"] = _fed_rate(s, batches,
-                                                         windows=2)
+                                                         windows=1)
         finally:
             loader.close()
         # The DataLoader records no data::wait spans: its wait is the
@@ -3276,10 +3309,10 @@ def phase_checkpoint(card_line):
         import logging
         logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
             logging.ERROR)
-        # 3 + 2 x 10 = 23 steps a configuration: the every-10 one ends
-        # at step 1 + 3 x 23 = 70, a multiple of 10, so its newest
-        # commit is its last step.
-        rates = [_ckpt_rate(step, x, y, tmpdir, every, windows=2)
+        # 3 + 10 = 13 steps a configuration: the every-10 one ends at
+        # step 1 + 3 x 13 = 40, a multiple of 10, so its newest commit
+        # is its last step.
+        rates = [_ckpt_rate(step, x, y, tmpdir, every, windows=1)
                  for every in (0, 1, 10, 0)]
         logging.getLogger("mxnet_tpu_torch.checkpoint.manager").setLevel(
             logging.NOTSET)
@@ -5175,7 +5208,7 @@ ZOO_SERVED = (("vgg16", 224), ("inceptionv3", 299))
 # its default 5, of 8 steps at b32 and 5 at b512, not 16 and 10, to keep
 # the whole script's time as phases are added.
 ZOO_WINDOWS = 2
-ZOO_ITERS = {32: 8, 512: 5}
+ZOO_ITERS = {32: 6, 512: 4}
 # The reference's published V100 img/s (BASELINE.md:17, 28, 35): a
 # reading beside ours, not a target.
 ZOO_REFERENCE_V100 = {"inceptionv3_train_b32": 214.48,
@@ -6312,8 +6345,8 @@ SSD300 = {
                "variances": (.1, .1, .2, .2)},
     "detect": {"nms_threshold": .45, "nms_topk": 400},
     "opt": {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4},
-    "warmup": 3, "windows": 5, "iters": 8, "profile_iters": 3,
-    "f64_batch": 2, "dist_warmup": 2, "dist_steps": 3,
+    "warmup": 3, "windows": 5, "iters": 8, "profile_iters": 2,
+    "f64_batch": 2, "dist_warmup": 2, "dist_steps": 2,
     # Part 1 holds the loss against the targets frozen after the warmup,
     # at the ends of the last two timed windows (their mean), this far
     # below its value before the windows. A step's own loss is not one
@@ -7316,7 +7349,7 @@ def phase_detection(card_line):
         "d1_d2_launches_per_worker"]
     result["sweep"] = part("op_sweep", lambda: _det_sweep(mx))
     result["rcnn_example_rpn_losses"] = part(
-        "rcnn_example", lambda: train_rcnn.run(steps=20, ctx=mx.gpu(0)))
+        "rcnn_example", lambda: train_rcnn.run(steps=10, ctx=mx.gpu(0)))
     kernels = part("kernels", lambda: [_d1_row(card, [
         ("ssd300_decode", ssd_call),
         ("proposal_op", _proposal_nms_call(mx))])] + _d2_rows(card),
@@ -7877,7 +7910,7 @@ def phase_placement(card_line):
 
 
 # Phase 22: telemetry and profiling on the training paths.
-TELE_COST_STEPS = 6         # steps a configuration of part 3 is timed over
+TELE_COST_STEPS = 4         # steps a configuration of part 3 is timed over
 TELE_COST_ORDER = ("off", "default", "device_spans",
                    "device_spans", "default", "off")
 TELE_XPROF_S = 0.5          # seconds of the /debug/xprof capture (part 1)
@@ -7886,6 +7919,9 @@ TELE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                 "flash_bwd_dq_wgmma_kernel")
 TELE_RESNET = {"network": "resnet50", "batch": 32, "image": 224}
 TELE_ATTN = {"units": 1024, "heads": 16, "batch": 8, "seq": 2048}
+# The collapsed captures of part 1's xprof window and part 2's profiled
+# steps, which part 5 reads with the telemetry tools.
+TELE_CAPTURES = ("resnet.collapsed", "attention.collapsed")
 XPROF_SERVE_CLIENTS = 4     # probe_xprof_abort(load="serve")'s clients
 
 
@@ -8034,9 +8070,9 @@ def _tele_resnet(card_line, tmp):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.examples import train_imagenet
-    from mxnet_tpu_torch.telemetry import goodput
+    from mxnet_tpu_torch.telemetry import flamegraph, goodput
     from mxnet_tpu_torch.telemetry import healthplane as hp
-    from mxnet_tpu_torch.telemetry import memstats
+    from mxnet_tpu_torch.telemetry import memstats, trace
 
     hp.reset()      # earlier phases' components are not this path's
     step = train_imagenet.build_train_step(TELE_RESNET["network"], 1000,
@@ -8046,6 +8082,8 @@ def _tele_resnet(card_line, tmp):
                                         rate_limit_s=0.0)
     recorder.attach(monitor)
     mem = telemetry.DeviceMemoryMonitor(interval_s=0.0)
+    # The ledger commits into an existing directory (part 5 reads it).
+    os.makedirs(os.path.join(tmp, "goodput"))
     ledger = telemetry.GoodputLedger(os.path.join(tmp, "goodput"), rank=0,
                                      interval_s=0.0)
     goodput.install(ledger)
@@ -8092,10 +8130,12 @@ def _tele_resnet(card_line, tmp):
         check((sample["bytes"], sample["peak_bytes"]) == want,
               "memstats %s against torch.cuda's in use and peak %s"
               % (sample, want))
-        # /debug/xprof from another thread while this one trains.
+        # /debug/xprof from another thread while this one trains; the
+        # window's spans are folded into a collapsed capture.
         reply = []
         t = threading.Thread(target=lambda: reply.append(_http(
             base + "/debug/xprof?seconds=%g" % TELE_XPROF_S, "POST")))
+        trace.clear()
         t.start()
         i, t0 = 0, time.perf_counter()
         while t.is_alive() or i < 5:
@@ -8109,6 +8149,7 @@ def _tele_resnet(card_line, tmp):
             ledger.tick()
         t.join(timeout=120)
         xprof_s = time.perf_counter() - t0
+        flamegraph.dump_collapsed(os.path.join(tmp, TELE_CAPTURES[0]))
         steps_ms = xprof_s * 1e3 / i
         check(reply and reply[0][0] == 200, "/debug/xprof: %s" % reply)
         events = _trace_events(os.path.join(
@@ -8167,6 +8208,7 @@ def _tele_attention(card_line, tmp, monitor):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import gluon, nd, profiler, telemetry
     from mxnet_tpu_torch.examples.attention_layer import SelfAttention
+    from mxnet_tpu_torch.telemetry import flamegraph, trace
 
     units, b, seq = TELE_ATTN["units"], TELE_ATTN["batch"], TELE_ATTN["seq"]
     mx.random.seed(SEED)
@@ -8197,11 +8239,13 @@ def _tele_attention(card_line, tmp, monitor):
     profiler.set_config(filename=path)
     before = _launches()
     torch.cuda.synchronize()
+    trace.clear()
     profiler.set_state("run")
     for _ in range(TELE_ATTN_STEPS):
         losses.append(one(step))
         step += 1
     torch.cuda.synchronize()
+    flamegraph.dump_collapsed(os.path.join(tmp, TELE_CAPTURES[1]))
     counted = tuple(a - b for a, b in zip(_launches(), before))
     check(profiler.dump() == path, "profiler.dump wrote elsewhere")
     events = _trace_events(path)
@@ -8293,6 +8337,109 @@ def _tele_cost(card_line, step, x, y):
     check(device_ms > 0, "part 3: the profiler saw no device time")
 
 
+def _tool_text(tool, argv):
+    """What one of the port's tools prints through its ``main(argv)``
+    in this process (standard output captured); it must return 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = tool.main(list(argv))
+    check(code == 0, "%s %s returned %s" % (tool.__name__, argv, code))
+    return buf.getvalue()
+
+
+def _tele_tools(card_line, tmp):
+    """Part 5: the port's telemetry tools over the files parts 1 and 2
+    committed (the flight recorder's bundles, the goodput ledger, the
+    two collapsed captures), each through its ``main(argv)`` in this
+    process. Returns the part's readings."""
+    import os
+
+    from mxnet_tpu_torch.telemetry import flamegraph, goodput
+    from mxnet_tpu_torch.telemetry.recorder import DIAG_RE
+    from mxnet_tpu_torch.tools import (diagnose, flame_diff, goodput_report,
+                                       profile_tool)
+
+    card = torch.cuda.get_device_name(0)
+    diag = os.path.join(tmp, "diag")
+    names = sorted(n for n in os.listdir(diag) if DIAG_RE.match(n))
+    plain = _tool_text(diagnose, [diag])
+    merged = _tool_text(diagnose, ["--merge", diag])
+    env_lines = [row for row in plain.splitlines()
+                 if row.startswith("env:")]
+    memory = []
+    for name in names:
+        with open(os.path.join(diag, name)) as f:
+            bundle = json.load(f)
+        rec = (bundle.get("device_memory") or {}).get("cuda:0")
+        if rec:
+            memory.append("device cuda:0: %s live" % diagnose._fmt_bytes(
+                rec.get("bytes") or 0))
+    ledger = os.path.join(tmp, "goodput", goodput.ledger_name(0))
+    snap = goodput.load_ledger(ledger)
+    summary = _tool_text(goodput_report, ["summary", ledger])
+    compare = _tool_text(goodput_report, ["compare", ledger, ledger])
+    deltas = [float(row.split()[-2]) for row in compare.splitlines()
+              if row.endswith(" pp")]
+    deltas.append(float(compare.split("(")[1].split()[0]))
+    resnet, attention = (os.path.join(tmp, n) for n in TELE_CAPTURES)
+    tops = {n: _tool_text(profile_tool, ["top", os.path.join(tmp, n)])
+            for n in TELE_CAPTURES}
+    # The share column of each top's rows, in percent.
+    shares = {n: [float(row.rsplit(None, 1)[-1].rstrip("%"))
+                  for row in t.splitlines()[2:] if row.endswith("%")]
+              for n, t in tops.items()}
+    out = os.path.join(tmp, "merged.collapsed")
+    _tool_text(profile_tool, ["merge", "-o", out, resnet, attention])
+
+    def total(path):
+        with open(path) as f:
+            return sum(flamegraph._parse_collapsed(f.read()).values())
+
+    diff = _tool_text(profile_tool, ["diff", resnet, attention])
+    fdiff = _tool_text(flame_diff, [resnet, attention])
+    line = {"part": "telemetry_tools", "card": card_line,
+            "bundles": names, "diagnose_env": env_lines,
+            "diagnose_memory": memory,
+            "goodput": {"wall_s": snap["wall_s"],
+                        "goodput_ratio": snap["goodput_ratio"]},
+            "compare_deltas_pp": deltas,
+            "top_rows": {n: t.splitlines()[2:5] for n, t in tops.items()},
+            "top_share_sum": {n: sum(v) for n, v in shares.items()},
+            "capture_self_us": [total(resnet), total(attention)],
+            "merged_self_us": total(out),
+            "diff_rows": fdiff.splitlines()[2:6]}
+    log(json.dumps(line))
+    check(len(names) >= 2, "phase 22 committed %d bundles" % len(names))
+    check("%d bundle(s) summarized" % len(names) in plain
+          and "%d bundle(s) summarized" % len(names) in merged
+          and "INCIDENT kind=" in merged,
+          "diagnose summarized other than the %d bundles" % len(names))
+    check(len(env_lines) == len(names) and all(
+        ", device %s," % card in row for row in env_lines),
+        "diagnose's env lines do not name %r: %s" % (card, env_lines))
+    check(memory and all(m in plain for m in memory),
+          "diagnose's cuda:0 lines miss the bundles' bytes %s" % memory)
+    check("wall-clock       %12.3f s" % snap["wall_s"] in summary
+          and "goodput ratio    %11.1f %%" % (snap["goodput_ratio"] * 100.0)
+          in summary, "goodput_report summary against load_ledger %s:\n%s"
+          % (line["goodput"], summary))
+    check(len(deltas) > 2 and all(d == 0.0 for d in deltas),
+          "goodput_report compare of a ledger with itself: %s" % deltas)
+    for name, v in shares.items():
+        check(v and sum(v) <= 100.0 + 0.05 * len(v),
+              "profile_tool top %s: shares %s" % (name, v))
+    check(line["merged_self_us"] == sum(line["capture_self_us"]),
+          "profile_tool merge: %s self us from %s"
+          % (line["merged_self_us"], line["capture_self_us"]))
+    check(diff == fdiff and "Self-time share diff" in diff,
+          "profile_tool diff and flame_diff differ:\n%s\n%s"
+          % (diff, fdiff))
+    return line
+
+
 def phase_telemetry(card_line):
     """Phase 22: telemetry and profiling (module docstring). Returns
     each path's launch read."""
@@ -8327,7 +8474,9 @@ def phase_telemetry(card_line):
                                      tmp + "/example"])
         reads["telemetry_example"] = _all_launches()
         check(code == 0, "examples.train_telemetry ended with %d" % code)
-        seconds["example"] = time.perf_counter() - t
+        seconds["example"], t = time.perf_counter() - t, time.perf_counter()
+        _tele_tools(card_line, tmp)
+        seconds["tools"] = time.perf_counter() - t
         log(json.dumps({"phase": "telemetry", "part_seconds": seconds}))
         log("phase 22 seconds", round(time.perf_counter() - t_phase, 3))
         return reads
@@ -11377,6 +11526,226 @@ def phase_toolkit(card_line, kernel_ms):
     return reads
 
 
+# -- slice 24: the tools -------------------------------------------------------
+
+# The four benches at their tools' defaults, except decode_bench: 64
+# 224x224 PNG records (``--img-fmt .png --resize 0``, which the port's
+# codec serves without cv2) at 0, 2 and 4 decode threads, 32 a batch, 6
+# batches a count. The dist_sync group: one scheduler and one server,
+# this process its worker, at the tool's three sizes, its arrays on the
+# card, then on the host.
+TOOLS = {"dispatch": {"iters": 200, "size": 256},
+         "quantized": {"batch": 32, "channels": 256, "iters": 20},
+         "decode": {"n": 64, "size": 224, "batch": 32, "batches": 6,
+                    "threads": (0, 2, 4)},
+         "kv_sizes": (262144, 1048576, 4194304), "kv_repeat": 5,
+         "dist_servers": 1}
+
+
+def _tools_dispatch(mx):
+    """dispatch_bench's two rows on gpu(0); the eager and CachedOp
+    chains' sums."""
+    from mxnet_tpu_torch.tools import dispatch_bench
+
+    cfg = TOOLS["dispatch"]
+    text = _tool_text(dispatch_bench, ["--iters", str(cfg["iters"]),
+                                       "--size", str(cfg["size"])])
+    rows = [json.loads(r) for r in text.splitlines() if r.startswith("{")]
+    with mx.gpu(0):
+        (_, _, eager), (_, _, cached) = dispatch_bench.run(
+            iters=2, size=cfg["size"])
+    return {"rows": rows,
+            "sums_on": [str(eager.context), str(cached.context)],
+            "sums_bit_for_bit": eager.asnumpy().tobytes()
+            == cached.asnumpy().tobytes(),
+            "eager_sum": float(eager.asnumpy())}
+
+
+def _tools_quantized(mx):
+    """quantized_bench's two rows on gpu(0); the card's int8 conv and
+    FC at the tool's shapes against the same operators on the host."""
+    from mxnet_tpu_torch.ops import quantization_ops
+    from mxnet_tpu_torch.tools import quantized_bench as qb
+
+    cfg = TOOLS["quantized"]
+    gemms = quantization_ops.INT8_GEMMS
+    text = _tool_text(qb, ["--batch", str(cfg["batch"]),
+                           "--channels", str(cfg["channels"]),
+                           "--iters", str(cfg["iters"])])
+    rows = [json.loads(r) for r in text.splitlines() if r.startswith("{")]
+    gemms = quantization_ops.INT8_GEMMS - gemms
+    data = qb.layers(cfg["batch"], cfg["channels"])
+    parity = {}
+    for key, (_, i8) in (("conv", qb.conv_fns(cfg["channels"])),
+                         ("fc", qb.fc_fns())):
+        x, _, wq = data[key]
+        host = i8(torch.from_numpy(x), torch.from_numpy(wq))
+        card = i8(torch.from_numpy(x).cuda(), torch.from_numpy(wq).cuda())
+        err = float((card.cpu() - host).abs().max())
+        # Both sides accumulate int8 x int8 exactly in int32; they differ
+        # only by the float32 rescale: the int32 sum rounded to float32,
+        # then times the float32 reciprocal of the scales, two roundings
+        # of at most half an ulp of the largest output each.
+        limit = 2 * 2.0 ** -24 * float(host.abs().max())
+        parity[key] = {"max_abs_err": err, "limit": limit,
+                       "shape": list(host.shape)}
+    return {"rows": rows, "int8_gemms": gemms, "parity": parity}
+
+
+def _tools_decode(mx, tmp):
+    """decode_bench over PNG records on gpu(0) at TOOLS' thread counts;
+    the JAX tool's JPEG workload where this host has cv2, else its
+    refusal."""
+    import os
+
+    from mxnet_tpu_torch.tools import decode_bench
+
+    cfg = TOOLS["decode"]
+    rec, idx = decode_bench.make_dataset(tmp, cfg["n"], cfg["size"], ".png")
+    seen, rates = [], {}
+    for t in cfg["threads"]:
+        rates[t] = decode_bench.bench(rec, idx, cfg["size"], cfg["batch"],
+                                      cfg["batches"], t, resize=0,
+                                      ctx=mx.gpu(0), seen=seen)
+    out = {"png_img_s": rates, "batches": len(seen),
+           "batch_contexts": sorted({str(c) for c in seen}),
+           "host_cores": os.cpu_count()}
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    out["host_has_cv2"] = has_cv2
+    jpg = os.path.join(tmp, "jpeg")
+    os.makedirs(jpg)
+    if has_cv2:
+        rec, idx = decode_bench.make_dataset(jpg, cfg["n"], cfg["size"])
+        out["jpeg_resize_img_s"] = {
+            t: decode_bench.bench(rec, idx, cfg["size"], cfg["batch"],
+                                  cfg["batches"], t, ctx=mx.gpu(0))
+            for t in cfg["threads"]}
+    else:
+        try:
+            decode_bench.make_dataset(jpg, cfg["n"], cfg["size"])
+            out["jpeg_refusal"] = None
+        except ImportError as exc:
+            out["jpeg_refusal"] = str(exc)
+    return out
+
+
+def _tools_bandwidth(mx):
+    """bandwidth.measure: the device kvstore on the one card, then the
+    dist_sync group's worker with its arrays on the card and on the
+    host."""
+    from mxnet_tpu_torch.tools.bandwidth import measure
+
+    sizes, repeat = TOOLS["kv_sizes"], TOOLS["kv_repeat"]
+    out = {}
+    proof = []
+    with mx.gpu(0):
+        out["device"] = measure.measure("device", None, sizes, repeat,
+                                        proof=proof)
+    out["device_proof"] = sorted(set(proof))
+    t0 = time.perf_counter()
+    with measure.dist_group(TOOLS["dist_servers"]) as kv:
+        out["dist_group_start_s"] = time.perf_counter() - t0
+        for tag, ctx in (("dist_gpu", mx.gpu(0)), ("dist_cpu", mx.cpu())):
+            proof = []
+            out[tag] = measure.dist_rounds(kv, sizes, repeat, ctx=ctx,
+                                           proof=proof, prefix=tag)
+            out[tag + "_proof"] = sorted(set(proof))
+    out["dist_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tools(card_line):
+    """Phase 28: the port's benches (see the module docstring). Returns
+    their launch counts by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    read = {}
+    reads = {}
+    tmp = tempfile.mkdtemp(prefix="tools-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "mxnet_tpu_torch",
+        "_build"))
+    try:
+        for name, part in (
+                ("tools_dispatch", lambda: _tools_dispatch(mx)),
+                ("tools_quantized", lambda: _tools_quantized(mx)),
+                ("tools_decode", lambda: _tools_decode(mx, tmp)),
+                ("tools_bandwidth", lambda: _tools_bandwidth(mx))):
+            _reset_all_launches()   # this part's path starts here
+            t0 = time.perf_counter()
+            value = part()
+            reads[name] = _all_launches()   # read just after it
+            value["seconds"] = time.perf_counter() - t0
+            read[name] = value
+            log(json.dumps({"phase": "tools", "reading": name,
+                            "card": card_line, name: value}, default=str))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "tools", "card": card_line, "launches": reads,
+                    "seconds": seconds}, default=str))
+
+    dp = read["tools_dispatch"]
+    check([r["mode"] for r in dp["rows"]] == ["eager", "cached_op"]
+          and all(r["value"] > 0 for r in dp["rows"]),
+          "dispatch_bench rows %s" % dp["rows"])
+    card_ctx = str(mx.gpu(0))
+    check(dp["sums_on"] == [card_ctx] * 2 and dp["sums_bit_for_bit"],
+          "dispatch_bench: eager and CachedOp sums %s" % dp)
+    qt = read["tools_quantized"]
+    check([r["metric"] for r in qt["rows"]] == [
+        "conv3x3_int8_speedup", "fc2048x1000_int8_speedup"]
+        and all(r["value"] > 0 and r["device"] == card_ctx
+                for r in qt["rows"]), "quantized_bench rows %s" % qt["rows"])
+    check(qt["int8_gemms"] > 0, "quantized_bench ran no int8 GEMM on the "
+          "card")
+    for key, row in qt["parity"].items():
+        check(row["max_abs_err"] <= row["limit"], "int8 %s on the card "
+              "against the host: %g > %g" % (key, row["max_abs_err"],
+                                            row["limit"]))
+    dc = read["tools_decode"]
+    check(all(math.isfinite(r) and r > 0 for r in dc["png_img_s"].values())
+          and dc["batch_contexts"] == [card_ctx],
+          "decode_bench: %s" % dc)
+    if not dc["host_has_cv2"]:
+        check(dc["jpeg_refusal"] and "cv2" in dc["jpeg_refusal"],
+              "JPEG records without cv2: %r" % dc["jpeg_refusal"])
+    bw = read["tools_bandwidth"]
+    hbm = PEAKS["H200" if "H200" in card_line else "H100"]["bytes"] / 1e9
+    for tag in ("device", "dist_gpu", "dist_cpu"):
+        check(len(bw[tag]) == len(TOOLS["kv_sizes"]) and all(
+            math.isfinite(g) and g > 0 for _, _, g in bw[tag]),
+            "bandwidth %s rows %s" % (tag, bw[tag]))
+        check(bw[tag + "_proof"] == [1.0], "bandwidth %s pulled %s, pushed "
+              "1.0" % (tag, bw[tag + "_proof"]))
+    check(all(g < hbm for _, _, g in bw["device"]),
+          "the device kvstore above HBM's %g GB/s: %s" % (hbm, bw["device"]))
+    for path, launches in reads.items():
+        check(launches["k1_k2_k3"] == (0, 0, 0)
+              and launches["rtc"] == launches["bn_relu"] == 0
+              and launches["scale_add"] == launches["relu"] == 0
+              and not any(launches["d1_d2"]),
+              "tools: launches on %s: %s" % (path, launches))
+    log("phase 28: dispatch eager %.1f, cached_op %.1f us/op; int8 conv "
+        "%.2fx, FC %.2fx; decode PNG img/s %s; kvstore GB/s device %s, "
+        "dist card %s, dist host %s; %.1f s"
+        % (dp["rows"][0]["us_per_op"], dp["rows"][1]["us_per_op"],
+           qt["rows"][0]["value"], qt["rows"][1]["value"],
+           {t: round(r, 1) for t, r in dc["png_img_s"].items()},
+           [round(g, 2) for _, _, g in bw["device"]],
+           [round(g, 3) for _, _, g in bw["dist_gpu"]],
+           [round(g, 3) for _, _, g in bw["dist_cpu"]], seconds))
+    return reads
+
+
 _DIST_PARTS = {"nccl1": _dist_part_nccl1, "gloo2": _dist_part_gloo2,
                "kvstore": _dist_part_kvstore, "ssd": _dist_part_ssd,
                "place2": _place_part_tp2, "place4": _place_part_dp2tp2,
@@ -11436,6 +11805,7 @@ def main():
     toolkit_reads = _timed(phase_toolkit, card_line, {
         "k1": fwd["fp32"]["device_ms"], "k2": dkv["fp32"]["device_ms"],
         "k3": dq["fp32"]["device_ms"]})
+    tools_reads = _timed(phase_tools, card_line)
     for k, entry in enumerate(detection):
         for path, n in det_reads.items():
             entry["launches_by_path"][path] = n[k]
@@ -11492,7 +11862,9 @@ def main():
     # none of them. Phase 26's six paths launch K4a (and K4's rtc launch
     # under it) on the partitioned int8 server only, 33 times a forward.
     # Phase 27's test oracles (test_utils_oracles) launch K1, K2 and K3
-    # in fp32; its other four paths launch none of them.
+    # in fp32; its other four paths launch none of them. Phase 28's four
+    # paths (tools_dispatch, tools_quantized, tools_decode,
+    # tools_bandwidth) launch none of them.
     for path, read in (("input_pipeline", pipeline["launches"]),
                        ("checkpoint", ckpt_path["launches"]),
                        ("module", module["launches"]),
@@ -11502,7 +11874,7 @@ def main():
                        *placement.items(), *telemetry_reads.items(),
                        *gateway_reads.items(), *cc_reads.items(),
                        *sparse_reads.items(), *quant_reads.items(),
-                       *toolkit_reads.items()):
+                       *toolkit_reads.items(), *tools_reads.items()):
         for entry, n in zip([fwd, dkv, dq] + rtc_list + detection,
                             list(read["k1_k2_k3"]) + [read["rtc"],
                                                       read["bn_relu"],

@@ -53,6 +53,10 @@ CATALOGUE = [
     Knob("MXNET_TPU_MODEL_ZOO_DIR", str, "", "gluon/model_zoo/",
          "local directory of pretrained model zoo params (no-download "
          "model store)", False),
+    Knob("MXNET_DEVICE", str, "", "tools/",
+         "device of a tool's run: auto | cpu | gpu (util.pin_platform's "
+         "values). Unset or auto = the current context, the port's "
+         "default gpu(0); cpu runs on the host", False),
     Knob("MXNET_PROFILE_HZ", float, 67.0, "telemetry/profiling.py",
          "continuous-profiler stack sampling rate (Hz); non-round so "
          "loops don't alias with the sampler", False),

@@ -12,7 +12,23 @@ import os
 import torch
 
 __all__ = ["makedirs", "get_gpu_count", "get_gpu_memory", "use_np_shape",
-           "is_np_shape", "set_np_shape", "pin_platform"]
+           "is_np_shape", "set_np_shape", "pin_platform",
+           "platform_context"]
+
+
+def _platform(choice):
+    """The Context a device choice names: None for ``"auto"``/None/""
+    (the current context stays), ``cpu(0)`` or ``gpu(0)``. Anything
+    else raises — including values arriving through an environment
+    variable, which bypass argparse ``choices=``."""
+    if choice in (None, "", "auto"):
+        return None
+    if choice not in ("cpu", "gpu"):
+        raise ValueError("pin_platform: unknown device %r "
+                         "(expected auto/cpu/gpu)" % (choice,))
+    from .context import cpu, gpu
+
+    return cpu() if choice == "cpu" else gpu()
 
 
 def pin_platform(choice):
@@ -20,17 +36,22 @@ def pin_platform(choice):
     default context of this thread from here on (``Context.__enter__``
     without an exit), ``"gpu"`` keeps the port's default, ``gpu(0)``
     (a missing card raises at first use), and ``"auto"``/None does
-    nothing. Anything else raises — including values arriving through
-    an environment variable, which bypass argparse ``choices=``."""
-    if choice in (None, "auto"):
-        return
-    if choice not in ("cpu", "gpu"):
-        raise ValueError("pin_platform: unknown device %r "
-                         "(expected auto/cpu/gpu)" % (choice,))
-    if choice == "cpu":
-        from .context import cpu
+    nothing. Anything else raises."""
+    ctx = _platform(choice)
+    if ctx is not None and ctx.device_type == "cpu":
+        ctx.__enter__()
 
-        cpu().__enter__()
+
+def platform_context(choice):
+    """The scoped form of :func:`pin_platform`, for tools whose
+    ``main(argv)`` runs inside another program: ``with
+    platform_context(choice):`` makes ``cpu(0)`` or ``gpu(0)`` the
+    current context for the block, and ``"auto"``/None keeps the
+    caller's. The same values, the same error."""
+    import contextlib
+
+    ctx = _platform(choice)
+    return contextlib.nullcontext() if ctx is None else ctx
 
 
 _np_shape = [True]  # torch shapes are numpy-semantic natively
